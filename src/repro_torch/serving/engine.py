@@ -1,0 +1,501 @@
+"""Paged-KV continuous-batching serving engine (the core of
+``repro.serving.engine``).
+
+``BlockAllocator``
+    Reference-counted free list over the shared per-layer KV block pools;
+    block 0 is the reserved null block.
+``Scheduler``
+    FIFO admission (requests wait while the slot or block pool is full;
+    head-of-line blocking keeps admission order = submission order) and
+    chunked prefill, ONE chunk per engine step, interleaved with the
+    batched decode step.
+``DecodeEngine``
+    Owns the parameters and the device cache tree and drives the
+    scheduler. Each decode step is one model step for every slot, then
+    the greedy choice and the fused ``_logit_stats`` pass (two calls
+    of the compensated row-reduction kernel on the card), packed into
+    one [7, B] f32 tensor that crosses to the host once.
+
+Greedy decoding only: a request's chunk boundaries and decode math
+depend only on its own prompt and the cache geometry, so batched serving
+matches solo generation token for token. Prefix caching, session KV,
+preemption, sampling, speculative decoding, fault injection and
+telemetry are later slices of the port; their constructor knobs raise
+``NotImplementedError`` naming the ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch import device as _device
+from repro_torch.kernels import ops
+from repro_torch.models import api, paged
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.paged import NULL_BLOCK, PagedLayout
+from repro_torch.serving.faults import (AdmissionError, AllocatorError,
+                                        NumericsGuard, StallError)
+
+DEFAULT_BLOCK_SIZE = paged.DEFAULT_BLOCK_SIZE
+
+
+def _later(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP queue A, {item})")
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: list
+    max_new_tokens: int
+    eos_id: int | None = None
+    # only temperature == 0 (greedy) is served in this slice
+    temperature: float = 0.0
+    deadline_steps: int | None = None
+    output: list = field(default_factory=list)
+    logprobs: list = field(default_factory=list)   # per emitted token
+    slot: int | None = None
+    done: bool = False
+    prefill_pos: int = 0                           # prompt tokens cached
+    blocks: list = field(default_factory=list)     # pool blocks referenced
+    state: str = "queued"
+    error: str | None = None
+    submit_step: int = 0
+    last_progress_step: int = 0
+
+    @property
+    def num_cached(self) -> int:
+        """Tokens currently occupying KV positions (prompt + emitted)."""
+        return self.prefill_pos + len(self.output)
+
+
+class BlockAllocator:
+    """Reference-counted LIFO free list over a ``num_blocks`` pool; block
+    0 stays reserved. Misuse raises ``AllocatorError``."""
+
+    def __init__(self, num_blocks: int):
+        if num_blocks < 2:
+            raise ValueError("pool needs the null block plus capacity")
+        self.num_blocks = num_blocks
+        self._free = list(range(num_blocks - 1, NULL_BLOCK, -1))
+        self._ref: dict[int, int] = {}
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def num_held(self) -> int:
+        return len(self._ref)
+
+    def refcount(self, block: int) -> int:
+        return self._ref.get(block, 0)
+
+    def alloc(self, n: int) -> list[int]:
+        if n > len(self._free):
+            raise AllocatorError(f"block pool exhausted: want {n}, "
+                                 f"have {len(self._free)}")
+        blocks = [self._free.pop() for _ in range(n)]
+        for b in blocks:
+            self._ref[b] = 1
+        return blocks
+
+    def retain(self, blocks: list[int]) -> None:
+        for b in blocks:
+            if b not in self._ref:
+                raise AllocatorError(f"retain of free block {b}")
+            self._ref[b] += 1
+
+    def release(self, blocks: list[int]) -> None:
+        for b in blocks:
+            if b not in self._ref:
+                raise AllocatorError(f"double free of block {b}")
+            self._ref[b] -= 1
+            if self._ref[b] == 0:
+                del self._ref[b]
+                self._free.append(b)
+
+
+class Scheduler:
+    """FIFO admission + slot assignment + chunked-prefill bookkeeping."""
+
+    def __init__(self, allocator: BlockAllocator, max_slots: int,
+                 layout: PagedLayout, prefill_chunk: int):
+        self.allocator = allocator
+        self.layout = layout
+        self.prefill_chunk = prefill_chunk
+        self.waiting: deque[Request] = deque()
+        self.prefilling: deque[Request] = deque()
+        self.decoding: dict[int, Request] = {}
+        self._free_slots = list(range(max_slots))
+
+    def submit(self, req: Request) -> None:
+        need = len(req.prompt) + req.max_new_tokens
+        if need > self.layout.max_context:
+            raise AdmissionError(
+                f"request {req.rid}: prompt+max_new = {need} exceeds "
+                f"max_context {self.layout.max_context}")
+        usable = self.allocator.num_blocks - 1
+        if self.blocks_needed(req) > usable:
+            raise AdmissionError(
+                f"request {req.rid}: needs {self.blocks_needed(req)} blocks "
+                f"but the pool only has {usable}")
+        req.state = "queued"
+        self.waiting.append(req)
+
+    def blocks_needed(self, req: Request) -> int:
+        return self.layout.blocks_for(len(req.prompt) + req.max_new_tokens)
+
+    def admit(self) -> list[Request]:
+        """Move waiting requests into slots while capacity lasts; the
+        queue head blocks (no skip-ahead)."""
+        admitted = []
+        while self.waiting and self._free_slots:
+            req = self.waiting[0]
+            need = self.blocks_needed(req)
+            if need > self.allocator.num_free:
+                break
+            req.blocks = self.allocator.alloc(need)
+            req.prefill_pos = 0
+            self.waiting.popleft()
+            req.slot = self._free_slots.pop()
+            req.state = "prefilling"
+            self.prefilling.append(req)
+            admitted.append(req)
+        return admitted
+
+    def next_chunk(self) -> tuple[Request, list, int] | None:
+        """The head prefilling request's next chunk (req, tokens, pos0)."""
+        if not self.prefilling:
+            return None
+        req = self.prefilling[0]
+        pos0 = req.prefill_pos
+        return req, req.prompt[pos0:pos0 + self.prefill_chunk], pos0
+
+    def prefill_advance(self, req: Request, n: int) -> bool:
+        """Record ``n`` freshly cached prompt tokens; True when complete."""
+        req.prefill_pos += n
+        if req.prefill_pos == len(req.prompt):
+            self.prefilling.popleft()
+            return True
+        return False
+
+    def start_decoding(self, req: Request) -> None:
+        req.state = "decoding"
+        self.decoding[req.slot] = req
+
+    def _release(self, req: Request) -> None:
+        self.allocator.release(req.blocks)
+        req.blocks = []
+        self._free_slots.append(req.slot)
+
+    def drop(self, req: Request, state: str) -> None:
+        """Remove an admitted request abnormally (quarantine)."""
+        if req in self.prefilling:
+            self.prefilling.remove(req)
+        self.decoding.pop(req.slot, None)
+        self._release(req)
+        req.state = state
+
+    def retire(self, req: Request) -> None:
+        req.done = True
+        req.state = "done"
+        self.decoding.pop(req.slot, None)
+        self._release(req)
+
+    @property
+    def num_unfinished(self) -> int:
+        return (len(self.waiting) + len(self.prefilling)
+                + len(self.decoding))
+
+
+def _logit_stats(logits: torch.Tensor, tokens: torch.Tensor) -> dict:
+    """Per-row logit statistics in two calls of the fused reduction:
+    running max + compensated sum and sum of squares, then the
+    compensated exp-sum for logsumexp = m + log sum e^(l - m).
+
+    ``round_off`` is the numerics guard's detector: the relative
+    deviation between the compensated row sum and a naive f32 sum of the
+    same row (``torch.sum``; a tree reduction on the card, so healthy
+    rows read lower there than on a CPU)."""
+    l32 = logits.to(torch.float32)
+    st = ops.batched_fused_reduce(l32, outputs=("max", "sum", "sumsq"))
+    sumexp = ops.batched_fused_reduce(
+        torch.exp(l32 - st["max"][:, None]), outputs=("sum",))["sum"]
+    lse = st["max"] + torch.log(sumexp)
+    chosen = torch.gather(l32, 1, tokens.to(torch.int64)[:, None])[:, 0]
+    vocab = logits.shape[-1]
+    naive = torch.sum(l32, dim=-1)
+    return {"logprob": chosen - lse, "logsumexp": lse, "max": st["max"],
+            "mean": st["sum"] / vocab,
+            "rms": torch.sqrt(st["sumsq"] / vocab),
+            "round_off": torch.abs(st["sum"] - naive)
+            / (torch.abs(st["sum"]) + 1.0)}
+
+
+def _greedy_tokens(rows: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(rows, dim=-1).to(torch.int32)
+
+
+# host-transfer order of the decode step's packed stats rows
+_STAT_KEYS = ("logprob", "logsumexp", "max", "mean", "rms", "round_off")
+
+
+def _pack(tokens: torch.Tensor, stats: dict) -> torch.Tensor:
+    """[1 + 6, B] f32: token ids (exact in f32, vocab << 2^24) + stats."""
+    return torch.stack([tokens.to(torch.float32)]
+                       + [stats[k] for k in _STAT_KEYS])
+
+
+class DecodeEngine:
+    """Paged continuous-batching engine over a fixed slot pool.
+
+    ``params`` is the port's parameter tree (``api.init_params`` or
+    ``bridge.params_from_reference``); it is moved to ``device``, which
+    defaults to the GPU (``None`` -> ``cuda``, raising without one).
+    ``num_blocks`` sets the shared pool size per layer (default: every
+    slot can hold ``max_context``); a smaller pool oversubscribes and
+    admission waits for real availability.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 4,
+                 max_context: int = 256,
+                 block_size: int = DEFAULT_BLOCK_SIZE,
+                 num_blocks: int | None = None, prefill_chunk: int = 32,
+                 prefix_cache: bool = False, spill_blocks: int = 0,
+                 preempt: str = "off",
+                 guard: NumericsGuard | None = NumericsGuard(),
+                 fault_injector=None, telemetry=None, device=None):
+        self.device = _device.resolve(device)
+        if prefix_cache or spill_blocks:
+            raise _later("prefix caching / session KV / spill", "step 10")
+        if preempt != "off":
+            raise _later("preemption to host", "step 10")
+        if fault_injector is not None:
+            raise _later("fault injection", "step 11")
+        if telemetry is not None:
+            raise _later("telemetry", "step 12")
+        if self.device.type == "cuda":
+            _device.set_numerics()
+        self.cfg = cfg
+        self.params = api.to_device(params, self.device)
+        self.max_slots = max_slots
+        self.kv = api.KVCache.build(cfg, max_context=max_context,
+                                    block_size=block_size,
+                                    max_slots=max_slots,
+                                    num_blocks=num_blocks)
+        self.layout = self.kv.layout
+        self.scheduler = Scheduler(BlockAllocator(self.kv.num_blocks),
+                                   max_slots, self.layout, prefill_chunk)
+        self.guard = guard
+        self.quarantined: list[Request] = []
+        self._step_count = 0
+        self._prefill_chunk = api.prefill_chunk_fn(cfg)   # raises for a
+        self._decode = api.decode_fn(cfg)                 # family not served
+        self.caches = self.kv.init(max_slots, self.device)
+        # host-side next tokens, uploaded once per decode step
+        self._next_tokens = np.zeros((max_slots, 1), np.int32)
+        self._null_row = torch.full((self.layout.max_blocks,), NULL_BLOCK,
+                                    dtype=torch.int32, device=self.device)
+        # KV traffic accounting: the bytes each layout must address per
+        # step (paged: the slot's blocks; contiguous: a max_context row)
+        self._token_bytes = self.kv.token_bytes(max_slots)
+        self._token_bytes_bf16 = api.KVCache.build(
+            cfg.with_(kv_dtype="bf16"), max_context=max_context,
+            block_size=block_size, max_slots=max_slots,
+            num_blocks=num_blocks).token_bytes(max_slots)
+        self.kv_stats = {"paged_bytes": 0, "paged_bytes_bf16": 0,
+                         "contiguous_bytes": 0, "decode_steps": 0,
+                         "prefill_chunks": 0, "prefill_tokens": 0,
+                         "guard_trips": 0, "stalled_requests": 0}
+        self.last_logit_stats: dict | None = None
+
+    # ------------------------------------------------------------ API -----
+
+    def submit(self, req: Request) -> None:
+        """Enqueue a request; raises ``AdmissionError`` for requests that
+        could never run (context or pool overflow)."""
+        if req.temperature > 0.0:
+            raise _later("temperature sampling (keyed RNG)", "step 8")
+        if req.deadline_steps is not None:
+            raise _later("request deadlines", "step 11")
+        req.submit_step = self._step_count
+        req.last_progress_step = self._step_count
+        self.scheduler.submit(req)
+
+    def step(self) -> None:
+        """One engine step: admit, run at most one prefill chunk, then one
+        batched decode step for every decoding slot."""
+        self._step_count += 1
+        for req in self.scheduler.admit():
+            row = torch.full((self.layout.max_blocks,), NULL_BLOCK,
+                             dtype=torch.int32)
+            row[:len(req.blocks)] = torch.as_tensor(req.blocks)
+            paged.reset_slot(self.caches, req.slot, row.to(self.device))
+        nxt = self.scheduler.next_chunk()
+        if nxt is not None:
+            req, chunk, pos0 = nxt
+            tok = torch.tensor([chunk], dtype=torch.int32, device=self.device)
+            logits = self._prefill_chunk(self.params, tok, self.caches,
+                                         req.slot, pos0)
+            req.last_progress_step = self._step_count
+            self.kv_stats["prefill_tokens"] += len(chunk)
+            self._account_prefill(pos0 + len(chunk), first=pos0 == 0)
+            if self.scheduler.prefill_advance(req, len(chunk)):
+                self._emit_first_token(req, logits)
+        if self.scheduler.decoding:
+            self._decode_step()
+
+    def run_until_done(self, max_steps: int = 10_000) -> None:
+        """Drive steps until every request finishes; raises
+        ``StallError`` with per-request diagnostics after ``max_steps``."""
+        for _ in range(max_steps):
+            if not self.scheduler.num_unfinished:
+                return
+            self.step()
+        if self.scheduler.num_unfinished:
+            diags = self.request_diagnostics()
+            self.kv_stats["stalled_requests"] = len(diags)
+            raise StallError(f"{len(diags)} requests unfinished after "
+                             f"{max_steps} steps", diags)
+
+    def request_diagnostics(self) -> list[dict]:
+        sched = self.scheduler
+        out = []
+        for state, reqs in (("waiting", sched.waiting),
+                            ("prefilling", sched.prefilling),
+                            ("decoding", sched.decoding.values())):
+            for req in reqs:
+                out.append({"rid": req.rid, "state": state,
+                            "slot": req.slot,
+                            "blocks_held": len(req.blocks),
+                            "prefill_pos": req.prefill_pos,
+                            "emitted": len(req.output),
+                            "steps_since_progress":
+                                self._step_count - req.last_progress_step})
+        return out
+
+    @property
+    def num_unfinished(self) -> int:
+        return self.scheduler.num_unfinished
+
+    # ------------------------------------------------------- internals ----
+
+    def _decode_fused(self, tokens: torch.Tensor):
+        """Model step + greedy choice + fused logit stats, packed."""
+        logits = self._decode(self.params, tokens, self.caches)
+        rows = logits.reshape(logits.shape[0], -1)
+        toks = _greedy_tokens(rows)
+        return rows, _pack(toks, _logit_stats(rows, toks))
+
+    def _emit_first_token(self, req: Request, logits: torch.Tensor) -> None:
+        """The final prefill chunk's logits yield the first token."""
+        row = logits.reshape(1, -1)
+        toks = _greedy_tokens(row)
+        packed = _pack(toks, _logit_stats(row, toks)).cpu().numpy()
+        tok = int(packed[0, 0])
+        stats = {k: packed[i + 1] for i, k in enumerate(_STAT_KEYS)}
+        self.scheduler.start_decoding(req)
+        tripped = self._guard_tripped(stats, [(0, req)])
+        if tripped:
+            self._quarantine(req, tripped[0][1])
+            return
+        req.output.append(tok)
+        req.logprobs.append(float(stats["logprob"][0]))
+        self._next_tokens[req.slot, 0] = tok
+        if self._finished(req, tok):
+            self._retire(req)
+
+    def _decode_step(self) -> None:
+        prefilling = [r.slot for r in self.scheduler.prefilling]
+        old_len = self.caches["len"].clone() if prefilling else None
+        tok_in = torch.from_numpy(self._next_tokens).to(self.device)
+        _, packed_dev = self._decode_fused(tok_in)
+        if prefilling:
+            # the batched step also advanced mid-prefill slots' lengths
+            mask = torch.zeros(self.max_slots, dtype=torch.bool,
+                               device=self.device)
+            mask[prefilling] = True
+            paged.keep_slots(self.caches, old_len, mask)
+        packed = packed_dev.cpu().numpy()          # the step's one transfer
+        tokens = packed[0].astype(np.int32)
+        self.last_logit_stats = {k: packed[i + 1]
+                                 for i, k in enumerate(_STAT_KEYS)}
+        self._account_decode()
+        tripped = self._guard_tripped(
+            self.last_logit_stats, list(self.scheduler.decoding.items()))
+        skip = {req.rid for req, _ in tripped}
+        retired = []
+        for slot, req in self.scheduler.decoding.items():
+            if req.rid in skip:
+                continue
+            tok = int(tokens[slot])
+            req.output.append(tok)
+            req.logprobs.append(float(self.last_logit_stats["logprob"][slot]))
+            req.last_progress_step = self._step_count
+            self._next_tokens[slot, 0] = tok
+            if self._finished(req, tok):
+                retired.append(req)
+        for req, reason in tripped:
+            self._quarantine(req, reason)
+        for req in retired:
+            self._retire(req)
+
+    def _guard_tripped(self, stats: dict, row_reqs) -> list:
+        if self.guard is None:
+            return []
+        reasons = self.guard.check_rows(stats)
+        return [(req, reasons[idx]) for idx, req in row_reqs
+                if idx in reasons]
+
+    def _quarantine(self, req: Request, reason: str) -> None:
+        """A guard tripped on this slot: scrub its private blocks, release
+        everything and park the request on ``self.quarantined``."""
+        self.kv_stats["guard_trips"] += 1
+        req.error = reason
+        alloc = self.scheduler.allocator
+        scrub = [b for b in req.blocks if alloc.refcount(b) == 1]
+        if scrub:
+            paged.zero_blocks(self.caches, scrub)
+        slot = req.slot
+        self.scheduler.drop(req, "quarantined")
+        paged.reset_slot(self.caches, slot, self._null_row)
+        req.slot = None
+        self.quarantined.append(req)
+
+    def _finished(self, req: Request, tok: int) -> bool:
+        return (len(req.output) >= req.max_new_tokens
+                or (req.eos_id is not None and tok == req.eos_id))
+
+    def _retire(self, req: Request) -> None:
+        slot = req.slot
+        self.scheduler.retire(req)
+        # point the slot back at the null block so later batched steps'
+        # stray writes cannot touch re-allocated blocks
+        paged.reset_slot(self.caches, slot, self._null_row)
+
+    def _account_decode(self) -> None:
+        bs = self.layout.block_size
+        touched = sum(paged.cdiv(r.num_cached + 1, bs) * bs
+                      for r in self.scheduler.decoding.values())
+        self.kv_stats["paged_bytes"] += touched * self._token_bytes
+        self.kv_stats["paged_bytes_bf16"] += touched * self._token_bytes_bf16
+        self.kv_stats["contiguous_bytes"] += (len(self.scheduler.decoding)
+                                              * self.layout.max_context
+                                              * self._token_bytes)
+        self.kv_stats["decode_steps"] += 1
+
+    def _account_prefill(self, cached: int, *, first: bool) -> None:
+        bs = self.layout.block_size
+        touched = paged.cdiv(cached, bs) * bs
+        self.kv_stats["paged_bytes"] += touched * self._token_bytes
+        self.kv_stats["paged_bytes_bf16"] += touched * self._token_bytes_bf16
+        if first:
+            self.kv_stats["contiguous_bytes"] += (self.layout.max_context
+                                                  * self._token_bytes)
+        self.kv_stats["prefill_chunks"] += 1
