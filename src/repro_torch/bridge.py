@@ -16,16 +16,25 @@ Name map (reference tree -> port tree):
     final_norm/scale           -> params["final_norm"]["scale"]  [d]
     lm_head                    -> params["lm_head"]              [d, V]
     layers/<path> [L, ...]     -> params["layers"][i][<path>]    [...]
+    dense_layers/<path> [K, ...] -> params["dense_layers"][i][<path>]
         <path> in ln_attn/scale, ln_mlp/scale,
-                  attn/{wq, wk, wv, wo, bq, bk, bv},
-                  ffn/{w_gate_up, w_down}
+                  attn/{wq, wk, wv, wo, bq, bk, bv}             (GQA)
+                  attn/{wq_a, q_norm, wq_b, wkv_a, kv_norm,
+                        wk_b, wv_b, wo}                         (MLA)
+                  ffn/{w_gate_up, w_down}                       (MLP)
+                  ffn/{router [d, E], w_gate_up [E, d, 2F],
+                       w_down [E, F, d],
+                       shared/{w_gate_up, w_down}}              (MoE)
 
-The reference's layer stack is one [L, ...] leaf per name; the port keeps
-one dict per layer (views of one stacked tensor). Caches keep the
-reference's stacked layout: the reference's ``(caches,)`` tuple of one
-dict maps onto the port's dict with the same [L, ...] leaves
-(kpool / vpool [L, nb, bs, Hkv, D], kscale / vscale [L, nb, bs, Hkv],
-block_table [L, B, mb], len [L, B]).
+The reference's stacks are one [L, ...] leaf per name; the port keeps
+one dict per layer (views of one stacked tensor). Caches: the
+reference's tuple of one dict per stack — ``(main,)``, or
+``(dense_layers, layers)`` for a model with first_k_dense layers — maps
+onto ONE port dict whose [L, ...] leaves concatenate the stacks along
+the layer axis (dense first): kpool / vpool [L, nb, bs, Hkv, D],
+kscale / vscale [L, nb, bs, Hkv]; c_kv [L, nb, bs, C], k_rope
+[L, nb, bs, R], c_kv_scale / k_rope_scale [L, nb, bs]; block_table
+[L, B, mb], len [L, B]. ``caches_to_reference`` splits it back.
 """
 
 from __future__ import annotations
@@ -59,17 +68,30 @@ def _map(tree, fn):
 
 def params_from_reference(tree: dict, device="cpu") -> dict:
     """Reference parameter tree (numpy leaves) -> the port's tree, with
-    the stacked ``layers`` split into one dict per layer."""
+    the stacked ``dense_layers`` / ``layers`` split into one dict per
+    layer."""
     from repro_torch.models import lm
     return lm.split_layers(_map(tree, lambda a: from_numpy(a, device)))
 
 
 def caches_from_reference(caches, device="cpu") -> dict:
-    """Reference cache tuple ``(dict,)`` (numpy leaves) -> port dict."""
-    (tree,) = caches
-    return {k: from_numpy(v, device) for k, v in tree.items()}
+    """Reference cache tuple (one dict of numpy leaves per stack) -> the
+    port's dict, stacks concatenated along the layer axis."""
+    return {k: from_numpy(np.concatenate([np.asarray(t[k]) for t in caches]),
+                          device)
+            for k in caches[0]}
 
 
 def caches_to_numpy(caches: dict) -> dict:
     """Port cache dict -> numpy leaves (bf16 pools widened to f32)."""
     return {k: to_numpy(v) for k, v in caches.items()}
+
+
+def caches_to_reference(caches: dict, first_k_dense: int = 0) -> tuple:
+    """Port cache dict -> the reference's tuple of per-stack numpy dicts
+    (bf16 pools widened to f32)."""
+    flat = caches_to_numpy(caches)
+    if not first_k_dense:
+        return (flat,)
+    return ({k: v[:first_k_dense] for k, v in flat.items()},
+            {k: v[first_k_dense:] for k, v in flat.items()})

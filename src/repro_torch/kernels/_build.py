@@ -10,8 +10,8 @@ library with a plain C interface and loaded with ``ctypes``:
 No ``--use_fast_math``: the compensated chains in the kernels rely on
 IEEE ``expf``/division and on explicit ``__fadd_rn``/``__fmul_rn``.
 Libraries land in ``build/kernels`` at the repository root (override
-with ``REPRO_TORCH_BUILD_DIR``), named by a hash of the source so a
-stale build is never loaded. ``build_all`` starts every compiler at once
+with ``REPRO_TORCH_BUILD_DIR``), named by a hash of the source and of
+the shared headers (``csrc/*.cuh``) so a stale build is never loaded. ``build_all`` starts every compiler at once
 and waits for all of them. Nothing here runs at import time.
 
 ``launches`` counts, per source, the wrapper calls that launched its
@@ -32,7 +32,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused_reduce", "paged_attention")
+SOURCES = ("fused_reduce", "paged_attention", "paged_latent_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -67,8 +67,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        text += header.read_bytes()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return build_dir() / f"lib{name}-{digest[:16]}.so"
 
 

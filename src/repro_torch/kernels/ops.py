@@ -65,25 +65,51 @@ def naive_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------ attention ---
 
 def paged_attention(q: torch.Tensor, kpool: torch.Tensor,
-                    vpool: torch.Tensor, block_table: torch.Tensor,
+                    vpool: torch.Tensor | None, block_table: torch.Tensor,
                     lens: torch.Tensor, *,
                     q_offsets: torch.Tensor | None = None,
                     kscale: torch.Tensor | None = None,
                     vscale: torch.Tensor | None = None,
+                    q_rope: torch.Tensor | None = None,
+                    rope_pool: torch.Tensor | None = None,
+                    rope_scale: torch.Tensor | None = None,
                     scale: float | None = None) -> torch.Tensor:
-    """THE serving attention dispatch (GQA superkernel): q [B, W, Hq, D]
-    against pools [nb, bs, Hkv, D] through ``block_table``; row w sits at
-    ``q_offsets + w`` (default ``lens - W``: the window was just
-    appended). Returns [B, W, Hq, Dv] in q's dtype."""
-    if q.dim() != 4 or kpool.dim() != 4:
+    """THE serving attention dispatch (the superkernel): W query rows per
+    sequence through ``block_table``; row w sits at ``q_offsets + w``
+    (default ``lens - W``: the window was just appended).
+
+    GQA: q [B, W, Hq, D] against pools [nb, bs, Hkv, D] (int8/fp8 pools
+    pass kscale/vscale [nb, bs, Hkv]). Returns [B, W, Hq, Dv] in q's
+    dtype.
+
+    MLA latents: the c_kv pool [nb, bs, C] as ``kpool`` with
+    ``vpool=None`` (the value IS the latent), the rope stream through
+    ``q_rope`` [B, W, H, R] / ``rope_pool`` [nb, bs, R], per-token
+    ``kscale``/``rope_scale`` [nb, bs] when quantized, and the explicit
+    MLA softmax ``scale``. Returns the context latents [B, W, H, C] f32.
+    """
+    latent = q_rope is not None
+    if latent:
+        if vpool is not None or rope_pool is None or kpool.dim() != 3 \
+                or q.dim() != 4 or scale is None:
+            raise ValueError("MLA paged attention takes q [B, W, H, C], "
+                             "kpool [nb, bs, C], vpool=None, rope_pool and "
+                             "the explicit softmax scale")
+    elif q.dim() != 4 or kpool.dim() != 4 or vpool is None:
         raise ValueError(f"GQA paged attention takes q [B, W, Hq, D] and "
                          f"pools [nb, bs, Hkv, D]; got {tuple(q.shape)}, "
                          f"{tuple(kpool.shape)}")
     lens = lens.to(torch.int32)
     offs = (lens - q.shape[1] if q_offsets is None
             else q_offsets.to(torch.int32))
-    args = (q, kpool, vpool, block_table.to(torch.int32).contiguous(),
-            lens.contiguous(), offs.contiguous())
+    table = block_table.to(torch.int32).contiguous()
+    if latent:
+        args = (q.contiguous(), q_rope.contiguous(), kpool, rope_pool, table,
+                lens.contiguous(), offs.contiguous())
+        fn = (_pa.paged_latent_attention_cuda if q.is_cuda
+              else _pa.paged_latent_attention_plain)
+        return fn(*args, ck_scale=kscale, kr_scale=rope_scale, scale=scale)
+    args = (q, kpool, vpool, table, lens.contiguous(), offs.contiguous())
     if q.is_cuda:
         return _pa.paged_attention_cuda(*args, kscale=kscale, vscale=vscale,
                                         scale=scale)

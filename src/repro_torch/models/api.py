@@ -1,5 +1,5 @@
 """Public model API used by the serving engine (twin of
-``repro.models.api`` for the dense family).
+``repro.models.api`` for the dense and moe families).
 
 Entry points run on the card unless the caller passes a device:
 ``init_params(cfg, generator, device=None)`` and ``KVCache.init(...,
@@ -92,7 +92,8 @@ class KVCache:
 
     def token_bytes(self, batch: int = 1) -> int:
         """Paged-cache bytes per cached token, summed over every pool
-        leaf and layer."""
+        leaf and layer (MLA in bf16: (kv_lora + rope_dim) * 2 = 1152
+        bytes per layer at full width)."""
         total = 0
         for name, (shape, dtype) in self.specs(batch).items():
             if name in POOL_KEYS:

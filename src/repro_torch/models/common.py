@@ -51,7 +51,9 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
              else spec.scale)
     x = torch.randn(spec.shape, generator=generator, device=device,
                     dtype=torch.float32)
-    return (x * scale).to(spec.dtype)
+    # in place: a full-width MoE leaf is 20 GB, and a scaled copy would
+    # double it
+    return x.mul_(scale).to(spec.dtype)
 
 
 def init_params(schema: dict, generator: torch.Generator,

@@ -1,17 +1,19 @@
-"""Model configuration for the port's dense decoder family
-(the dense fields of ``repro.models.config.ModelConfig``)."""
+"""Model configuration for the port's decoder families (the dense, MoE and
+MLA fields of ``repro.models.config.ModelConfig``)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
 from repro_torch.models.attention import AttnConfig
+from repro_torch.models.mla import MLAConfig
+from repro_torch.models.moe import MoEConfig
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # the port serves "dense"
+    family: str                    # the port serves "dense" and "moe"
     num_layers: int
     d_model: int
     vocab_size: int
@@ -25,6 +27,10 @@ class ModelConfig:
     rope_theta: float = 1e4
     rotary_fraction: float = 1.0
     tie_embeddings: bool = False
+    moe: MoEConfig | None = None
+    first_k_dense: int = 0         # DeepSeek-V2: leading dense layers
+    dense_d_ff: int = 0            # ... their FFN width
+    mla: MLAConfig | None = None
     q_chunk: int = 512
     kv_chunk: int = 512
     kahan_attn: bool = False       # compensated prefill accumulator
@@ -42,10 +48,15 @@ class ModelConfig:
         return replace(self, **kw)
 
     def check_supported(self) -> None:
-        """The port's first slice serves dense rmsnorm/swiglu decoders."""
-        if (self.family, self.norm, self.act) != ("dense", "rmsnorm",
-                                                  "swiglu"):
+        """The port serves rmsnorm/swiglu decoders of the dense family and
+        of the moe family (GQA or MLA attention, optional leading dense
+        layers)."""
+        ok = (self.family in ("dense", "moe")
+              and (self.norm, self.act) == ("rmsnorm", "swiglu")
+              and (self.family == "moe") == (self.moe is not None))
+        if not ok:
             raise NotImplementedError(
-                f"{self.name}: repro_torch serves the dense rmsnorm/swiglu "
-                f"family; {self.family}/{self.norm}/{self.act} waits for "
+                f"{self.name}: repro_torch serves the dense and moe "
+                f"rmsnorm/swiglu families; {self.family}/{self.norm}/"
+                f"{self.act} (moe config: {self.moe is not None}) waits for "
                 "ROADMAP queue A step 15")

@@ -22,8 +22,11 @@ import torch.nn.functional as F
 DEFAULT_BLOCK_SIZE = 16
 NULL_BLOCK = 0
 
-# leaf names that are shared block pools (no batch axis)
-POOL_KEYS = ("kpool", "vpool", "kscale", "vscale")
+# leaf names that are shared block pools (no batch axis): GQA K/V pools
+# [nb, bs, Hkv, D] with scales [nb, bs, Hkv], and MLA latent pools
+# [nb, bs, C] with per-token scales [nb, bs]
+POOL_KEYS = ("kpool", "vpool", "c_kv", "k_rope",
+             "kscale", "vscale", "c_kv_scale", "k_rope_scale")
 
 
 def cdiv(a: int, b: int) -> int:

@@ -118,3 +118,73 @@ def test_zero_blocks_bitwise():
     tp.zero_blocks(c, [2, 7])
     for k in c:
         np.testing.assert_array_equal(np.asarray(want[k]), c[k].numpy())
+
+
+# ------------------------------------------------ MLA latent pools --------
+
+def _latent_caches(l=2, b=3, mb=4, nb=9, bs=4):
+    """A stacked MLA cache tree: latent pools [L, nb, bs, C] and per-token
+    scale pools [L, nb, bs] have no head axis."""
+    return {"c_kv": torch.from_numpy(_rows(7, (l, nb, bs, 6))),
+            "k_rope": torch.from_numpy(_rows(8, (l, nb, bs, 2))),
+            "c_kv_scale": torch.from_numpy(_rows(9, (l, nb, bs))),
+            "k_rope_scale": torch.from_numpy(_rows(10, (l, nb, bs))),
+            "block_table": torch.zeros((l, b, mb), dtype=torch.int32),
+            "len": torch.tensor([[3, 4, 5]] * l, dtype=torch.int32)}
+
+
+def test_pool_keys_are_the_references():
+    assert tp.POOL_KEYS == rp.POOL_KEYS
+
+
+def test_latent_pool_tree_moves_bitwise():
+    """reset_slot / set_lens / keep_slots / zero_blocks over 3-D latent
+    and 2-D scale pools: pools are never indexed by batch, per-slot leaves
+    are, exactly as in the reference."""
+    c = _latent_caches()
+    row = torch.tensor([2, 5, 0, 0], dtype=torch.int32)
+    want = rp.reset_slot(_ref_tree(c), jnp.int32(2), jnp.asarray(row.numpy()))
+    tp.reset_slot(c, 2, row)
+    want = rp.set_lens(want, jnp.asarray([1], jnp.int32),
+                       jnp.asarray([6], jnp.int32))
+    tp.set_lens(c, torch.tensor([1]), torch.tensor([6]))
+    for k in c:
+        np.testing.assert_array_equal(np.asarray(want[k]), c[k].numpy())
+    new = {k: v.clone() for k, v in c.items()}
+    new["len"] += 1
+    new["c_kv"][:, 5] += 1.0
+    new["k_rope_scale"][:, 2] += 1.0
+    keep = np.array([True, False, True])
+    want = rp.keep_slots(_ref_tree(c), _ref_tree(new), jnp.asarray(keep))
+    tp.keep_slots(new, c["len"].clone(), torch.from_numpy(keep))
+    for k in new:
+        np.testing.assert_array_equal(np.asarray(want[k]), new[k].numpy())
+    want = rp.zero_blocks(want, [2, 5])
+    tp.zero_blocks(new, [2, 5])
+    for k in new:
+        np.testing.assert_array_equal(np.asarray(want[k]), new[k].numpy())
+
+
+@pytest.mark.parametrize("name", ["c_kv", "c_kv_scale"])
+def test_gather_and_scatter_latent_pools_bitwise(name):
+    pool0 = _latent_caches()[name][0].numpy()        # [nb, bs(, C)]
+    table = np.array([[3, 1, 0, 0], [8, 2, 6, 0]], np.int32)
+    np.testing.assert_array_equal(
+        np.asarray(rp.gather_blocks(jnp.asarray(pool0), jnp.asarray(table))),
+        tp.gather_blocks(torch.from_numpy(pool0),
+                         torch.from_numpy(table)).numpy())
+    lens = np.array([5, 9], np.int32)
+    vals = _rows(11, (2,) + pool0.shape[2:])
+    want = rp.scatter_token(jnp.asarray(pool0), jnp.asarray(table),
+                            jnp.asarray(lens), jnp.asarray(vals))
+    pool = torch.from_numpy(pool0.copy())
+    tp.scatter_token(pool, torch.from_numpy(table), torch.from_numpy(lens),
+                     torch.from_numpy(vals))
+    np.testing.assert_array_equal(np.asarray(want), pool.numpy())
+    chunk = _rows(12, (6,) + pool0.shape[2:])
+    want = rp.scatter_chunk(jnp.asarray(pool0), jnp.asarray(table[1]),
+                            jnp.int32(3), jnp.asarray(chunk))
+    pool = torch.from_numpy(pool0.copy())
+    tp.scatter_chunk(pool, torch.from_numpy(table[1]), 3,
+                     torch.from_numpy(chunk))
+    np.testing.assert_array_equal(np.asarray(want), pool.numpy())

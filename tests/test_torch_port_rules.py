@@ -42,16 +42,17 @@ def test_scan_sees_the_package():
 
 
 def test_entry_points_default_to_the_gpu():
-    cfg = reduced(get_config("qwen1.5-0.5b"))
-    params = api.init_params(cfg, device="cpu")
-    kv = api.KVCache.build(cfg, max_context=64)
-    if torch.cuda.is_available():
-        assert DecodeEngine(cfg, params).device.type == "cuda"
-        return
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        DecodeEngine(cfg, params)
-    with pytest.raises(RuntimeError):
-        api.init_params(cfg)
-    with pytest.raises(RuntimeError):
-        kv.init(1)
-    assert DecodeEngine(cfg, params, device="cpu").device.type == "cpu"
+    for arch in ("qwen1.5-0.5b", "deepseek-v2-236b"):
+        cfg = reduced(get_config(arch))
+        params = api.init_params(cfg, device="cpu")
+        kv = api.KVCache.build(cfg, max_context=64)
+        if torch.cuda.is_available():
+            assert DecodeEngine(cfg, params).device.type == "cuda"
+            continue
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            DecodeEngine(cfg, params)
+        with pytest.raises(RuntimeError):
+            api.init_params(cfg)
+        with pytest.raises(RuntimeError):
+            kv.init(1)
+        assert DecodeEngine(cfg, params, device="cpu").device.type == "cpu"
