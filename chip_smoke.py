@@ -7,18 +7,30 @@ Phases (each prints its own lines; any failure exits non-zero):
 1. device  — the card's name and ``nvidia-smi`` name / power limit;
 2. build   — compiles ``src/repro_torch/csrc/*.cu`` (one nvcc each, in
              parallel) into ``build/kernels``;
-3. parity  — each CUDA kernel against its plain PyTorch twin on the card
-             at main-path shapes, with the tolerance and its reason (the
-             GQA and the MLA latent attention kernels, the reduction);
-4. times   — device time of each kernel (profiler, L2 flushed before
+3. parity  — each CUDA kernel against its plain PyTorch twin on the card,
+             with the tolerance and its reason: the GQA and the MLA latent
+             attention kernels and the reduction at main-path shapes; the
+             compensated accumulate (bitwise), the compensated matmul and
+             its int8 / fp8 form (plus an ill-conditioned K = 2^14 case
+             against an f64 product) and flash attention (f32 / bf16,
+             causal or not, ragged lengths);
+4. path    — the kernel entry points of ``repro_torch.kernels`` at
+             qwen1.5-0.5b's full widths, each with its launch counters
+             zeroed just before and read just after: flash attention of
+             four 2048-token prompts ([64, 2048, 64] bf16, causal), the
+             down projection with compensated K accumulation (f32 and
+             bf16), int8 / fp8 MLP weights at M = 8 and 2048, and 4
+             microbatches of gradients accumulated into every leaf of the
+             parameter tree (bitwise ``KahanState.add``);
+5. times   — device time of each kernel (profiler, L2 flushed before
              each launch), CUDA-event medians of its plain twin and a
              library yardstick, beside the least time the card could
-             take (HBM 3.35 TB/s, f32 CUDA-core 67 TFLOP/s; H100 SXM
-             data sheet);
-5. small   — reduced qwen1.5 and reduced deepseek-v2 served on the card
+             take (HBM 3.35 TB/s, f32 CUDA-core 67 TFLOP/s, bf16 tensor
+             cores 989 TFLOP/s; H100 SXM data sheet);
+6. small   — reduced qwen1.5 and reduced deepseek-v2 served on the card
              and on the CPU (plain twins) from the same weights: logits
              agree;
-6. serve   — two main paths behind ``DecodeEngine``, each with its launch
+7. serve   — two main paths behind ``DecodeEngine``, each with its launch
              counters zeroed just before and read just after: full-width
              qwen1.5-0.5b (24 layers) and full-width deepseek-v2-236b cut
              to 3 layers (1 dense + 2 MoE; MLA latent pools), random
@@ -43,6 +55,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 F32_FLOPS_PER_S = 67e12            # H100 SXM, f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12          # H100 SXM, bf16 tensor cores, dense
 SEED = 0
 
 
@@ -54,9 +67,13 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """Least time (ms) for the work and what bounds it."""
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+def bound(nbytes: float, flops: float, f32_flops: float = 0.0,
+          rate: float = F32_FLOPS_PER_S) -> tuple[float, str]:
+    """Least time (ms) for the work and what bounds it: ``flops`` at
+    ``rate`` (the peak for the inputs' type) plus ``f32_flops`` at the
+    f32 rate, against the bytes at the HBM rate."""
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_f = flops / rate + f32_flops / F32_FLOPS_PER_S
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
@@ -581,6 +598,370 @@ def phase_times(dev):
     return out
 
 
+# ------------------------------------------------- the kernel-entry slice --
+# B4-B7 (flash attention, compensated matmul and its q8 form, compensated
+# accumulate): parity against the plain twins on the card, the path that
+# drives each entry point of repro_torch.kernels at qwen1.5-0.5b's full
+# widths with its launch counters, and the times.
+
+def _module(name: str):
+    """A kernel module of ``repro_torch.kernels`` (the package rebinds
+    ``kahan_matmul`` and ``flash_attention`` to the entry functions)."""
+    import importlib
+    return importlib.import_module(f"repro_torch.kernels.{name}")
+
+
+def _randn(g, shape, dev, dtype=None):
+    import torch
+    x = torch.randn(shape, generator=g, device=dev)
+    return x if dtype is None else x.to(dtype)
+
+
+def phase_acc_parity(dev) -> float:
+    """B7 bitwise against its twin: aligned (float4 path) and unaligned
+    (scalar path) tensors, f32 and bf16 updates."""
+    import torch
+    from repro_torch.kernels import kahan_acc as ka
+    g = torch.Generator(device=dev).manual_seed(5)
+    for n, off in ((1 << 22, 0), (4099, 1), (1000003, 0)):
+        s = _randn(g, (n + off,), dev) * 100.0
+        c = _randn(g, (n + off,), dev) * 1e-5
+        u = _randn(g, (n + off,), dev)
+        for ud in (torch.float32, torch.bfloat16):
+            ks, kc = s.clone()[off:], c.clone()[off:]
+            ps, pc = s[off:].clone(), c[off:].clone()
+            uu = u[off:].to(ud).contiguous()
+            ka.kahan_acc_flat_cuda(ks, kc, uu)
+            ka.kahan_acc_flat_plain(ps, pc, uu)
+            torch.cuda.synchronize()
+            ok = torch.equal(ks, ps) and torch.equal(kc, pc)
+            log(f"[parity] kahan_acc n={n} offset={off} update={ud}: "
+                f"bitwise (tol 0: adds only, the reference's op order): "
+                f"{ok}")
+            if not ok:
+                fail(f"kahan_acc parity n={n} offset={off} {ud}")
+    return 0.0
+
+
+def phase_matmul_parity(dev) -> tuple[float, float]:
+    """B5 and B6 against their twins at the CPU tests' tolerances, and
+    the ill-conditioned deep contraction against an f64 product."""
+    import torch
+    from repro_torch.quant import core as qcore
+    km = _module("kahan_matmul")
+    g = torch.Generator(device=dev).manual_seed(6)
+    worst = 0.0
+    shapes = [(128, 256, 128, 128, 128, 128), (256, 1024, 128, 128, 128, 256),
+              (128, 128, 128, 64, 64, 32), (8, 2816, 1024, 8, 256, 256),
+              (2048, 2816, 1024, 256, 256, 256)]
+    for m, k, n, bm, bn, bk in shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            a, b = _randn(g, (m, k), dev, dt), _randn(g, (k, n), dev, dt)
+            kw = dict(block_m=bm, block_n=bn, block_k=bk)
+            got = km.kahan_matmul_cuda(a, b, **kw)
+            want = km.kahan_matmul_plain(a, b, **kw)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            # f32 block partials summed in other orders, the same folds:
+            # the reference test's f32 tolerance 1e-5 sqrt(K) + 1e-5 rel
+            tol = 1e-5 * k ** 0.5 + 1e-5 * want.abs()
+            bad = int((err > tol).sum())
+            worst = max(worst, float(err.max()))
+            log(f"[parity] kahan_matmul {m}x{k}x{n} bk={bk} {dt}: "
+                f"max|kernel-plain| {float(err.max()):.3g} (tol 1e-5 "
+                f"sqrt(K) + 1e-5 rel: summation order inside a K block), "
+                f"{bad} over tol")
+            if bad or not torch.isfinite(got).all():
+                fail(f"kahan_matmul parity {m}x{k}x{n} {dt}")
+    # the deep contraction of tests/test_kernels_matmul.py: K = 2^14,
+    # magnitudes 1e-3..1e3, bk = 128
+    k = 1 << 14
+    sc = 10.0 ** torch.randint(-3, 4, (1, k), generator=g, device=dev)
+    a = (_randn(g, (8, k), dev) * sc).float()
+    b = (_randn(g, (k, 8), dev) * sc.T).float()
+    exact = a.double() @ b.double()
+    got = km.kahan_matmul_cuda(a, b, block_m=8, block_n=8, block_k=128)
+    err_k = float((got.double() - exact).abs().max())
+    err_n = float(((a @ b).double() - exact).abs().max())
+    ok = err_k <= 1.5 * err_n + 1e-6 and \
+        err_k <= 1e-3 * float(exact.abs().max())
+    log(f"[parity] kahan_matmul deep K=2^14 bk=128 ill-conditioned: "
+        f"|kernel-f64| {err_k:.4g}, |naive f32 matmul-f64| {err_n:.4g} "
+        f"(bound 1.5x naive and 1e-3 max|C| = "
+        f"{1e-3 * float(exact.abs().max()):.4g}): {ok}")
+    if not ok:
+        fail("kahan_matmul deep contraction")
+    worst_q = 0.0
+    for fmt in (qcore.INT8, qcore.FP8):
+        for m, k, n in ((8, 512, 128), (16, 256, 256), (67, 2816, 1024)):
+            a = _randn(g, (m, k), dev)
+            qw, s = qcore.quantize_weight(_randn(g, (k, n), dev), fmt,
+                                          block_k=256)
+            got = km.kahan_matmul_q8_cuda(a, qw, s, block_m=m)
+            want = km.kahan_matmul_q8_plain(a, qw, s, block_m=m)
+            oracle = a.double() @ qcore.dequantize_weight(qw, s).double()
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            err_o = (got.double() - oracle).abs()
+            # the quant test's tolerance (tests/test_quant.py), widened
+            # by sqrt(K / 512) for the deeper shape
+            atol = 1e-4 * max(1.0, (k / 512) ** 0.5)
+            bad = int((err > atol + 1e-5 * want.abs()).sum())
+            bad_o = int((err_o > atol + 1e-5 * oracle.abs()).sum())
+            worst_q = max(worst_q, float(err.max()))
+            log(f"[parity] kahan_matmul_q8 {fmt.name} {m}x{k}x{n}: "
+                f"max|kernel-plain| {float(err.max()):.3g}, "
+                f"max|kernel-dequant f64| {float(err_o.max()):.3g} (tol "
+                f"{atol:.3g} abs + 1e-5 rel), {bad} + {bad_o} over tol")
+            if bad or bad_o or not torch.isfinite(got).all():
+                fail(f"kahan_matmul_q8 parity {fmt.name} {m}x{k}x{n}")
+    return worst, worst_q
+
+
+def phase_flash_parity(dev) -> float:
+    """B4 against its twin: f32 and bf16, causal and not, ragged lengths
+    (482 is a drawn prompt length of the serve phases), Lq != Lk."""
+    import torch
+    fa = _module("flash_attention")
+    g = torch.Generator(device=dev).manual_seed(7)
+    worst = 0.0
+    cases = [(482, 482, 64, True), (482, 482, 64, False),
+             (130, 257, 64, False), (3, 7, 64, True), (100, 40, 32, True),
+             (40, 100, 32, True), (256, 256, 128, True)]
+    for lq, lk, d, causal in cases:
+        for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            q = _randn(g, (16, lq, d), dev, dt)
+            k, v = _randn(g, (16, lk, d), dev, dt), _randn(g, (16, lk, d),
+                                                           dev, dt)
+            got = fa.flash_attention_cuda(q, k, v, causal=causal)
+            want = fa.flash_attention_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            bad = int((err > tol + tol * want.float().abs()).sum())
+            worst = max(worst, float(err.max()))
+            log(f"[parity] flash_attention BH=16 Lq={lq} Lk={lk} D={d} "
+                f"causal={causal} {dt}: max|kernel-plain| "
+                f"{float(err.max()):.3g} (tol {tol} abs + rel, the "
+                f"reference test's: other tiling, other summation order), "
+                f"{bad} over tol")
+            if bad or not torch.isfinite(got.float()).all():
+                fail(f"flash_attention parity Lq={lq} Lk={lk} {dt}")
+    return worst
+
+
+def _counted(what: str, fn, want: dict):
+    """Run ``fn`` with the launch counters zeroed just before; fail unless
+    they equal ``want`` (every other kernel 0) just after."""
+    import torch
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    got = dict(ops.launches)
+    full = dict.fromkeys(got, 0)
+    full.update(want)
+    log(f"[path] {what}: launching wrapper calls {got}")
+    if got != full:
+        fail(f"{what}: launch counters {got} != {full}")
+    return out
+
+
+def phase_kernel_path(dev, qwen) -> tuple[dict, dict]:
+    """The slice's path at qwen1.5-0.5b's full widths, through the entry
+    points of ``repro_torch.kernels``; returns the launches per kernel
+    and the inputs the times phase reuses."""
+    import torch
+    import repro_torch.kernels as K
+    from repro_torch.core import kahan
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.kahan_matmul import (kahan_matmul_plain,
+                                                  kahan_matmul_q8_plain)
+    from repro_torch.models import api
+    from repro_torch.quant import core as qcore
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    launches, fx = {}, {}
+    # B4: prefill attention of four 2048-token prompts, 16 heads, D = 64
+    bh, l, d = 4 * qwen.num_heads, 2048, qwen.head_dim
+    q, k, v = (_randn(g, (bh, l, d), dev, torch.bfloat16) for _ in range(3))
+    out = _counted(f"flash_attention [{bh}, {l}, {d}] bf16 causal",
+                   lambda: K.flash_attention(q, k, v, causal=True),
+                   {"flash_attention": 1})
+    want = flash_attention_plain(q, k, v, causal=True)
+    err = float((out.float() - want.float()).abs().max())
+    log(f"[path] flash_attention: out {tuple(out.shape)} {out.dtype}, "
+        f"finite {bool(torch.isfinite(out.float()).all())}, "
+        f"max|kernel-plain| {err:.3g} (tol 2e-2, bf16)")
+    if out.shape != (bh, l, d) or not torch.isfinite(out.float()).all() \
+            or err > 2e-2:
+        fail("flash_attention path")
+    launches["flash_attention"] = 1
+    fx["flash"] = (q, k, v)
+    # B5: the down projection of a 2048-token prompt, f32 and bf16
+    params = api.init_params(qwen, device=dev, seed=SEED)
+    w_down = params["layers"][0]["ffn"]["w_down"]
+    w_gu = params["layers"][0]["ffn"]["w_gate_up"]
+    a = _randn(g, (2048, qwen.d_ff), dev)
+    pairs = [(a, w_down), (a.to(torch.bfloat16), w_down.to(torch.bfloat16))]
+    outs = _counted(f"kahan_matmul {list(a.shape)} x {list(w_down.shape)} "
+                    f"f32 and bf16 (bk 256)",
+                    lambda: [K.kahan_matmul(x, w, block_k=256)
+                             for x, w in pairs], {"kahan_matmul": 2})
+    for (x, w), o in zip(pairs, outs):
+        want = kahan_matmul_plain(x, w, block_k=256)
+        err = float((o - want).abs().max())
+        tol = 1e-5 * x.shape[1] ** 0.5
+        log(f"[path] kahan_matmul {x.dtype}: max|kernel-plain| {err:.3g} "
+            f"(tol {tol:.3g} + 1e-5 rel)")
+        if not torch.isfinite(o).all() or \
+                bool(((o - want).abs() > tol + 1e-5 * want.abs()).any()):
+            fail(f"kahan_matmul path {x.dtype}")
+    launches["kahan_matmul"] = 2
+    fx["matmul"] = pairs
+    # B6: int8 and fp8 weights of the MLP at a decode batch and a prompt
+    calls = []
+    for fmt in (qcore.INT8, qcore.FP8):
+        for w in (w_gu, w_down):
+            qw, s = qcore.quantize_weight(w, fmt, block_k=256)
+            for m in (8, 2048):
+                calls.append((fmt.name, _randn(g, (m, w.shape[0]), dev), qw,
+                              s))
+    outs = _counted(f"q8_matmul int8 + fp8 x {list(w_gu.shape)}, "
+                    f"{list(w_down.shape)} x M in {{8, 2048}}",
+                    lambda: [ops.q8_matmul(x, qw, s) for _, x, qw, s in calls],
+                    {"kahan_matmul_q8": len(calls)})
+    for (name, x, qw, s), o in zip(calls, outs):
+        want = kahan_matmul_q8_plain(x, qw, s)
+        err = (o - want).abs()
+        atol = 1e-4 * (qw.shape[0] / 512) ** 0.5
+        if not torch.isfinite(o).all() or \
+                bool((err > atol + 1e-5 * want.abs()).any()):
+            fail(f"q8_matmul path {name} {tuple(x.shape)}x{tuple(qw.shape)}")
+    log(f"[path] q8_matmul: {len(calls)} calls finite and within 1e-4 "
+        f"sqrt(K/512) + 1e-5 rel of the twin")
+    launches["kahan_matmul_q8"] = len(calls)
+    fx["q8"] = calls
+    # B7: G = 4 seeded f32 microbatch gradients accumulated into every
+    # leaf of the parameter tree, held bitwise to KahanState.add
+    leaves = kahan.tree_leaves(params)
+    n = sum(t.numel() for t in leaves)
+    kern = kahan.KahanState.zeros_like(params)
+    plain = kahan.KahanState.zeros_like(params)
+    microbatches = 4
+    for mb in range(microbatches):
+        gg = torch.Generator(device=dev).manual_seed(SEED + 100 + mb)
+        upd = kahan.tree_map(lambda t: torch.randn(t.shape, generator=gg,
+                                                   device=dev) * 1e-2, params)
+        _counted(f"kahan_accumulate microbatch {mb}: {len(leaves)} leaves, "
+                 f"{n} f32 elements",
+                 lambda: kahan.tree_map(ops.kahan_accumulate, kern.sum,
+                                        kern.carry, upd),
+                 {"kahan_acc": len(leaves)})
+        plain = plain.add(upd)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(
+        kahan.tree_leaves((kern.sum, kern.carry)),
+        kahan.tree_leaves((plain.sum, plain.carry))))
+    log(f"[path] kahan_accumulate: {microbatches} microbatches x "
+        f"{len(leaves)} leaves ({n} f32 elements, untied embeddings) "
+        f"bitwise KahanState.add: {same}")
+    if not same:
+        fail("kahan_accumulate path differs from KahanState.add")
+    launches["kahan_acc"] = microbatches * len(leaves)
+    fx["acc"] = (kern, upd, n, len(leaves))
+    return launches, fx
+
+
+def phase_slice_times(dev, fx) -> dict:
+    """B4-B7 timed at the path's shapes, as ``phase_times`` times B1-B3."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import kahan
+    from repro_torch.kernels import kahan_acc as ka
+    from repro_torch.quant import core as qcore
+    fa, km = _module("flash_attention"), _module("kahan_matmul")
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
+    out = {}
+
+    def row(name, run, plain, lib, kernel_names, nbytes, flops, f32_flops,
+            rate, what, plain_reps=3):
+        ev = time_ms(run, flush)
+        prof = kernel_ms(run, flush, kernel_names)
+        ms = ev if prof is None else prof
+        plain_ms = time_ms(plain, flush, reps=plain_reps)
+        lib_ms = None if lib is None else time_ms(lib, flush)
+        b_ms, b_by = bound(nbytes, flops, f32_flops, rate)
+        log(f"[times] {name} {what}: kernel {ms:.4f} ms (profiler device "
+            f"time {prof}, event median {ev:.4f}), plain {plain_ms:.4f} ms, "
+            f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
+            f"{flops + f32_flops} flop)")
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms)
+
+    q, k, v = fx["flash"]
+    bh, l, d = q.shape
+    q4, k4, v4 = (t.view(4, bh // 4, l, d) for t in (q, k, v))
+    out["flash_attention"] = row(
+        "flash_attention", lambda: fa.flash_attention_cuda(q, k, v),
+        lambda: fa.flash_attention_plain(q, k, v),
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
+        ("flash_attention_kernel",), fa.bytes_moved(q, k, v),
+        fa.flops(bh, l, l, d, d, True), 0, BF16_FLOPS_PER_S,
+        f"[{bh}, {l}, {d}] bf16 causal (library: SDPA is_causal, top-left)")
+    (a, w), (ab, wb) = fx["matmul"]
+    m, kk = a.shape
+    n = w.shape[1]
+    mm, fold = km.flops(m, n, kk, 256)
+    out["kahan_matmul"] = row(
+        "kahan_matmul", lambda: km.kahan_matmul_cuda(a, w),
+        lambda: km.kahan_matmul_plain(a, w), lambda: torch.matmul(a, w),
+        ("kahan_matmul_kernel",), km.bytes_moved(a, w, out_elems=m * n), mm,
+        fold, F32_FLOPS_PER_S,
+        f"[{m}, {kk}] x [{kk}, {n}] f32 bk 256 (library: torch.matmul f32, "
+        f"TF32 off)")
+    out["kahan_matmul"]["bf16"] = row(
+        "kahan_matmul", lambda: km.kahan_matmul_cuda(ab, wb),
+        lambda: km.kahan_matmul_plain(ab, wb), lambda: torch.matmul(ab, wb),
+        ("kahan_matmul_kernel",), km.bytes_moved(ab, wb, out_elems=m * n),
+        mm, fold, BF16_FLOPS_PER_S,
+        f"[{m}, {kk}] x [{kk}, {n}] bf16 bk 256 (library: torch.matmul bf16)")
+    picks = {}
+    for name, x, qw, s in fx["q8"]:
+        if qw.shape[1] < qw.shape[0]:                 # the down projection
+            picks[(name, x.shape[0])] = (x, qw, s)
+    for key in (("int8", 2048), ("int8", 8), ("fp8", 2048)):
+        x, qw, s = picks[key]
+        w_deq = qcore.dequantize_weight(qw, s)
+        m, kk = x.shape
+        n = qw.shape[1]
+        mm, fold = km.flops(m, n, kk, kk // s.shape[0], scaled=True)
+        r = row("kahan_matmul_q8", lambda: km.kahan_matmul_q8_cuda(x, qw, s),
+                lambda: km.kahan_matmul_q8_plain(x, qw, s),
+                lambda: torch.matmul(x, w_deq), ("kahan_matmul_kernel",),
+                km.bytes_moved(x, qw, s, out_elems=m * n), mm, fold,
+                F32_FLOPS_PER_S,
+                f"{key[0]} [{m}, {kk}] x [{kk}, {n}] bk 256 (library: "
+                f"torch.matmul f32 against the weight dequantized once)")
+        if key == ("int8", 2048):
+            out["kahan_matmul_q8"] = r
+        else:
+            out["kahan_matmul_q8"][f"{key[0]}_m{key[1]}"] = r
+    kern, upd, n, nleaves = fx["acc"]
+    trip = list(zip(kahan.tree_leaves(kern.sum), kahan.tree_leaves(kern.carry),
+                    kahan.tree_leaves(upd)))
+    out["kahan_acc"] = row(
+        "kahan_acc", lambda: [ka.kahan_acc_flat_cuda(s, c, u)
+                              for s, c, u in trip],
+        lambda: [ka.kahan_acc_flat_plain(s, c, u) for s, c, u in trip],
+        lambda: [s.add_(u) for s, _, u in trip], ("kahan_acc_kernel",),
+        ka.bytes_moved(n), 8 * n, 0, F32_FLOPS_PER_S,
+        f"one microbatch into the whole qwen1.5-0.5b tree ({nleaves} "
+        f"launches, {n} f32 elements; library: naive sum.add_(u), 12 B per "
+        f"element, the paper's baseline)")
+    return out
+
+
 # card-vs-CPU bound of the small check, and why: the f32 summation order
 # differs (cuBLAS and the kernels vs the CPU's GEMMs and plain twins); at
 # this seed no bf16 intermediate flips (for deepseek-v2 that includes the
@@ -775,10 +1156,17 @@ def main() -> int:
     attn_err = phase_attention_parity(dev)
     lat_err = phase_latent_parity(dev)
     red_err = phase_reduce_parity(dev)
+    acc_err = phase_acc_parity(dev)
+    mm_err, q8_err = phase_matmul_parity(dev)
+    flash_err = phase_flash_parity(dev)
+    qwen = get_config("qwen1.5-0.5b")
+    k_launch, fx = phase_kernel_path(dev, qwen)
     times = phase_times(dev)
+    times.update(phase_slice_times(dev, fx))
+    del fx
+    torch.cuda.empty_cache()
     for arch in SMALL_ARCHS:
         phase_small(dev, arch)
-    qwen = get_config("qwen1.5-0.5b")
     q_launch, q_tok_s, q_step = phase_serve(
         dev, kind, qwen, "qwen1.5-0.5b full width (24 L, d 1024, 16 H, "
         f"vocab 151936, random weights seed {SEED})")
@@ -809,6 +1197,26 @@ def main() -> int:
              replaces="src/repro/kernels/paged_attention.py:354",
              launches=d_launch["paged_latent_attention"],
              max_abs_err=lat_err, **times["paged_latent_attention"]),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:144",
+             launches=k_launch["flash_attention"], max_abs_err=flash_err,
+             **times["flash_attention"]),
+        dict(name="kahan_matmul", route="cuda",
+             source="src/repro_torch/csrc/kahan_matmul.cu",
+             replaces="src/repro/kernels/kahan_matmul.py:61",
+             launches=k_launch["kahan_matmul"], max_abs_err=mm_err,
+             **times["kahan_matmul"]),
+        dict(name="kahan_matmul_q8", route="cuda",
+             source="src/repro_torch/csrc/kahan_matmul.cu",
+             replaces="src/repro/kernels/kahan_matmul.py:125",
+             launches=k_launch["kahan_matmul_q8"], max_abs_err=q8_err,
+             **times["kahan_matmul_q8"]),
+        dict(name="kahan_acc", route="cuda",
+             source="src/repro_torch/csrc/kahan_acc.cu",
+             replaces="src/repro/kernels/kahan_acc.py:45",
+             launches=k_launch["kahan_acc"], max_abs_err=acc_err,
+             **times["kahan_acc"]),
     ]
     log(f"[serve] qwen1.5-0.5b: tok/s {q_tok_s:.3f}, median decode step "
         f"{q_step:.3f} ms; deepseek-v2-236b (3 L): tok/s {d_tok_s:.3f}, "

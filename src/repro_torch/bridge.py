@@ -42,14 +42,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import device as _device
 
-def from_numpy(a, device="cpu") -> torch.Tensor:
-    """numpy (or anything ``np.asarray`` takes) -> tensor, bit-exact."""
+
+def from_numpy(a, device=None) -> torch.Tensor:
+    """numpy (or anything ``np.asarray`` takes) -> tensor, bit-exact, on
+    ``device`` (default: the card; raises without a GPU)."""
+    dev = _device.resolve(device)
     a = np.array(a)                       # a writable, contiguous copy
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(
-            torch.bfloat16).to(device)
-    return torch.from_numpy(a).to(device)
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -66,17 +70,18 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def params_from_reference(tree: dict, device="cpu") -> dict:
+def params_from_reference(tree: dict, device=None) -> dict:
     """Reference parameter tree (numpy leaves) -> the port's tree, with
     the stacked ``dense_layers`` / ``layers`` split into one dict per
-    layer."""
+    layer. ``device`` defaults to the card."""
     from repro_torch.models import lm
     return lm.split_layers(_map(tree, lambda a: from_numpy(a, device)))
 
 
-def caches_from_reference(caches, device="cpu") -> dict:
+def caches_from_reference(caches, device=None) -> dict:
     """Reference cache tuple (one dict of numpy leaves per stack) -> the
-    port's dict, stacks concatenated along the layer axis."""
+    port's dict, stacks concatenated along the layer axis, on ``device``
+    (default: the card)."""
     return {k: from_numpy(np.concatenate([np.asarray(t[k]) for t in caches]),
                           device)
             for k in caches[0]}

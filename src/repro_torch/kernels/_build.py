@@ -14,11 +14,13 @@ with ``REPRO_TORCH_BUILD_DIR``), named by a hash of the source and of
 the shared headers (``csrc/*.cuh``) so a stale build is never loaded. ``build_all`` starts every compiler at once
 and waits for all of them. Nothing here runs at import time.
 
-``launches`` counts, per source, the wrapper calls that launched its
-kernel on the card: each ``*_cuda`` wrapper adds one right after its C
-entry point returned success, and nothing else touches the count (one
+``launches`` counts, per kernel, the wrapper calls that launched it on
+the card: each ``*_cuda`` wrapper adds one right after its C entry point
+returned success, and nothing else touches the count (one
 ``fused_reduce`` call is two kernel launches, ``reduce_pass1`` and
-``reduce_pass2``). ``reset_launches`` zeroes it.
+``reduce_pass2``). ``kahan_matmul`` and ``kahan_matmul_q8`` share the
+source ``kahan_matmul.cu`` and are counted apart. ``reset_launches``
+zeroes every count.
 """
 
 from __future__ import annotations
@@ -32,14 +34,16 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused_reduce", "paged_attention", "paged_latent_attention")
+SOURCES = ("fused_reduce", "paged_attention", "paged_latent_attention",
+           "flash_attention", "kahan_matmul", "kahan_acc")
+KERNELS = SOURCES + ("kahan_matmul_q8",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 # nvcc's output (ptxas register / shared-memory report) per source
 BUILD_LOG: dict[str, str] = {}
-launches: dict[str, int] = dict.fromkeys(SOURCES, 0)
+launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
 def reset_launches() -> None:

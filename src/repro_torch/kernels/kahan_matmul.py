@@ -1,0 +1,201 @@
+"""Matmul with compensated K-block accumulation: plain twins + CUDA
+kernel wrappers.
+
+Port of ``repro.kernels.kahan_matmul``. ``C = A @ B`` (and, in the q8
+form, ``C = A @ dequant(qw)``): the K axis is cut into blocks of ``bk``,
+each block's partial product is an ordinary f32 matmul, and the
+partials are folded in block order into a Neumaier (sum, carry) pair;
+the result is ``sum + carry`` in f32. The result depends on ``bk``
+(``min(block_k, K)``, or ``K // scales.shape[0]`` for q8); ``block_m``
+/ ``block_n`` change no number and are only checked to divide the
+shapes, as the reference asserts.
+
+* ``kahan_matmul_plain`` / ``kahan_matmul_q8_plain`` follow the
+  reference's blocking step by step in PyTorch ops (f32 matmul per K
+  block; keep TF32 off on the card, ``device.set_numerics``).
+* ``kahan_matmul_cuda`` / ``kahan_matmul_q8_cuda`` launch
+  ``csrc/kahan_matmul.cu`` (design and bound in that file). Within a K
+  block the kernel sums in its own order, so it agrees with the twins to
+  f32 rounding of the block partials, not bitwise.
+* ``kahan_matmul`` / ``kahan_matmul_q8`` dispatch on A's device.
+
+fp8 weights: ``quantize_weight(w, FP8)`` stores e4m3 bytes as u8. The
+reference kernel widens them with ``astype(f32)`` (byte values); the
+port widens them as e4m3 (``cast_f32``), so its fp8 path agrees with
+``dequantize_weight`` and not with the reference kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import kahan
+from repro_torch.kernels import _build
+from repro_torch.quant.core import cast_f32
+
+_IN_TYPES = {torch.bfloat16: 0, torch.float32: 1}     # POOL_* codes
+_Q_TYPES = {torch.int8: 2, torch.uint8: 3}
+
+
+def _block_k(a, b, block_m, block_n, block_k) -> int:
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"kahan_matmul takes A [M, K] and B [K, N], got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    (m, k), n = a.shape, b.shape[1]
+    bm, bn, bk = min(block_m, m), min(block_n, n), min(block_k, k)
+    if m % bm or n % bn or k % bk:
+        raise ValueError(f"blocks ({bm}, {bn}, {bk}) must divide "
+                         f"(M, N, K) = ({m}, {n}, {k})")
+    return bk
+
+
+def _q8_block_k(a, qw, scales, block_m, block_n) -> int:
+    if a.dim() != 2 or qw.dim() != 2 or scales.dim() != 2:
+        raise ValueError("kahan_matmul_q8 takes A [M, K], qw [K, N] and "
+                         "scales [K // bk, N]")
+    (m, k), (k2, n), (nk, n2) = a.shape, qw.shape, scales.shape
+    if k != k2 or n != n2 or nk < 1 or k % nk:
+        raise ValueError(f"shapes disagree: A {tuple(a.shape)}, qw "
+                         f"{tuple(qw.shape)}, scales {tuple(scales.shape)}")
+    bm, bn = min(block_m, m), min(block_n, n)
+    if m % bm or n % bn:
+        raise ValueError(f"blocks ({bm}, {bn}) must divide (M, N) = "
+                         f"({m}, {n})")
+    return k // nk
+
+
+def _fold(a, w, bk: int, scales=None) -> torch.Tensor:
+    """The reference's K-block loop: f32 partial per block (times the
+    block's scales), Neumaier fold, sum + carry."""
+    m, k = a.shape
+    s = torch.zeros((m, w.shape[1]), dtype=torch.float32, device=a.device)
+    c = torch.zeros_like(s)
+    for j in range(k // bk):
+        part = a[:, j * bk:(j + 1) * bk] @ w[j * bk:(j + 1) * bk]
+        if scales is not None:
+            part = part * scales[j]
+        s, c = kahan.neumaier_step(s, c, part)
+    return s + c
+
+
+def kahan_matmul_plain(a, b, *, block_m: int = 256, block_n: int = 256,
+                       block_k: int = 256) -> torch.Tensor:
+    """C = A @ B with compensated K-accumulation, in PyTorch ops."""
+    bk = _block_k(a, b, block_m, block_n, block_k)
+    return _fold(a.to(torch.float32), b.to(torch.float32), bk)
+
+
+def kahan_matmul_q8_plain(a, qw, scales, *, block_m: int = 256,
+                          block_n: int = 256) -> torch.Tensor:
+    """C = A @ dequant(qw) with compensated K-accumulation: each block's
+    partial against the widened payload times its per-column scales."""
+    bk = _q8_block_k(a, qw, scales, block_m, block_n)
+    return _fold(a.to(torch.float32), cast_f32(qw), bk, scales)
+
+
+# ------------------------------------------------------------ CUDA kernel --
+
+def _lib():
+    lib = _build.load("kahan_matmul")
+    if not getattr(lib, "_typed", False):
+        lib.repro_kahan_matmul.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.repro_kahan_matmul.restype = ctypes.c_int
+        lib.repro_kahan_matmul_q8.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.repro_kahan_matmul_q8.restype = ctypes.c_int
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _need_cuda(a, *tensors) -> None:
+    """Contiguous tensors on A's CUDA device, A f32 or bf16, and an M the
+    grid covers (65535 row tiles of 64)."""
+    for t in (a, *tensors):
+        if not t.is_cuda or t.device != a.device or not t.is_contiguous():
+            raise ValueError("kahan_matmul kernels take contiguous tensors "
+                             "on one CUDA device")
+    if a.dtype not in _IN_TYPES:
+        raise ValueError(f"A must be f32 or bf16, got {a.dtype}")
+    if a.shape[0] > 65535 * 64:
+        raise ValueError(f"M={a.shape[0]} exceeds the grid's 65535 x 64 rows")
+
+
+def kahan_matmul_cuda(a, b, *, block_m: int = 256, block_n: int = 256,
+                      block_k: int = 256) -> torch.Tensor:
+    """Launch ``csrc/kahan_matmul.cu``; same contract as the plain twin
+    (A and B f32 or bf16)."""
+    bk = _block_k(a, b, block_m, block_n, block_k)
+    _need_cuda(a, b)
+    if b.dtype not in _IN_TYPES:
+        raise ValueError(f"B must be f32 or bf16, got {b.dtype}")
+    (m, k), n = a.shape, b.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    lib = _lib()
+    err = lib.repro_kahan_matmul(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, bk,
+        _IN_TYPES[a.dtype], _IN_TYPES[b.dtype],
+        torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        raise RuntimeError("kahan_matmul kernel launch failed: "
+                           + lib.repro_error_string(err).decode())
+    _build.launches["kahan_matmul"] += 1
+    return out
+
+
+def kahan_matmul_q8_cuda(a, qw, scales, *, block_m: int = 256,
+                         block_n: int = 256) -> torch.Tensor:
+    """Launch the q8 entry of ``csrc/kahan_matmul.cu``: A f32 or bf16,
+    qw int8 or u8 (fp8 e4m3 bytes), scales f32."""
+    bk = _q8_block_k(a, qw, scales, block_m, block_n)
+    _need_cuda(a, qw, scales)
+    if qw.dtype not in _Q_TYPES or scales.dtype != torch.float32:
+        raise ValueError(f"qw must be int8 or u8 (fp8) and scales f32, got "
+                         f"{qw.dtype} / {scales.dtype}")
+    (m, k), n = a.shape, qw.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    lib = _lib()
+    err = lib.repro_kahan_matmul_q8(
+        a.data_ptr(), qw.data_ptr(), scales.data_ptr(), out.data_ptr(), m, n,
+        k, bk, _IN_TYPES[a.dtype], _Q_TYPES[qw.dtype],
+        torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        raise RuntimeError("kahan_matmul_q8 kernel launch failed: "
+                           + lib.repro_error_string(err).decode())
+    _build.launches["kahan_matmul_q8"] += 1
+    return out
+
+
+# ------------------------------------------------------------ dispatch -----
+
+def kahan_matmul(a, b, *, block_m: int = 256, block_n: int = 256,
+                 block_k: int = 256) -> torch.Tensor:
+    """C = A @ B with compensated K-accumulation -> f32 [M, N]: the plain
+    twin for a CPU tensor, the kernel for a CUDA tensor."""
+    fn = kahan_matmul_cuda if a.is_cuda else kahan_matmul_plain
+    return fn(a, b, block_m=block_m, block_n=block_n, block_k=block_k)
+
+
+def kahan_matmul_q8(a, qw, scales, *, block_m: int = 256,
+                    block_n: int = 256) -> torch.Tensor:
+    """C = A @ dequant(qw) with compensated f32 K-accumulation; ``qw`` /
+    ``scales`` from ``quant.core.quantize_weight`` (its K block is the
+    fold's K block)."""
+    fn = kahan_matmul_q8_cuda if a.is_cuda else kahan_matmul_q8_plain
+    return fn(a, qw, scales, block_m=block_m, block_n=block_n)
+
+
+def flops(m: int, n: int, k: int, bk: int, scaled: bool = False) -> tuple:
+    """(multiply-add flops, f32 fold flops) of one call: 2 M N K for the
+    products, and per output and K block a TwoSum and a carry add (7),
+    plus the scale multiply in the q8 form."""
+    return 2 * m * n * k, m * n * (k // bk) * (8 if scaled else 7)
+
+
+def bytes_moved(*tensors, out_elems: int) -> int:
+    """Least HBM traffic: every input once, the f32 output once."""
+    return sum(t.numel() * t.element_size() for t in tensors) + 4 * out_elems

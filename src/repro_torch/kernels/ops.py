@@ -15,6 +15,9 @@ import torch
 from repro_torch.kernels import engine
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels._build import launches, reset_launches  # noqa: F401
+from repro_torch.kernels.kahan_acc import (kahan_acc_flat_cuda,
+                                           kahan_acc_flat_plain)
+from repro_torch.kernels.kahan_matmul import kahan_matmul_q8
 
 
 # ------------------------------------------------------------ reductions --
@@ -45,6 +48,15 @@ def fused_reduce(x: torch.Tensor, y: torch.Tensor | None = None, *,
         x.reshape(1, -1), None if y is None else y.reshape(1, -1),
         outputs=outputs, compensated=compensated)
     return {k: v[0] for k, v in out.items()}
+
+
+def batched_kahan_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Many independent compensated dots in one call: (B, N) x (B, N) ->
+    (B,)."""
+    if x.dim() != 2 or x.shape != y.shape:
+        raise ValueError(f"batched_kahan_dot takes two (B, N) tensors, got "
+                         f"{tuple(x.shape)} and {tuple(y.shape)}")
+    return batched_fused_reduce(x, y, outputs=("dot",))["dot"]
 
 
 def kahan_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -115,3 +127,28 @@ def paged_attention(q: torch.Tensor, kpool: torch.Tensor,
                                         scale=scale)
     return _pa.paged_attention_plain(*args, kscale=kscale, vscale=vscale,
                                      scale=scale)
+
+
+# ------------------------------------------------------ quantized matmul --
+
+def q8_matmul(a: torch.Tensor, qw: torch.Tensor,
+              scales: torch.Tensor) -> torch.Tensor:
+    """A @ dequant(qw) with compensated f32 K-accumulation -> f32 [M, N];
+    ``qw`` / ``scales`` from ``quant.core.quantize_weight`` (int8, or fp8
+    as u8 bytes). See ``kernels.kahan_matmul.kahan_matmul_q8``."""
+    return kahan_matmul_q8(a, qw, scales)
+
+
+# ------------------------------------------------------------ acc ---------
+
+def kahan_accumulate(acc_sum: torch.Tensor, acc_carry: torch.Tensor,
+                     update: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Elementwise compensated accumulate of same-shape tensors, IN PLACE:
+    ``acc_sum`` / ``acc_carry`` are updated and returned (the reference
+    returns new arrays aliased onto its inputs). The kernel on a CUDA
+    tensor (contiguous, f32 accumulators), the plain twin on a CPU one.
+    See ``kernels.kahan_acc``."""
+    if acc_sum.is_cuda:
+        return kahan_acc_flat_cuda(acc_sum, acc_carry, update)
+    return kahan_acc_flat_plain(acc_sum, acc_carry, update)

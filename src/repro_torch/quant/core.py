@@ -1,4 +1,10 @@
-"""Per-vector symmetric KV quantization (twin of ``repro.quant.core``).
+"""Symmetric block quantization (twin of ``repro.quant.core``).
+
+Three granularities of one scheme (symmetric, per-tile amax scale):
+``quantize_lastdim`` (one scale per trailing vector: the KV pools),
+``quantize_blocks`` (flat blocks of ``EF_BLOCK`` elements) and
+``quantize_weight`` (one scale per (K-block, output column) of a [K, N]
+weight: the K-block of ``kernels.kahan_matmul.kahan_matmul_q8``).
 
 int8 payloads are stored as ``torch.int8``; fp8 (e4m3fn) payloads are
 stored as their raw bytes in ``torch.uint8`` and widened with the same
@@ -12,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+EF_BLOCK = 256
 SCALE_EPS = 1e-12
 
 
@@ -93,3 +100,50 @@ def dequantize_lastdim(q: torch.Tensor, scales: torch.Tensor,
     """Inverse of ``quantize_lastdim``: q [..., D], scales [...] ->
     [..., D] in ``dtype``."""
     return (cast_f32(q) * scales[..., None]).to(dtype)
+
+
+def quantize_blocks(x: torch.Tensor, fmt: QuantFormat = INT8,
+                    block: int = EF_BLOCK
+                    ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Flatten, zero-pad to a ``block`` multiple, one scale per block:
+    (payload [nblocks, block], f32 scales [nblocks, 1], pad). The scale
+    is computed in ``x``'s dtype, as the reference does."""
+    flat = x.reshape(-1)
+    pad = (-flat.shape[0]) % block
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    blocks = flat.reshape(-1, block)
+    scale = torch.amax(torch.abs(blocks), dim=1, keepdim=True) / fmt.qmax
+    scale = torch.clamp_min(scale, SCALE_EPS)
+    return _encode(blocks, scale, fmt), scale.to(torch.float32), pad
+
+
+def dequantize_blocks(q: torch.Tensor, scales: torch.Tensor, pad: int,
+                      shape: tuple) -> torch.Tensor:
+    """Inverse of ``quantize_blocks`` back to ``shape`` (f32)."""
+    out = (cast_f32(q) * scales).reshape(-1)
+    if pad:
+        out = out[:-pad]
+    return out.reshape(shape)
+
+
+def quantize_weight(w: torch.Tensor, fmt: QuantFormat = INT8,
+                    block_k: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
+    """[K, N] weight -> (payload [K, N] in ``fmt.storage``, f32 scales
+    [K // block_k, N]): one scale per (K-block, output column)."""
+    k, n = w.shape
+    if k % block_k:
+        raise ValueError(f"K={k} is not a multiple of block_k={block_k}")
+    wb = w.to(torch.float32).reshape(k // block_k, block_k, n)
+    amax = torch.amax(torch.abs(wb), dim=1)
+    scale = torch.clamp_min(amax / fmt.qmax, SCALE_EPS)
+    return _encode(wb, scale[:, None, :], fmt).reshape(k, n), scale
+
+
+def dequantize_weight(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``quantize_weight`` -> f32 [K, N]; fp8 (u8) payloads
+    widen as e4m3."""
+    nk, n = scales.shape
+    k = q.shape[0]
+    wb = cast_f32(q).reshape(nk, k // nk, n)
+    return (wb * scales[:, None, :]).reshape(k, n)

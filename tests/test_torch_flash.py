@@ -1,0 +1,115 @@
+"""Port parity: flash attention (kernel B4).
+
+The plain twin walks the reference's (qc, kc) blocks, so it is held to
+``repro.kernels.flash_attention.flash_attention_pallas`` (interpret
+mode) at the reference test's tolerance (f32 2e-5, bf16 2e-2: the same
+online-softmax steps, matmuls summed in other orders). Causal is the
+Pallas kernel's top-left mask (q_pos >= k_pos), pinned with Lq != Lk,
+where it differs from the bottom-right mask of the reference test's
+oracle. On the card, the CUDA kernel (its own 64 x 64 tiling) against
+the twin."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import flash_attention as rfa  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_cuda, flash_attention_plain, tile_mask)
+
+CASES = [
+    (256, 256, 64, 128, 128, True),
+    (128, 384, 64, 128, 128, False),     # cross-attention shape
+    (256, 256, 32, 64, 128, True),       # uneven blocks
+    (100, 100, 64, 64, 64, True),
+    (130, 257, 64, 64, 64, False),       # ragged
+    (3, 7, 64, 64, 64, False),           # single partial block each way
+]
+
+
+def _qkv(lq, lk, d, dtype, seed=0, bh=3):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((bh, n, d)).astype(np.float32)
+            for n in (lq, lk, lk)]
+    j = [jnp.asarray(a, dtype) for a in arrs]
+    t = [torch.from_numpy(np.array(x, np.float32)).to(getattr(torch, dtype))
+         for x in j]
+    return j, t
+
+
+@pytest.mark.parametrize("lq,lk,d,qb,kb,causal", CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_twin_matches_reference(lq, lk, d, qb, kb, causal, dtype):
+    j, t = _qkv(lq, lk, d, dtype)
+    want = rfa.flash_attention_pallas(*j, causal=causal, q_block=qb,
+                                      kv_block=kb, interpret=True)
+    got = flash_attention(*t, causal=causal, q_block=qb, kv_block=kb)
+    assert got.dtype == t[0].dtype and got.shape == (3, lq, d)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("lq,lk", [(100, 40), (40, 100)])
+def test_causal_is_top_left(lq, lk):
+    j, t = _qkv(lq, lk, 32, "float32", seed=1)
+    want = np.asarray(rfa.flash_attention_pallas(*j, causal=True,
+                                                 q_block=64, kv_block=32,
+                                                 interpret=True))
+    got = flash_attention_plain(*t, causal=True, q_block=64,
+                                kv_block=32).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+    # top-left: row 0 attends key 0 only, so it IS v[:, 0]
+    np.testing.assert_allclose(got[:, 0], t[2][:, 0].numpy(), atol=1e-6)
+    # and a bottom-right mask (tril(k = lk - lq)) gives other rows
+    q, k, v = (x.double() for x in t)
+    s = q @ k.transpose(1, 2) * 32 ** -0.5
+    br = torch.ones(lq, lk, dtype=torch.bool).tril(lk - lq)
+    other = torch.softmax(s.masked_fill(~br, -1e30), -1) @ v
+    assert np.abs(other.numpy() - got).max() > 1e-2
+
+
+def test_tile_mask_helper():
+    assert tile_mask(0, 0, 4, 4) is None
+    m = tile_mask(2, 0, 3, 8, causal=True, k_limit=6)
+    want = (np.arange(2, 5)[:, None] >= np.arange(8)[None, :]) \
+        & (np.arange(8)[None, :] < 6)
+    assert np.array_equal(m.numpy(), want)
+    m = tile_mask(0, 4, 2, 4, k_limit=6)
+    assert np.array_equal(m.numpy(),
+                          (4 + np.arange(4))[None, :].repeat(2, 0) < 6)
+    for args, kw in [((3, 5, 4, 6), dict(causal=True, q_limit=6)),
+                     ((0, 0, 5, 5), dict(q_limit=3, k_limit=4))]:
+        np.testing.assert_array_equal(np.asarray(rfa.tile_mask(*args, **kw)),
+                                      tile_mask(*args, **kw).numpy())
+
+
+def test_shapes_are_checked():
+    q = torch.zeros(2, 5, 8)
+    with pytest.raises(ValueError):
+        flash_attention(q, torch.zeros(2, 5, 4), torch.zeros(2, 5, 8))
+    before = dict(tops.launches)
+    flash_attention(q, q, q)
+    assert tops.launches == before                 # the CPU twin is no launch
+
+
+def test_cuda_kernel_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    cases = [(130, 257, 64, False), (3, 7, 64, True), (482, 482, 64, True),
+             (100, 40, 32, True), (256, 256, 128, False)]
+    for lq, lk, d, causal in cases:
+        for dt, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
+            _, t = _qkv(lq, lk, d, dt, seed=2)
+            q, k, v = (x.cuda() for x in t)
+            before = tops.launches["flash_attention"]
+            got = flash_attention_cuda(q, k, v, causal=causal)
+            assert tops.launches["flash_attention"] == before + 1
+            want = flash_attention_plain(q, k, v, causal=causal)
+            torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                       rtol=tol)

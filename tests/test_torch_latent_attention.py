@@ -74,7 +74,7 @@ def _ref(c):
 
 
 def _t(c):
-    return {k: None if v is None else bridge.from_numpy(v)
+    return {k: None if v is None else bridge.from_numpy(v, device="cpu")
             for k, v in c.items()}
 
 

@@ -60,7 +60,7 @@ def _params(cfg):
     if key not in _PARAMS:
         p = common.init_params(api.schema(cfg), jax.random.key(0))
         _PARAMS[key] = (p, bridge.params_from_reference(
-            jax.tree.map(np.asarray, p)))
+            jax.tree.map(np.asarray, p), device="cpu"))
     return _PARAMS[key]
 
 
@@ -70,7 +70,7 @@ def _fresh_caches(cfg, slots=2):
     caches = paged.reset_slot(kv.init(slots), jnp.int32(SLOT),
                               jnp.asarray(ROW))
     return caches, bridge.caches_from_reference(
-        jax.tree.map(np.asarray, caches))
+        jax.tree.map(np.asarray, caches), device="cpu")
 
 
 def _prompt(n=29, seed=0):
@@ -167,7 +167,8 @@ def test_decode_matches_reference_kernel_branch(monkeypatch, kv_dtype,
     _, caches = jax.jit(api.prefill_chunk_fn(cfg))(
         params, jnp.asarray(prompt[None]), caches, jnp.int32(SLOT),
         jnp.int32(0))
-    tcaches = bridge.caches_from_reference(jax.tree.map(np.asarray, caches))
+    tcaches = bridge.caches_from_reference(jax.tree.map(np.asarray, caches),
+                                           device="cpu")
     toks = np.array([[0], [int(prompt[-1])]], np.int32)
     monkeypatch.setattr(attention, "paged_kernel_enabled", lambda: True)
     lg, new = jax.jit(api.decode_fn(cfg))(params, jnp.asarray(toks), caches)

@@ -30,14 +30,15 @@ D = 64
 def _params(cfg, d, seed=0):
     rcfg = rmoe.MoEConfig(**cfg._asdict())
     p = rcommon.init_params(rmoe.moe_schema(d, rcfg), jax.random.key(seed))
-    tp = jax.tree.map(lambda a: bridge.from_numpy(np.asarray(a)), p)
+    tp = jax.tree.map(
+        lambda a: bridge.from_numpy(np.asarray(a), device="cpu"), p)
     return rcfg, p, tp
 
 
 def _x(shape, dtype, seed=1):
     x = jnp.asarray(np.random.default_rng(seed).standard_normal(shape)
                     .astype(np.float32)).astype(dtype)
-    return x, bridge.from_numpy(np.asarray(x))
+    return x, bridge.from_numpy(np.asarray(x), device="cpu")
 
 
 def _run_both(cfg, d, shape, dtype):

@@ -1,6 +1,7 @@
 """Guards on the port's boundaries: ``repro_torch`` and ``chip_smoke.py``
-import neither JAX nor the reference package, and the port's entry
-points run on the GPU unless the caller asks for the CPU."""
+import neither JAX nor the reference package, the port's entry points
+(the numpy bridge included) run on the GPU unless the caller asks for
+the CPU, and the kernel entry points launch nothing on a CPU tensor."""
 
 import ast
 from pathlib import Path
@@ -9,6 +10,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import numpy as np  # noqa: E402
+
+import repro_torch.kernels as tker  # noqa: E402
+from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.serving.engine import DecodeEngine  # noqa: E402
@@ -56,3 +61,30 @@ def test_entry_points_default_to_the_gpu():
         with pytest.raises(RuntimeError):
             kv.init(1)
         assert DecodeEngine(cfg, params, device="cpu").device.type == "cpu"
+    arr = np.ones((2, 3), np.float32)
+    calls = [lambda: bridge.from_numpy(arr),
+             lambda: bridge.params_from_reference({"embed": arr}),
+             lambda: bridge.caches_from_reference(({"len": arr},))]
+    for call in calls:
+        if torch.cuda.is_available():
+            call()                             # lands on the card
+            continue
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert bridge.from_numpy(arr, device="cpu").device.type == "cpu"
+    cpu = bridge.caches_from_reference(({"len": arr},), device="cpu")
+    assert cpu["len"].device.type == "cpu"
+
+
+def test_kernel_entry_points_launch_nothing_on_the_cpu():
+    ops = tker.ops
+    x = torch.ones(4, 256)
+    qw = torch.ones(256, 8, dtype=torch.int8)
+    before = dict(ops.launches)
+    ops.kahan_accumulate(torch.zeros(4, 256), torch.zeros(4, 256), x)
+    ops.q8_matmul(x, qw, torch.ones(1, 8))
+    ops.batched_kahan_dot(x, x)
+    tker.kahan_matmul(x, x.T)
+    q = torch.ones(2, 5, 8)
+    tker.flash_attention(q, q, q)
+    assert ops.launches == before

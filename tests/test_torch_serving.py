@@ -82,7 +82,8 @@ def test_engine_matches_reference_engine(kv_dtype):
         num_layers=2, kv_dtype=kv_dtype, num_kv_heads=2)
     tcfg = _tcfg(kv_dtype=kv_dtype, num_kv_heads=2)
     params = common.init_params(api.schema(cfg), jax.random.key(seed))
-    tparams = bridge.params_from_reference(jax.tree.map(np.asarray, params))
+    tparams = bridge.params_from_reference(jax.tree.map(np.asarray, params),
+                                           device="cpu")
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, 256, int(rng.integers(3, 30))).tolist()
                for _ in range(3)]
