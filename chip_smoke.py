@@ -6,27 +6,35 @@ Phases (each prints its own lines; any failure exits non-zero):
 
 1. device  — the card's name and ``nvidia-smi`` name / power limit;
 2. build   — compiles ``src/repro_torch/csrc/*.cu`` (one nvcc each, in
-             parallel) into ``build/kernels``;
+             parallel) into ``build/kernels`` and counts the tensor-core
+             flash kernel's HGMMA instructions (fails on none);
 3. parity  — each CUDA kernel against its plain PyTorch twin on the card,
-             with the tolerance and its reason: the GQA and the MLA latent
-             attention kernels and the reduction at main-path shapes; the
-             compensated accumulate (bitwise), the compensated matmul and
-             its int8 / fp8 form (plus an ill-conditioned K = 2^14 case
-             against an f64 product) and flash attention (f32 / bf16,
-             causal or not, ragged lengths);
+             with the tolerance and its reason: the GQA attention kernel
+             (every pool format, W in {1, 5}, partition-edge lengths;
+             width, batch and table-width invariance bitwise), the MLA
+             latent attention kernel and the reduction at main-path
+             shapes; the compensated accumulate (bitwise), the
+             compensated matmul and its int8 / fp8 form (plus an
+             ill-conditioned K = 2^14 case against an f64 product) and
+             flash attention on both routes (f32 on the CUDA cores, bf16
+             on the tensor cores; causal or not, ragged lengths, one-row
+             and one-key calls);
 4. path    — the kernel entry points of ``repro_torch.kernels`` at
              qwen1.5-0.5b's full widths, each with its launch counters
              zeroed just before and read just after: flash attention of
-             four 2048-token prompts ([64, 2048, 64] bf16, causal), the
+             four 2048-token prompts ([64, 2048, 64] causal, bf16 on the
+             tensor-core route and f32 on the CUDA-core route), the
              down projection with compensated K accumulation (f32 and
              bf16), int8 / fp8 MLP weights at M = 8 and 2048, and 4
              microbatches of gradients accumulated into every leaf of the
              parameter tree (bitwise ``KahanState.add``);
-5. times   — device time of each kernel (profiler, L2 flushed before
-             each launch), CUDA-event medians of its plain twin and a
-             library yardstick, beside the least time the card could
-             take (HBM 3.35 TB/s, f32 CUDA-core 67 TFLOP/s, bf16 tensor
-             cores 989 TFLOP/s; H100 SXM data sheet);
+5. times   — device time of each kernel and of each library yardstick
+             (``torch.profiler``, L2 flushed before each launch; the
+             CUDA-event median printed beside it), the event median of
+             the plain twin, beside the least time the card could take
+             (HBM 3.35 TB/s, f32 CUDA-core 67 TFLOP/s, bf16 tensor
+             cores 989 TFLOP/s; H100 SXM data sheet); a row whose
+             profiler window shows none of its kernels fails;
 6. small   — reduced qwen1.5 and reduced deepseek-v2 served on the card
              and on the CPU (plain twins) from the same weights: logits
              agree;
@@ -112,23 +120,50 @@ def _device_kernels(prof):
             if getattr(ev, "device_type", None) == DeviceType.CUDA]
 
 
-def kernel_ms(fn, flush, names, reps: int = 20):
-    """Mean device time (ms) per call of the CUDA kernels whose names
-    contain one of ``names``, from ``torch.profiler``; None if the
-    profiler saw no device time for them."""
+def _profiled(fn, flush, reps: int):
+    """``torch.profiler`` over ``reps`` calls of ``fn``, each after an L2
+    flush when ``flush`` is given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            flush.zero_()
+            if flush is not None:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
-    total = sum(_device_us(ev) for ev in _device_kernels(prof)
-                if any(n in ev.key for n in names))
-    return total / reps / 1e3 if total > 0 else None
+    return prof
+
+
+def kernel_ms(fn, flush, names=None, reps: int = 20,
+              what: str = "") -> float:
+    """Mean device time (ms) per call of ``fn`` from ``torch.profiler``,
+    the L2 flushed before each call: the kernels whose names contain one
+    of ``names`` or, with ``names`` None (a library call), every kernel
+    the call launches. The flush's own kernels (found by profiling the
+    flush alone) never count, and a call that launches one of them fails,
+    as does a window in which none of the call's kernels shows."""
+    import torch
+    flush_keys = {ev.key for ev in _device_kernels(
+        _profiled(flush.zero_, None, 3))}
+    fn()
+    torch.cuda.synchronize()
+    if names is None:
+        own = {ev.key for ev in _device_kernels(_profiled(fn, None, 1))}
+        if own & flush_keys:
+            fail(f"{what}: the call launches the L2 flush's kernel "
+                 f"{sorted(own & flush_keys)}, so its time cannot be "
+                 f"told apart")
+        pick = own.__contains__
+    else:
+        pick = lambda key: any(n in key for n in names)  # noqa: E731
+    total = sum(_device_us(ev) for ev in _device_kernels(
+        _profiled(fn, flush, reps))
+        if pick(ev.key) and ev.key not in flush_keys)
+    if not total > 0:
+        fail(f"{what}: torch.profiler saw no device time for "
+             f"{names or 'its kernels'}")
+    return total / reps / 1e3
 
 
 # ------------------------------------------------------------ fixtures ----
@@ -243,6 +278,24 @@ def phase_device():
     return name, line
 
 
+def sass_count(name: str, op: str) -> int:
+    """SASS instructions whose opcode starts with ``op`` in the built
+    library of ``csrc/<name>.cu`` (``cuobjdump`` of the toolkit that
+    built it)."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(_build._target(name))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    count = 0
+    for ln in sass.splitlines():        # /*addr*/ [@P] OPCODE ... /* enc */
+        words = ln.split("*/", 1)[-1].split()
+        if words and words[0].startswith("@"):        # a predicate
+            words = words[1:]
+        count += bool(words) and words[0].startswith(op)
+    return count
+
+
 def phase_build():
     from repro_torch.kernels import _build
     secs = _build.build_all()
@@ -252,44 +305,93 @@ def phase_build():
         for ln in out.splitlines():
             if "registers" in ln or "spill" in ln or "error" in ln.lower():
                 log(f"[build] {name}: {ln.strip()}")
+    hgmma = sass_count("flash_attention_wgmma", "HGMMA")
+    log(f"[build] flash_attention_wgmma: {hgmma} HGMMA (wgmma) instructions "
+        f"in its SASS")
+    if not hgmma:
+        fail("the tensor-core flash attention kernel has no HGMMA "
+             "instruction")
+
+
+def _paged_call(x, sl=slice(None), mb=None, q=None, lens=None, offs=None):
+    """paged_attention_cuda on the sequences ``sl`` of case ``x``, the
+    table cut to its first ``mb`` slots when given."""
+    from repro_torch.kernels import paged_attention as pa
+    table = x["block_table"][sl]
+    if mb is not None:
+        table = table[:, :mb]
+    return pa.paged_attention_cuda(
+        (x["q"] if q is None else q)[sl].contiguous(), x["kpool"],
+        x["vpool"], table.contiguous(),
+        (x["lens"] if lens is None else lens)[sl].contiguous(),
+        (x["q_offsets"] if offs is None else offs)[sl].contiguous(),
+        kscale=x["kscale"], vscale=x["vscale"])
 
 
 def phase_attention_parity(dev) -> float:
+    """B1 against its twin at 2 bf16 ulps: every pool format at W in
+    {1, 5} with Hkv = 16 and Hkv = 4 (groups 4), lengths on the
+    partition edges (63, 64, 65, 128 tokens: a partition is 4 slots of
+    16), one-token contexts, a table width that is no multiple of the
+    partition (30 slots). Bitwise on the card: width invariance (row j
+    of a width-W call is the width-1 call at q_offsets + j), batch
+    invariance (each sequence alone is itself within the batch of 8) and
+    table-width invariance (the first 32 slots of a 64-slot table, all
+    lengths within them)."""
     import torch
+    from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
     worst = 0.0
-    cases = [dict(fmt=f, w=w) for f in ("bf16", "int8", "fp8")
-             for w in (1, 5)] + [dict(fmt="bf16", w=5, hkv=4)]
+    edges = [63, 64, 65, 128, 1, 2, 16, 17]
+    cases = [dict(fmt=f, w=w, hkv=hkv) for f in ("bf16", "int8", "fp8")
+             for w in (1, 5) for hkv in (16, 4)]
+    cases += [dict(fmt=f, w=w, lens=[max(e, w) for e in edges])
+              for f in ("bf16", "int8", "fp8") for w in (1, 5)]
+    cases += [dict(fmt=f, w=w, mb=30) for f in ("bf16", "fp8")
+              for w in (1, 5)]
     for c in cases:
         x = attention_case(dev, **c)
         args = (x["q"], x["kpool"], x["vpool"], x["block_table"], x["lens"],
                 x["q_offsets"])
         kw = dict(kscale=x["kscale"], vscale=x["vscale"])
+        before = ops.launches["paged_attention"]
         got = pa.paged_attention_cuda(*args, **kw)
         want = pa.paged_attention_plain(*args, **kw)
         torch.cuda.synchronize()
+        counted = ops.launches["paged_attention"] - before
         err = (got.float() - want.float()).abs()
-        # both round one f32 result to bf16; the f32 results differ only
-        # in the summation order of the scores and PV products (the
-        # kernel's sequential FMA chain vs torch's reductions), so they
-        # may straddle a bf16 rounding boundary: 2 bf16 ulps of the value
+        # both round one f32 result to bf16; the f32 results differ in
+        # the summation order of the scores, the p sums and PV products
+        # and in where the partitions are folded, so they may straddle a
+        # bf16 rounding boundary: 2 bf16 ulps of the value
         tol = 2.0 ** -7 * want.float().abs() + 1e-6
         bad = int((err > tol).sum())
         worst = max(worst, float(err.max()))
-        # width invariance, bitwise: row j of the width-W call equals the
-        # width-1 call at q_offsets + j
         wid = c["w"]
-        inv = all(torch.equal(got[:, j], pa.paged_attention_cuda(
-            x["q"][:, j:j + 1].contiguous(), x["kpool"], x["vpool"],
-            x["block_table"], (x["q_offsets"] + j + 1).contiguous(),
-            (x["q_offsets"] + j).contiguous(), **kw)[:, 0])
-            for j in range(wid))
+        inv_w = all(torch.equal(got[:, j], _paged_call(
+            x, q=x["q"][:, j:j + 1], lens=x["q_offsets"] + j + 1,
+            offs=x["q_offsets"] + j)[:, 0]) for j in range(wid))
+        inv_b = all(torch.equal(got[i:i + 1], _paged_call(
+            x, slice(i, i + 1))) for i in range(got.shape[0]))
         log(f"[parity] paged_attention {c}: max|kernel-plain| "
             f"{float(err.max()):.3g} (tol 2 bf16 ulps: f32 summation order "
-            f"before one bf16 rounding), {bad} over tol; width invariance "
-            f"bitwise: {inv}")
-        if bad or not inv or not torch.isfinite(got.float()).all():
+            f"before one bf16 rounding), {bad} over tol; bitwise width "
+            f"invariance {inv_w}, batch invariance {inv_b}")
+        if bad or not inv_w or not inv_b or counted != 1 or \
+                not torch.isfinite(got.float()).all():
             fail(f"paged_attention parity {c}")
+    # table width: a 64-slot table whose lengths fit its first 32 slots
+    for fmt in ("bf16", "int8", "fp8"):
+        for w in (1, 5):
+            x = attention_case(dev, fmt=fmt, w=w, mb=64, lens=[
+                512, w, 17, 259, 511, 128, 64, 129])
+            wide = _paged_call(x)
+            narrow = _paged_call(x, mb=32)
+            ok = torch.equal(wide, narrow)
+            log(f"[parity] paged_attention fmt={fmt} W={w}: mb 64 vs the "
+                f"same first 32 slots, bitwise {ok}")
+            if not ok:
+                fail(f"paged_attention table-width invariance {fmt} W={w}")
     return worst
 
 
@@ -474,6 +576,34 @@ def ill_conditioned_reduce(dev, g, rows: int, n: int) -> float:
     return worst
 
 
+def time_row(flush, name, run, plain, lib, kernel_names, nbytes, flops,
+             f32_flops, rate, what, plain_reps=3) -> dict:
+    """One times row: the kernel's and the library call's profiler device
+    time (L2 flushed before each call; the CUDA-event median printed
+    beside each), the plain twin's event median (the twin repeats the
+    kernel's arithmetic and is no yardstick of speed), and the bound."""
+    ms = kernel_ms(run, flush, kernel_names, what=name)
+    ev = time_ms(run, flush)
+    plain_ms = time_ms(plain, flush, reps=plain_reps)
+    lib_ms = lib_ev = None
+    if lib is not None:
+        lib_ms = kernel_ms(lib, flush, None, what=f"{name} library")
+        lib_ev = time_ms(lib, flush)
+    b_ms, b_by = bound(nbytes, flops, f32_flops, rate)
+    lib_txt = "none" if lib is None else \
+        f"{lib_ms:.4f} ms (event median {lib_ev:.4f})"
+    log(f"[times] {name} {what}: kernel {ms:.4f} ms (profiler device time "
+        f"of {', '.join(kernel_names)}; event median {ev:.4f}), plain "
+        f"{plain_ms:.4f} ms (event median), library {lib_txt}, bound "
+        f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops + f32_flops} flop)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
+PAGED_KERNELS = ("paged_attention_split_kernel",
+                 "paged_attention_merge_kernel")
+
+
 def phase_times(dev):
     import torch
     import torch.nn.functional as F
@@ -483,95 +613,64 @@ def phase_times(dev):
     flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
     out = {}
     # paged attention at the serve phase's decode shapes (B = 8 slots,
-    # 64-block tables, ragged contexts up to 544 tokens)
+    # 64-block tables, ragged contexts up to 544 tokens); the library is
+    # SDPA on the gathered rows with a length mask
     x = attention_case(dev, mb=64,
                        lens=[544, 65, 300, 400, 97, 512, 130, 256])
     args = (x["q"], x["kpool"], x["vpool"], x["block_table"], x["lens"],
             x["q_offsets"])
-    ev_ms = time_ms(lambda: pa.paged_attention_cuda(*args), flush)
-    prof_ms = kernel_ms(lambda: pa.paged_attention_cuda(*args), flush,
-                        ("paged_attention_kernel",))
-    ms = ev_ms if prof_ms is None else prof_ms
-    plain_ms = time_ms(lambda: pa.paged_attention_plain(*args), flush,
-                       reps=5)
     kg = paged.gather_blocks(x["kpool"], x["block_table"]).transpose(1, 2)
     vg = paged.gather_blocks(x["vpool"], x["block_table"]).transpose(1, 2)
     kpos = torch.arange(kg.shape[2], device=dev)
     mask = (kpos[None, :] < x["lens"][:, None])[:, None, None, :]
     qs = x["q"].transpose(1, 2)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qs, kg, vg, attn_mask=mask), flush)
-    nbytes = pa.bytes_moved(x["q"], x["kpool"], x["vpool"],
-                            x["block_table"], x["lens"])
     live_tok = int(x["lens"].sum())
-    flops = 4 * live_tok * x["q"].shape[2] * x["q"].shape[3]
-    b_ms, b_by = bound(nbytes, flops)
-    out["paged_attention"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                  bound_by=b_by, library_ms=lib_ms)
-    log(f"[times] paged_attention B=8 W=1 Hq=Hkv=16 D=64 bs=16 "
-        f"tokens={live_tok}: kernel {ms:.4f} ms (profiler device time "
-        f"{prof_ms}, event median {ev_ms:.4f}), plain {plain_ms:.4f} ms, "
-        f"SDPA on gathered rows {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}: {nbytes} B, {flops} flop)")
+    out["paged_attention"] = time_row(
+        flush, "paged_attention", lambda: pa.paged_attention_cuda(*args),
+        lambda: pa.paged_attention_plain(*args),
+        lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask),
+        PAGED_KERNELS,
+        pa.bytes_moved(x["q"], x["kpool"], x["vpool"], x["block_table"],
+                       x["lens"]),
+        0, 4 * live_tok * x["q"].shape[2] * x["q"].shape[3],
+        F32_FLOPS_PER_S,
+        f"B=8 W=1 Hq=Hkv=16 D=64 bs=16 tokens={live_tok} bf16 pools, "
+        f"split + merge (library: SDPA on gathered rows)", plain_reps=5)
     # fused reduce at the decode step's first call: [8, 151936] f32,
-    # (max, sum, sumsq)
+    # (max, sum, sumsq); no single PyTorch call computes the compensated
+    # fused statistics
     g = torch.Generator(device=dev).manual_seed(3)
     lg = torch.randn((8, 151936), generator=g, device=dev)
     outs = ("max", "sum", "sumsq")
-    ev_ms = time_ms(lambda: engine.fused_reduce_rows_cuda((lg,),
-                                                          outputs=outs),
-                    flush)
-    prof_ms = kernel_ms(lambda: engine.fused_reduce_rows_cuda(
-        (lg,), outputs=outs), flush, ("reduce_pass1", "reduce_pass2"))
-    ms = ev_ms if prof_ms is None else prof_ms
-    plain_ms = time_ms(lambda: engine.fused_reduce_rows_plain(
-        (lg,), outputs=outs), flush, reps=5)
-    nbytes = engine.bytes_moved(8, 151936, 1, len(outs))
-    flops = 8 * 151936 * (6 + 1 + 6 + 1)
-    b_ms, b_by = bound(nbytes, flops)
-    out["fused_reduce"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                               bound_by=b_by, library_ms=None)
-    log(f"[times] fused_reduce [8,151936] (max,sum,sumsq): kernel "
-        f"{ms:.4f} ms (profiler device time, both passes: {prof_ms}, "
-        f"event median {ev_ms:.4f}), plain {plain_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}: {nbytes} B); no single PyTorch call computes the "
-        f"compensated fused statistics")
+    out["fused_reduce"] = time_row(
+        flush, "fused_reduce",
+        lambda: engine.fused_reduce_rows_cuda((lg,), outputs=outs),
+        lambda: engine.fused_reduce_rows_plain((lg,), outputs=outs), None,
+        ("reduce_pass1", "reduce_pass2"),
+        engine.bytes_moved(8, 151936, 1, len(outs)), 0,
+        8 * 151936 * (6 + 1 + 6 + 1), F32_FLOPS_PER_S,
+        "[8,151936] (max,sum,sumsq), both passes (library: none)",
+        plain_reps=5)
     # the flat form (fused_reduce_flat): one compensated dot of 2^24 f32
     # pairs, the parity phase's shape; torch.dot is the same function,
     # uncompensated
     n = 1 << 24
     a = torch.randn(n, generator=g, device=dev)
     b = torch.randn(n, generator=g, device=dev)
-    flat = lambda: engine.fused_reduce_flat((a, b), outputs=("dot",))  # noqa
-    ev_ms = time_ms(flat, flush)
-    prof_ms = kernel_ms(flat, flush, ("reduce_pass1", "reduce_pass2"))
-    ms = ev_ms if prof_ms is None else prof_ms
-    plain_ms = time_ms(lambda: engine.fused_reduce_flat_plain(
-        (a, b), outputs=("dot",)), flush, reps=3)
-    lib_ms = time_ms(lambda: torch.dot(a, b), flush)
-    nbytes = engine.bytes_moved(1, n, 2, 1)
-    flops = n * 8            # product, TwoSum (6), carry add
-    b_ms, b_by = bound(nbytes, flops)
-    out["fused_reduce_flat"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                    bound_by=b_by, library_ms=lib_ms)
-    log(f"[times] fused_reduce_flat dot n=2^24: kernel {ms:.4f} ms "
-        f"(profiler device time, both passes: {prof_ms}, event median "
-        f"{ev_ms:.4f}), plain {plain_ms:.4f} ms, torch.dot {lib_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}: {nbytes} B, {flops} flop)")
+    out["fused_reduce_flat"] = time_row(
+        flush, "fused_reduce_flat",
+        lambda: engine.fused_reduce_flat((a, b), outputs=("dot",)),
+        lambda: engine.fused_reduce_flat_plain((a, b), outputs=("dot",)),
+        lambda: torch.dot(a, b), ("reduce_pass1", "reduce_pass2"),
+        engine.bytes_moved(1, n, 2, 1), 0, n * 8, F32_FLOPS_PER_S,
+        "dot n=2^24, both passes (library: torch.dot, uncompensated)")
     # the latent (MLA) kernel at the deepseek serve phase's decode shape:
     # B = 8 slots, W = 1, H = 128, C = 512, R = 64, bs = 16, 64-block
-    # tables, 2304 live tokens, bf16 pools
+    # tables, 2304 live tokens, bf16 pools; SDPA on gathered rows: q =
+    # [q_lat, q_rope], k = [c_kv, k_rope] shared by all heads, v = c_kv,
+    # the MLA scale passed
     x = latent_case(dev, mb=64, lens=[544, 65, 300, 400, 97, 512, 130, 256])
-    args, kw = _latent_args(x)
-    ev_ms = time_ms(lambda: pa.paged_latent_attention_cuda(*args, **kw),
-                    flush)
-    prof_ms = kernel_ms(lambda: pa.paged_latent_attention_cuda(*args, **kw),
-                        flush, ("paged_latent_attention_kernel",))
-    ms = ev_ms if prof_ms is None else prof_ms
-    plain_ms = time_ms(lambda: pa.paged_latent_attention_plain(*args, **kw),
-                       flush, reps=3)
-    # SDPA on gathered rows: q = [q_lat, q_rope], k = [c_kv, k_rope]
-    # shared by all heads, v = c_kv, the MLA scale passed
+    largs, kw = _latent_args(x)
     ckg = paged.gather_blocks(x["ck_pool"], x["block_table"]).float()
     krg = paged.gather_blocks(x["kr_pool"], x["block_table"]).float()
     h = x["q_lat"].shape[2]
@@ -579,22 +678,20 @@ def phase_times(dev):
     vq = ckg[:, None].expand(-1, h, -1, -1)
     qq = torch.cat([x["q_lat"], x["q_rope"].float()], dim=-1).transpose(1, 2)
     kpos = torch.arange(ckg.shape[1], device=dev)
-    mask = (kpos[None, :] < x["lens"][:, None])[:, None, None, :]
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qq, kq, vq, attn_mask=mask, scale=x["scale"]), flush)
-    nbytes = pa.latent_bytes_moved(x["q_lat"], x["q_rope"], x["ck_pool"],
-                                   x["kr_pool"], x["block_table"], x["lens"])
-    flops = pa.latent_flops(x["q_lat"], x["q_rope"], x["q_offsets"])
-    b_ms, b_by = bound(nbytes, flops)
-    out["paged_latent_attention"] = dict(ms=ms, plain_ms=plain_ms,
-                                         bound_ms=b_ms, bound_by=b_by,
-                                         library_ms=lib_ms)
-    log(f"[times] paged_latent_attention B=8 W=1 H=128 C=512 R=64 bs=16 "
-        f"tokens={int(x['lens'].sum())}: kernel {ms:.4f} ms (profiler "
-        f"device time {prof_ms}, event median {ev_ms:.4f}), plain "
-        f"{plain_ms:.4f} ms, SDPA on gathered rows {lib_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}: {nbytes} B = {1e3 * nbytes / HBM_BYTES_PER_S:.4f} "
-        f"ms, {flops} flop = {1e3 * flops / F32_FLOPS_PER_S:.4f} ms)")
+    lmask = (kpos[None, :] < x["lens"][:, None])[:, None, None, :]
+    out["paged_latent_attention"] = time_row(
+        flush, "paged_latent_attention",
+        lambda: pa.paged_latent_attention_cuda(*largs, **kw),
+        lambda: pa.paged_latent_attention_plain(*largs, **kw),
+        lambda: F.scaled_dot_product_attention(qq, kq, vq, attn_mask=lmask,
+                                               scale=x["scale"]),
+        ("paged_latent_attention_kernel",),
+        pa.latent_bytes_moved(x["q_lat"], x["q_rope"], x["ck_pool"],
+                              x["kr_pool"], x["block_table"], x["lens"]),
+        0, pa.latent_flops(x["q_lat"], x["q_rope"], x["q_offsets"]),
+        F32_FLOPS_PER_S,
+        f"B=8 W=1 H=128 C=512 R=64 bs=16 tokens={int(x['lens'].sum())} "
+        f"(library: SDPA on gathered rows, f32)")
     return out
 
 
@@ -718,34 +815,50 @@ def phase_matmul_parity(dev) -> tuple[float, float]:
     return worst, worst_q
 
 
-def phase_flash_parity(dev) -> float:
-    """B4 against its twin: f32 and bf16, causal and not, ragged lengths
-    (482 is a drawn prompt length of the serve phases), Lq != Lk."""
+def phase_flash_parity(dev) -> dict:
+    """B4 against its twin on both routes: f32 (CUDA cores) and bf16
+    (tensor cores where D and Dv are multiples of 16), causal and not,
+    ragged lengths (482 is a drawn prompt length of the serve phases),
+    Lq != Lk, one-row and one-key calls, Dv != D. Returns the largest
+    error per route."""
     import torch
+    from repro_torch.kernels import ops
     fa = _module("flash_attention")
     g = torch.Generator(device=dev).manual_seed(7)
-    worst = 0.0
-    cases = [(482, 482, 64, True), (482, 482, 64, False),
-             (130, 257, 64, False), (3, 7, 64, True), (100, 40, 32, True),
-             (40, 100, 32, True), (256, 256, 128, True)]
-    for lq, lk, d, causal in cases:
+    worst = {"flash_attention": 0.0, "flash_attention_wgmma": 0.0}
+    cases = [(482, 482, 64, 64, True), (482, 482, 64, 64, False),
+             (130, 257, 64, 64, False), (3, 7, 64, 64, True),
+             (100, 40, 32, 32, True), (40, 100, 32, 32, True),
+             (256, 256, 128, 128, True), (1, 257, 64, 64, False),
+             (1, 1, 64, 64, True), (257, 1, 64, 64, True),
+             (200, 300, 64, 128, True), (200, 300, 128, 32, False)]
+    for lq, lk, d, dv, causal in cases:
         for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
             q = _randn(g, (16, lq, d), dev, dt)
-            k, v = _randn(g, (16, lk, d), dev, dt), _randn(g, (16, lk, d),
+            k, v = _randn(g, (16, lk, d), dev, dt), _randn(g, (16, lk, dv),
                                                            dev, dt)
+            route = fa.route(q, k, v)
+            before = ops.launches[route]
             got = fa.flash_attention_cuda(q, k, v, causal=causal)
             want = fa.flash_attention_plain(q, k, v, causal=causal)
             torch.cuda.synchronize()
+            counted = ops.launches[route] - before
             err = (got.float() - want.float()).abs()
             bad = int((err > tol + tol * want.float().abs()).sum())
-            worst = max(worst, float(err.max()))
+            worst[route] = max(worst[route], float(err.max()))
             log(f"[parity] flash_attention BH=16 Lq={lq} Lk={lk} D={d} "
-                f"causal={causal} {dt}: max|kernel-plain| "
+                f"Dv={dv} causal={causal} {dt} -> {route}: max|kernel-plain| "
                 f"{float(err.max()):.3g} (tol {tol} abs + rel, the "
-                f"reference test's: other tiling, other summation order), "
-                f"{bad} over tol")
-            if bad or not torch.isfinite(got.float()).all():
-                fail(f"flash_attention parity Lq={lq} Lk={lk} {dt}")
+                f"reference test's: other tiling, other summation order"
+                f"{', p rounded to bf16 for P V' if route.endswith('wgmma') else ''}"
+                f"), {bad} over tol")
+            if bad or counted != 1 or got.shape != (16, lq, dv) or \
+                    not torch.isfinite(got.float()).all():
+                fail(f"flash_attention parity Lq={lq} Lk={lk} D={d} Dv={dv} "
+                     f"{dt}")
+            if dt == torch.bfloat16 and d % 16 == 0 and dv % 16 == 0 and \
+                    route != "flash_attention_wgmma":
+                fail(f"bf16 D={d} Dv={dv} took {route}")
     return worst
 
 
@@ -781,22 +894,30 @@ def phase_kernel_path(dev, qwen) -> tuple[dict, dict]:
     from repro_torch.quant import core as qcore
     g = torch.Generator(device=dev).manual_seed(SEED + 8)
     launches, fx = {}, {}
-    # B4: prefill attention of four 2048-token prompts, 16 heads, D = 64
+    # B4: prefill attention of four 2048-token prompts, 16 heads, D = 64:
+    # bf16 takes the tensor-core route, f32 the CUDA-core route
     bh, l, d = 4 * qwen.num_heads, 2048, qwen.head_dim
-    q, k, v = (_randn(g, (bh, l, d), dev, torch.bfloat16) for _ in range(3))
-    out = _counted(f"flash_attention [{bh}, {l}, {d}] bf16 causal",
-                   lambda: K.flash_attention(q, k, v, causal=True),
-                   {"flash_attention": 1})
-    want = flash_attention_plain(q, k, v, causal=True)
-    err = float((out.float() - want.float()).abs().max())
-    log(f"[path] flash_attention: out {tuple(out.shape)} {out.dtype}, "
-        f"finite {bool(torch.isfinite(out.float()).all())}, "
-        f"max|kernel-plain| {err:.3g} (tol 2e-2, bf16)")
-    if out.shape != (bh, l, d) or not torch.isfinite(out.float()).all() \
-            or err > 2e-2:
-        fail("flash_attention path")
-    launches["flash_attention"] = 1
-    fx["flash"] = (q, k, v)
+    for dt, name, key in ((torch.bfloat16, "bf16", "flash"),
+                          (torch.float32, "f32", "flash_f32")):
+        q, k, v = (_randn(g, (bh, l, d), dev, dt) for _ in range(3))
+        route = _module("flash_attention").route(q, k, v)
+        out = _counted(f"flash_attention [{bh}, {l}, {d}] {name} causal",
+                       lambda: K.flash_attention(q, k, v, causal=True),
+                       {route: 1})
+        want = flash_attention_plain(q, k, v, causal=True)
+        err = float((out.float() - want.float()).abs().max())
+        tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+        log(f"[path] flash_attention {name} ({route}): out "
+            f"{tuple(out.shape)} {out.dtype}, finite "
+            f"{bool(torch.isfinite(out.float()).all())}, max|kernel-plain| "
+            f"{err:.3g} (tol {tol}, {name})")
+        if out.shape != (bh, l, d) or out.dtype != dt or \
+                not torch.isfinite(out.float()).all() or err > tol:
+            fail(f"flash_attention path {name}")
+        launches[route] = 1
+        fx[key] = (q, k, v)
+    if set(launches) != {"flash_attention", "flash_attention_wgmma"}:
+        fail(f"flash_attention path routes {sorted(launches)}")
     # B5: the down projection of a 2048-token prompt, f32 and bf16
     params = api.init_params(qwen, device=dev, seed=SEED)
     w_down = params["layers"][0]["ffn"]["w_down"]
@@ -883,32 +1004,52 @@ def phase_slice_times(dev, fx) -> dict:
     flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
     out = {}
 
-    def row(name, run, plain, lib, kernel_names, nbytes, flops, f32_flops,
-            rate, what, plain_reps=3):
-        ev = time_ms(run, flush)
-        prof = kernel_ms(run, flush, kernel_names)
-        ms = ev if prof is None else prof
-        plain_ms = time_ms(plain, flush, reps=plain_reps)
-        lib_ms = None if lib is None else time_ms(lib, flush)
-        b_ms, b_by = bound(nbytes, flops, f32_flops, rate)
-        log(f"[times] {name} {what}: kernel {ms:.4f} ms (profiler device "
-            f"time {prof}, event median {ev:.4f}), plain {plain_ms:.4f} ms, "
-            f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
-            f"{flops + f32_flops} flop)")
-        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=lib_ms)
+    def row(*a, **kw):
+        return time_row(flush, *a, **kw)
 
+    # B4 on its two routes at the path's shape: bf16 on the tensor cores,
+    # f32 on the CUDA cores; and the CUDA-core kernel on the same bf16
+    # inputs, launched through its C entry point (not counted), to hold
+    # the two designs side by side in one run
     q, k, v = fx["flash"]
     bh, l, d = q.shape
     q4, k4, v4 = (t.view(4, bh // 4, l, d) for t in (q, k, v))
-    out["flash_attention"] = row(
-        "flash_attention", lambda: fa.flash_attention_cuda(q, k, v),
+    out["flash_attention_wgmma"] = row(
+        "flash_attention_wgmma", lambda: fa.flash_attention_cuda(q, k, v),
         lambda: fa.flash_attention_plain(q, k, v),
         lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
-        ("flash_attention_kernel",), fa.bytes_moved(q, k, v),
+        ("flash_attention_wgmma_kernel",), fa.bytes_moved(q, k, v),
         fa.flops(bh, l, l, d, d, True), 0, BF16_FLOPS_PER_S,
-        f"[{bh}, {l}, {d}] bf16 causal (library: SDPA is_causal, top-left)")
+        f"[{bh}, {l}, {d}] bf16 causal, tensor cores (library: SDPA "
+        f"is_causal, top-left)")
+    lib_cc = fa._lib()
+    o_cc = torch.empty_like(q)
+
+    def cuda_core_bf16():
+        err = lib_cc.repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o_cc.data_ptr(), bh, l,
+            l, d, d, float(d ** -0.5), 1, 0,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail("flash_attention (CUDA cores) on bf16 did not launch")
+    cc_ms = kernel_ms(cuda_core_bf16, flush, ("flash_attention_kernel",),
+                      what="flash_attention CUDA cores, bf16")
+    out["flash_attention_wgmma"]["cuda_core_bf16_ms"] = cc_ms
+    log(f"[times] flash_attention_wgmma: the CUDA-core kernel on the "
+        f"same bf16 inputs {cc_ms:.4f} ms (profiler device "
+        f"time), {cc_ms / out['flash_attention_wgmma']['ms']:.1f}x the "
+        f"tensor-core kernel")
+    qf, kf, vf = fx["flash_f32"]
+    qf4, kf4, vf4 = (t.view(4, bh // 4, l, d) for t in (qf, kf, vf))
+    out["flash_attention"] = row(
+        "flash_attention", lambda: fa.flash_attention_cuda(qf, kf, vf),
+        lambda: fa.flash_attention_plain(qf, kf, vf),
+        lambda: F.scaled_dot_product_attention(qf4, kf4, vf4,
+                                               is_causal=True),
+        ("flash_attention_kernel",), fa.bytes_moved(qf, kf, vf), 0,
+        fa.flops(bh, l, l, d, d, True), F32_FLOPS_PER_S,
+        f"[{bh}, {l}, {d}] f32 causal, CUDA cores (library: SDPA "
+        f"is_causal f32)")
     (a, w), (ab, wb) = fx["matmul"]
     m, kk = a.shape
     n = w.shape[1]
@@ -1133,6 +1274,16 @@ def profile_decode(engine, cfg, n_steps: int = 4) -> None:
         f"{wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step, "
         f"device idle share {1 - busy_ms / wall_ms:.3f}, "
         f"{per_step:.0f} kernels/step")
+    for label, names in (("GQA attention (split + merge)", PAGED_KERNELS),
+                         ("MLA latent attention",
+                          ("paged_latent_attention_kernel",))):
+        mine = [ev for ev in kern if any(n in ev.key for n in names)]
+        if mine:
+            log(f"[profile] {label}: "
+                f"{sum(_device_us(ev) for ev in mine) / 1e3 / n_steps:.4f} "
+                f"ms/step of device time, "
+                f"{sum(ev.count for ev in mine) / n_steps:.1f} kernel "
+                f"launches/step")
     for ev in sorted(kern, key=_device_us, reverse=True)[:10]:
         log(f"[profile]   {_device_us(ev) / 1e3 / n_steps:8.3f} ms/step "
             f"{ev.count / n_steps:6.1f}/step  {ev.key[:90]}")
@@ -1200,8 +1351,15 @@ def main() -> int:
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:144",
-             launches=k_launch["flash_attention"], max_abs_err=flash_err,
+             launches=k_launch["flash_attention"],
+             max_abs_err=flash_err["flash_attention"],
              **times["flash_attention"]),
+        dict(name="flash_attention_wgmma", route="cuda",
+             source="src/repro_torch/csrc/flash_attention_wgmma.cu",
+             replaces="src/repro/kernels/flash_attention.py:144",
+             launches=k_launch["flash_attention_wgmma"],
+             max_abs_err=flash_err["flash_attention_wgmma"],
+             **times["flash_attention_wgmma"]),
         dict(name="kahan_matmul", route="cuda",
              source="src/repro_torch/csrc/kahan_matmul.cu",
              replaces="src/repro/kernels/kahan_matmul.py:61",

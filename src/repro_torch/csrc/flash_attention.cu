@@ -32,8 +32,14 @@
 // causal) the work is 34.4 GFLOP (the causal half) against 67 MB of
 // traffic: 0.035 ms at the bf16 tensor-core rate, 0.020 ms for the
 // bytes (H100 SXM data sheet, 700 W power limit), so operations. This
-// version does the products on the CUDA cores from shared memory, far
-// from that rate; wgmma for Q K^T and P V is the next step.
+// kernel does the products on the CUDA cores from shared memory, far
+// from that rate. It is the route of f32 inputs (full f32 products: the
+// reference's f32 tolerance of 2e-5 rules out TF32) and of head dims
+// that are not multiples of 16; bf16 inputs with D and Dv multiples of 16
+// go to the tensor cores (flash_attention_wgmma.cu).
+//
+// ptxas (sm_90a, -O3, CUDA 12.8): 64 / 78 / 128 registers for Dv up to
+// 32 / 64 / 128; no spills.
 
 #include "superkernel_common.cuh"
 

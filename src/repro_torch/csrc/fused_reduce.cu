@@ -28,6 +28,10 @@
 // measure the wrong rounding) nor reassociate. Non-finite semantics
 // follow the reference: a compensated sum over +-inf is NaN (TwoSum
 // inf - inf), max propagates NaN, the masked tail never contributes.
+//
+// ptxas (sm_90a, -O3, CUDA 12.8): reduce_pass1 and reduce_pass2, each
+// compensated and naive, 32 registers and 8192 bytes of static shared
+// memory each; no spills.
 
 #include <cuda_runtime.h>
 #include <math.h>

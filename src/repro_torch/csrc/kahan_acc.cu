@@ -17,6 +17,9 @@
 // and stores; a bf16 update is read 8 bytes per group), then a scalar
 // tail; the wrapper takes the scalar path when a pointer is not 16-byte
 // aligned. The grid covers the SMs a few times over.
+//
+// ptxas (sm_90a, -O3, CUDA 12.8): 40 and 32 registers for the two
+// instantiations (f32 and bf16 updates); no spills.
 
 #include "superkernel_common.cuh"
 

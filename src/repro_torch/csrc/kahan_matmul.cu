@@ -36,6 +36,10 @@
 // (wgmma) with the fold in registers are a later step. At a decode
 // batch (M = 8) the grid has N / 64 CTAs and the time is latency, not
 // bandwidth.
+//
+// ptxas (sm_90a, -O3, CUDA 12.8): 78 registers and 8448 bytes of static
+// shared memory (one kernel for plain and int8 / fp8 weights); no
+// spills.
 
 #include "superkernel_common.cuh"
 

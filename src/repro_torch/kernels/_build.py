@@ -18,9 +18,11 @@ and waits for all of them. Nothing here runs at import time.
 the card: each ``*_cuda`` wrapper adds one right after its C entry point
 returned success, and nothing else touches the count (one
 ``fused_reduce`` call is two kernel launches, ``reduce_pass1`` and
-``reduce_pass2``). ``kahan_matmul`` and ``kahan_matmul_q8`` share the
-source ``kahan_matmul.cu`` and are counted apart. ``reset_launches``
-zeroes every count.
+``reduce_pass2``; one ``paged_attention`` call is the split and the
+merge kernel). ``kahan_matmul`` and ``kahan_matmul_q8`` share the
+source ``kahan_matmul.cu`` and are counted apart; ``flash_attention``
+and ``flash_attention_wgmma`` are the two routes of one entry point.
+``reset_launches`` zeroes every count.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused_reduce", "paged_attention", "paged_latent_attention",
-           "flash_attention", "kahan_matmul", "kahan_acc")
+           "flash_attention", "flash_attention_wgmma", "kahan_matmul",
+           "kahan_acc")
 KERNELS = SOURCES + ("kahan_matmul_q8",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

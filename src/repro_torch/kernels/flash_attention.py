@@ -11,9 +11,13 @@ Lk never contribute), masked p is multiplied to 0, and the output is
 
 * ``flash_attention_plain`` walks the reference's (qc, kc) blocks in
   order, one online-softmax step per key block.
-* ``flash_attention_cuda`` launches ``csrc/flash_attention.cu``, which
-  tiles by its own 64 x 64 (design and bound in that file), so it agrees
-  with the twin to f32 rounding, not bitwise.
+* ``flash_attention_cuda`` launches one of two kernels, by ``route``:
+  bf16 inputs whose D and Dv are multiples of 16 up to 128 go to
+  ``csrc/flash_attention_wgmma.cu`` (wgmma on the tensor cores, p
+  rounded to bf16 for the P V product), everything else to
+  ``csrc/flash_attention.cu`` (CUDA cores, f32 products). Both tile by
+  their own sizes (design and bound in those files), so they agree with
+  the twin at a tolerance, not bitwise.
 * ``flash_attention`` dispatches on q's device.
 """
 
@@ -29,6 +33,7 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 _IO_TYPES = {torch.bfloat16: 0, torch.float32: 1}
 _SMEM_LIMIT = 227 * 1024         # H100 dynamic shared memory per block
+WGMMA_ROWS = 128                 # query rows per CTA of the tensor-core route
 
 
 def tile_mask(q_start, k_start, qc: int, kc: int, *, causal: bool = False,
@@ -112,11 +117,41 @@ def _lib():
     return lib
 
 
+def _wgmma_lib():
+    lib = _build.load("flash_attention_wgmma")
+    if not getattr(lib, "_typed", False):
+        fn = lib.repro_flash_attention_wgmma
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.repro_flash_attention_wgmma_smem.argtypes = [ctypes.c_int] * 2
+        lib.repro_flash_attention_wgmma_smem.restype = ctypes.c_longlong
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def route(q, k, v) -> str:
+    """The kernel a CUDA call takes, by dtype and head dims alone:
+    ``flash_attention_wgmma`` (``csrc/flash_attention_wgmma.cu``, the
+    tensor cores) for bf16 inputs whose D and Dv are multiples of 16 up to
+    128, else ``flash_attention`` (``csrc/flash_attention.cu``, the CUDA
+    cores, full f32 products). Both count their launches under their own
+    name in ``_build.launches``."""
+    *_, d, dv = _check(q, k, v)
+    if (q.dtype == torch.bfloat16 and k.dtype == v.dtype == q.dtype
+            and d % 16 == 0 and dv % 16 == 0 and d <= MAX_HEAD_DIM
+            and dv <= MAX_HEAD_DIM):
+        return "flash_attention_wgmma"
+    return "flash_attention"
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True, q_block: int = 256,
                          kv_block: int = 256) -> torch.Tensor:
-    """Launch ``csrc/flash_attention.cu``; same contract as the plain
-    twin. The kernel picks its own tiles, so ``q_block`` / ``kv_block``
-    change no number beyond f32 rounding."""
+    """Launch the route's kernel (``route``); same contract as the plain
+    twin. The kernels pick their own tiles, so ``q_block`` / ``kv_block``
+    change no number beyond rounding."""
     bh, lq, lk, d, dv = _check(q, k, v)
     dev = q.device
     for t in (q, k, v):
@@ -129,21 +164,38 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, q_block: int = 256,
     if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
         raise ValueError(f"head dims up to {MAX_HEAD_DIM}, got D={d}, "
                          f"Dv={dv}")
-    if bh > 65535:
-        raise ValueError(f"BH={bh} exceeds the grid's 65535")
-    lib = _lib()
-    if lib.repro_flash_attention_smem(d, dv) > _SMEM_LIMIT:
+    name = route(q, k, v)
+    wgmma = name == "flash_attention_wgmma"
+    if wgmma:
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("the tensor-core route reads 16-byte rows: q / "
+                             "k / v must start 16-byte aligned")
+        if -(-lq // WGMMA_ROWS) > 65535:
+            raise ValueError(f"Lq={lq} exceeds the grid's 65535 query tiles")
+        lib = _wgmma_lib()
+        smem = lib.repro_flash_attention_wgmma_smem(d, dv)
+    else:
+        if bh > 65535:
+            raise ValueError(f"BH={bh} exceeds the grid's 65535")
+        lib = _lib()
+        smem = lib.repro_flash_attention_smem(d, dv)
+    if smem > _SMEM_LIMIT:
         raise ValueError(f"D={d}, Dv={dv} need more shared memory than "
                          f"{_SMEM_LIMIT} B")
     out = torch.empty((bh, lq, dv), dtype=q.dtype, device=dev)
-    err = lib.repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, lq, lk,
-        d, dv, float(d ** -0.5), int(causal), _IO_TYPES[q.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if wgmma:
+        err = lib.repro_flash_attention_wgmma(
+            *ptrs, bh, lq, lk, d, dv, float(d ** -0.5), int(causal), stream)
+    else:
+        err = lib.repro_flash_attention(
+            *ptrs, bh, lq, lk, d, dv, float(d ** -0.5), int(causal),
+            _IO_TYPES[q.dtype], stream)
     if err:
-        raise RuntimeError("flash_attention kernel launch failed: "
+        raise RuntimeError(f"{name} kernel launch failed: "
                            + lib.repro_error_string(err).decode())
-    _build.launches["flash_attention"] += 1
+    _build.launches[name] += 1
     return out
 
 

@@ -8,13 +8,16 @@ compensated online softmax (``l`` and ``acc`` kept as sum + carry, the
 rescale applied to both). int8 / fp8 pools carry per-(token, head) f32
 scales folded post-dot (``kscale``) and into p (``vscale``).
 
-* ``paged_attention_plain`` walks the table one block at a time, exactly
-  like the kernel: dead blocks (``j * bs >= lens``) leave the state
+* ``paged_attention_plain`` walks the table one block at a time, as the
+  reference does: dead blocks (``j * bs >= lens``) leave the state
   untouched, masked keys contribute an exact identity update. Each score
   and each output element is a row-local reduction, so the plain twin is
   bitwise width-invariant too.
-* ``paged_attention_cuda`` launches ``csrc/paged_attention.cu`` (design,
-  bound and numerics in that file).
+* ``paged_attention_cuda`` launches ``csrc/paged_attention.cu``: a split
+  kernel over fixed partitions of ``SLOTS_PER_PARTITION`` table slots and
+  a merge kernel that folds the partitions in index order, through an f32
+  scratch of ``scratch_floats`` (design, bound and numerics in that
+  file). One call counts one ``paged_attention`` launch.
 
 Layouts are the reference's: q [B, W, Hq, D]; pools [nb, bs, Hkv, D];
 scales [nb, bs, Hkv]; table [B, mb] int32; lens, q_offsets [B] int32.
@@ -42,6 +45,7 @@ from repro_torch.quant.core import cast_f32
 
 NEG_INF = -1e30
 MAX_ROWS = 64                    # W * groups per kv head the kernel takes
+SLOTS_PER_PARTITION = 4          # table slots per partition of the split
 _SMEM_LIMIT = 227 * 1024         # H100 dynamic shared memory per block
 _POOL_TYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2,
                torch.uint8: 3}
@@ -110,16 +114,37 @@ def _lib():
     lib = _build.load("paged_attention")
     if not getattr(lib, "_typed", False):
         fn = lib.repro_paged_attention
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.repro_paged_attention_smem.argtypes = [ctypes.c_int] * 4
+        lib.repro_paged_attention_smem.argtypes = [ctypes.c_int] * 5
         lib.repro_paged_attention_smem.restype = ctypes.c_longlong
+        lib.repro_paged_attention_slots.argtypes = []
+        lib.repro_paged_attention_slots.restype = ctypes.c_int
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
+        if lib.repro_paged_attention_slots() != SLOTS_PER_PARTITION:
+            raise RuntimeError("csrc/paged_attention.cu splits the table "
+                               f"into {lib.repro_paged_attention_slots()} "
+                               f"slots per partition, the wrapper into "
+                               f"{SLOTS_PER_PARTITION}")
         lib._typed = True
     return lib
+
+
+def partitions(mb: int) -> int:
+    """Partitions of a table of ``mb`` slots: partition p owns slots
+    [p * S, (p + 1) * S), S = ``SLOTS_PER_PARTITION`` (S * bs tokens),
+    whatever the lengths, the width or the batch."""
+    return -(-mb // SLOTS_PER_PARTITION)
+
+
+def scratch_floats(b: int, hkv: int, rows: int, dv: int, mb: int) -> int:
+    """f32 scratch one call needs: per (sequence, kv head, partition) the
+    partition's (m, l_sum, l_carry) per row and (acc_sum, acc_carry) per
+    output element."""
+    return b * hkv * partitions(mb) * rows * (3 + 2 * dv)
 
 
 def _need(cond: bool, msg: str) -> None:
@@ -159,19 +184,22 @@ def paged_attention_cuda(q, kpool, vpool, block_table, lens, q_offsets, *,
         _need(kscale.shape == vscale.shape == (nb, bs, hkv), "scale shapes")
     rows = w * (hq // hkv)
     lib = _lib()
-    smem = lib.repro_paged_attention_smem(rows, d, dv, bs)
+    smem = lib.repro_paged_attention_smem(rows, d, dv, bs,
+                                          _POOL_TYPES[kpool.dtype])
     if rows > MAX_ROWS or smem > _SMEM_LIMIT:
         raise ValueError(f"paged_attention_cuda supports W * groups <= "
                          f"{MAX_ROWS} rows within {_SMEM_LIMIT} B of shared "
                          f"memory; got {rows} rows, {smem} B")
     out = torch.empty((b, w, hq, dv), dtype=q.dtype, device=dev)
+    part = torch.empty(scratch_floats(b, hkv, rows, dv, mb),
+                       dtype=torch.float32, device=dev)
     scale = d ** -0.5 if scale is None else float(scale)
     err = lib.repro_paged_attention(
         q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
         kscale.data_ptr() if quant else None,
         vscale.data_ptr() if quant else None,
         block_table.data_ptr(), lens.data_ptr(), q_offsets.data_ptr(),
-        out.data_ptr(), b, w, hq, hkv, d, dv, bs, mb, scale,
+        out.data_ptr(), part.data_ptr(), b, w, hq, hkv, d, dv, bs, mb, scale,
         _POOL_TYPES[kpool.dtype], _IO_TYPES[q.dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     if err:

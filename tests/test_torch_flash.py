@@ -6,8 +6,11 @@ mode) at the reference test's tolerance (f32 2e-5, bf16 2e-2: the same
 online-softmax steps, matmuls summed in other orders). Causal is the
 Pallas kernel's top-left mask (q_pos >= k_pos), pinned with Lq != Lk,
 where it differs from the bottom-right mask of the reference test's
-oracle. On the card, the CUDA kernel (its own 64 x 64 tiling) against
-the twin."""
+oracle. On the card, each CUDA route against the twin: bf16 inputs whose
+D and Dv are multiples of 16 up to 128 take the tensor-core kernel
+(``flash_attention_wgmma``, p rounded to bf16 for P V), everything else
+the CUDA-core kernel (``flash_attention``); the CPU tests pin which route
+each call takes and what the wrapper refuses."""
 
 import pytest
 
@@ -19,7 +22,8 @@ import numpy as np  # noqa: E402
 from repro.kernels import flash_attention as rfa  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_cuda, flash_attention_plain, tile_mask)
+    flash_attention, flash_attention_cuda, flash_attention_plain, route,
+    tile_mask)
 
 CASES = [
     (256, 256, 64, 128, 128, True),
@@ -98,6 +102,39 @@ def test_shapes_are_checked():
     assert tops.launches == before                 # the CPU twin is no launch
 
 
+@pytest.mark.parametrize("dtype,d,dv,want", [
+    (torch.bfloat16, 64, 64, "flash_attention_wgmma"),
+    (torch.bfloat16, 32, 32, "flash_attention_wgmma"),
+    (torch.bfloat16, 128, 128, "flash_attention_wgmma"),
+    (torch.bfloat16, 16, 112, "flash_attention_wgmma"),
+    (torch.bfloat16, 64, 128, "flash_attention_wgmma"),
+    (torch.bfloat16, 40, 40, "flash_attention"),      # D not a multiple of 16
+    (torch.bfloat16, 64, 24, "flash_attention"),      # Dv not one either
+    (torch.bfloat16, 144, 64, "flash_attention"),     # past 128: refused
+    (torch.float32, 64, 64, "flash_attention"),       # full f32 products
+    (torch.float32, 128, 32, "flash_attention"),
+])
+def test_route_by_dtype_and_head_dims(dtype, d, dv, want):
+    q = torch.zeros(2, 5, d, dtype=dtype)
+    v = torch.zeros(2, 7, dv, dtype=dtype)
+    assert route(q, torch.zeros(2, 7, d, dtype=dtype), v) == want
+    assert want in tops.launches
+
+
+@pytest.mark.parametrize("case", ["cpu", "shape", "rank", "empty"])
+def test_cuda_wrapper_refuses(case):
+    """What ``flash_attention_cuda`` raises before it touches a card."""
+    q = torch.zeros(2, 5, 64, dtype=torch.bfloat16)
+    args = {"cpu": (q, q, q),
+            "shape": (q, torch.zeros(2, 6, 32, dtype=torch.bfloat16), q),
+            "rank": (q[0], q[0], q[0]),
+            "empty": (q[:, :0], q, q)}[case]
+    before = dict(tops.launches)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(*args)
+    assert tops.launches == before
+
+
 def test_cuda_kernel_matches_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
@@ -107,9 +144,33 @@ def test_cuda_kernel_matches_plain():
         for dt, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
             _, t = _qkv(lq, lk, d, dt, seed=2)
             q, k, v = (x.cuda() for x in t)
-            before = tops.launches["flash_attention"]
+            name = route(q, k, v)
+            before = tops.launches[name]
             got = flash_attention_cuda(q, k, v, causal=causal)
-            assert tops.launches["flash_attention"] == before + 1
+            assert tops.launches[name] == before + 1
             want = flash_attention_plain(q, k, v, causal=causal)
             torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                        rtol=tol)
+
+
+@pytest.mark.parametrize("lq,lk,d,dv,causal", [
+    (1, 257, 64, 64, False), (1, 1, 64, 64, True), (257, 1, 64, 64, True),
+    (40, 100, 32, 32, True), (200, 300, 64, 128, True),
+    (200, 300, 128, 32, False), (482, 482, 64, 64, False)])
+def test_cuda_tensor_core_route_matches_plain(lq, lk, d, dv, causal):
+    """The tensor-core route on one-row and one-key calls, Dv != D and
+    both head-dim panels, at the bf16 tolerance (2e-2 abs + rel)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(torch.bfloat16).cuda()
+               for s in ((4, lq, d), (4, lk, d), (4, lk, dv)))
+    assert route(q, k, v) == "flash_attention_wgmma"
+    before = tops.launches["flash_attention_wgmma"]
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    assert tops.launches["flash_attention_wgmma"] == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal)
+    assert got.shape == (4, lq, dv) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)

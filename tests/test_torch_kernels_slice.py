@@ -231,5 +231,5 @@ def test_public_surface():
         assert callable(getattr(T, name)), name
     assert set(T.launches) == {"fused_reduce", "paged_attention",
                                "paged_latent_attention", "flash_attention",
-                               "kahan_matmul", "kahan_matmul_q8",
-                               "kahan_acc"}
+                               "flash_attention_wgmma", "kahan_matmul",
+                               "kahan_matmul_q8", "kahan_acc"}

@@ -10,6 +10,10 @@ products (torch vs XLA), so outputs agree to two bf16 ulps (relative
 to the binade, not the value). For f32 queries the same order difference
 is held at 1e-5.
 Inside the port, table-permutation and width invariance are bitwise.
+The CUDA kernel splits each table into fixed partitions of
+``SLOTS_PER_PARTITION`` slots and merges them in index order; on the card
+it is held to the twin at two bf16 ulps, with width, batch and
+table-width invariance bitwise.
 """
 
 import pytest
@@ -161,6 +165,94 @@ def test_cuda_kernel_matches_plain(fmt_name):
             t["table"], (t["offs"] + j + 1).contiguous(),
             (t["offs"] + j).contiguous(), **kw)
         assert torch.equal(narrow[:, 0], got[:, j])
+
+
+@pytest.mark.parametrize("mb,bs,parts", [(1, 16, 1), (4, 16, 1),
+                                          (5, 16, 2), (30, 16, 8),
+                                          (64, 16, 16), (64, 8, 16),
+                                          (65, 4, 17)])
+def test_partitions_and_scratch(mb, bs, parts):
+    """Partition p owns table slots [4p, 4p + 4) whatever the block size
+    (4 * bs tokens), so the count depends on the table width alone; the
+    scratch holds (m, l_sum, l_carry) per row and (acc_sum, acc_carry)
+    per output element for every (sequence, kv head, partition)."""
+    assert tpa.SLOTS_PER_PARTITION == 4
+    assert tpa.partitions(mb) == parts
+    b, hkv, rows, dv = 3, 2, 10, 16
+    assert tpa.scratch_floats(b, hkv, rows, dv, mb) == \
+        b * hkv * parts * rows * (3 + 2 * dv)
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    t = _t(_case("bf16", 1, q_dtype=jnp.bfloat16))
+    before = dict(ops.launches)
+    with pytest.raises(ValueError):
+        tpa.paged_attention_cuda(t["q"], t["kpool"], t["vpool"], t["table"],
+                                 t["lens"], t["offs"])
+    assert ops.launches == before
+
+
+def _split_case(fmt_name, w, mb=10, bs=8, hkv=2, hq=4, d=16, seed=5):
+    """Card inputs whose tables span several partitions (4 slots of 8
+    tokens): lengths on the partition edges (31, 32, 33, 64), a one-token
+    context and a table width (10) that is no multiple of 4."""
+    from repro_torch.quant import core as qcore
+    rng = np.random.default_rng(seed)
+    b = 6
+    nb = 1 + b * mb
+    k = torch.from_numpy(rng.standard_normal((nb, bs, hkv, d))
+                         .astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((nb, bs, hkv, d))
+                         .astype(np.float32))
+    fmt = qcore.get_format(fmt_name)
+    if fmt is None:
+        pools = [k.to(torch.bfloat16), v.to(torch.bfloat16), None, None]
+    else:
+        (qk, sk), (qv, sv) = (qcore.quantize_lastdim(x, fmt) for x in (k, v))
+        pools = [qk, qv, sk.contiguous(), sv.contiguous()]
+    table = torch.from_numpy((1 + rng.permutation(nb - 1)).reshape(b, mb)
+                             .astype(np.int32))
+    lens = torch.tensor([max(n, w) for n in (31, 32, 33, 64, 1, mb * bs)],
+                        dtype=torch.int32)
+    q = torch.from_numpy(rng.standard_normal((b, w, hq, d))
+                         .astype(np.float32)).to(torch.bfloat16)
+    c = dict(q=q, kpool=pools[0], vpool=pools[1], kscale=pools[2],
+             vscale=pools[3], table=table, lens=lens, offs=lens - w)
+    return {k: None if x is None else x.cuda() for k, x in c.items()}
+
+
+def _cuda(t, sl=slice(None), mb=None, q=None, lens=None, offs=None):
+    table = t["table"][sl] if mb is None else t["table"][sl, :mb]
+    return tpa.paged_attention_cuda(
+        (t["q"] if q is None else q)[sl].contiguous(), t["kpool"],
+        t["vpool"], table.contiguous(),
+        (t["lens"] if lens is None else lens)[sl].contiguous(),
+        (t["offs"] if offs is None else offs)[sl].contiguous(),
+        kscale=t["kscale"], vscale=t["vscale"])
+
+
+@pytest.mark.parametrize("fmt_name", DTYPES)
+@pytest.mark.parametrize("w", (1, 5))
+def test_cuda_split_edges_and_invariance(fmt_name, w):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    t = _split_case(fmt_name, w)
+    before = ops.launches["paged_attention"]
+    got = _cuda(t)
+    assert ops.launches["paged_attention"] == before + 1   # split + merge
+    want = tpa.paged_attention_plain(
+        t["q"], t["kpool"], t["vpool"], t["table"], t["lens"], t["offs"],
+        kscale=t["kscale"], vscale=t["vscale"])
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=1e-6)
+    for j in range(w):                       # width invariance
+        narrow = _cuda(t, q=t["q"][:, j:j + 1], lens=t["offs"] + j + 1,
+                       offs=t["offs"] + j)
+        assert torch.equal(narrow[:, 0], got[:, j])
+    for i in range(got.shape[0]):            # batch invariance
+        assert torch.equal(_cuda(t, slice(i, i + 1)), got[i:i + 1])
+    fits = slice(0, 3)                       # lengths within 5 slots
+    assert torch.equal(_cuda(t, fits, mb=5), _cuda(t, fits))
 
 
 def test_jax_is_cpu():
