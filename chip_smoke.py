@@ -6,16 +6,20 @@ Phases (each prints its own lines; any failure exits non-zero):
 
 1. device  — the card's name and ``nvidia-smi`` name / power limit;
 2. build   — compiles ``src/repro_torch/csrc/*.cu`` (one nvcc each, in
-             parallel) into ``build/kernels`` and counts the tensor-core
-             flash kernel's HGMMA instructions (fails on none);
+             parallel) into ``build/kernels``, counts the HGMMA
+             instructions of the tensor-core flash and matmul kernels
+             (fails on none), and reads the matmul kernels' registers from
+             the built library (fails on one that spills);
 3. parity  — each CUDA kernel against its plain PyTorch twin on the card,
              with the tolerance and its reason: the GQA attention kernel
              (every pool format, W in {1, 5}, partition-edge lengths;
              width, batch and table-width invariance bitwise), the MLA
              latent attention kernel and the reduction at main-path
              shapes; the compensated accumulate (bitwise), the
-             compensated matmul and its int8 / fp8 form (plus an
-             ill-conditioned K = 2^14 case against an f64 product) and
+             compensated matmul and its int8 / fp8 form on both routes
+             (tile, wgmma; split over K blocks where M <= 64) for every
+             dtype pair (plus an ill-conditioned K = 2^14 case against an
+             f64 product on each route) and
              flash attention on both routes (f32 on the CUDA cores, bf16
              on the tensor cores; causal or not, ragged lengths, one-row
              and one-key calls);
@@ -25,7 +29,9 @@ Phases (each prints its own lines; any failure exits non-zero):
              four 2048-token prompts ([64, 2048, 64] causal, bf16 on the
              tensor-core route and f32 on the CUDA-core route), the
              down projection with compensated K accumulation (f32 and
-             bf16), int8 / fp8 MLP weights at M = 8 and 2048, and 4
+             bf16, M = 2048 on the tile route and M = 8 on the split
+             route), int8 / fp8 MLP weights at M = 8 (split) and 2048
+             (tile), and 4
              microbatches of gradients accumulated into every leaf of the
              parameter tree (bitwise ``KahanState.add``);
 5. times   — device time of each kernel and of each library yardstick
@@ -54,6 +60,7 @@ reference package ``repro``.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -135,35 +142,75 @@ def _profiled(fn, flush, reps: int):
     return prof
 
 
+# profiler windows that lost device events (see kernel_ms), and the rows
+# timed by CUDA events because every try lost some: each is logged when it
+# happens, and both lists are printed after the times
+DROPPED_WINDOWS: list[str] = []
+EVENT_TIMED: list[str] = []
+PROFILE_TRIES = 5
+
+
+def _launches(fn, flush, reps: int) -> dict:
+    """Device kernels of a profiler window over ``fn``: key -> (launches,
+    device us)."""
+    return {ev.key: (ev.count, _device_us(ev))
+            for ev in _device_kernels(_profiled(fn, flush, reps))}
+
+
 def kernel_ms(fn, flush, names=None, reps: int = 20,
               what: str = "") -> float:
     """Mean device time (ms) per call of ``fn`` from ``torch.profiler``,
     the L2 flushed before each call: the kernels whose names contain one
     of ``names`` or, with ``names`` None (a library call), every kernel
-    the call launches. The flush's own kernels (found by profiling the
-    flush alone) never count, and a call that launches one of them fails,
-    as does a window in which none of the call's kernels shows."""
+    the call launches. The flush's own kernels never count, and a library
+    call that launches one of them fails, as does a window that shows
+    none of the call's kernels.
+
+    The tracer now and then records nothing for a few tens of ms, so a
+    window can lose some or all of its device events (PERF.md section 7,
+    ``tools/profiler_windows.py``). A window is used only when it holds
+    exactly ``reps`` times the launches that one flush and one call show
+    in windows of their own; otherwise all three are profiled again after
+    a pause, ``PROFILE_TRIES`` times at most, and then the row is timed by
+    CUDA events (``time_ms``), logged and listed in ``EVENT_TIMED``."""
     import torch
-    flush_keys = {ev.key for ev in _device_kernels(
-        _profiled(flush.zero_, None, 3))}
     fn()
     torch.cuda.synchronize()
-    if names is None:
-        own = {ev.key for ev in _device_kernels(_profiled(fn, None, 1))}
-        if own & flush_keys:
-            fail(f"{what}: the call launches the L2 flush's kernel "
-                 f"{sorted(own & flush_keys)}, so its time cannot be "
-                 f"told apart")
-        pick = own.__contains__
+    for attempt in range(PROFILE_TRIES):
+        one_flush = _launches(flush.zero_, None, 1)
+        one_call = _launches(fn, None, 1)
+        window = _launches(fn, flush, reps)
+        got = {key: n for key, (n, _) in window.items()}
+        want = {key: reps * (one_flush.get(key, (0,))[0]
+                             + one_call.get(key, (0,))[0])
+                for key in one_flush.keys() | one_call.keys()}
+        if one_flush and got == want:
+            break
+        DROPPED_WINDOWS.append(what)
+        log(f"[times] {what}: try {attempt + 1}: the profiler lost device "
+            f"events (launches: one flush {sorted(one_flush)}, one call "
+            f"{sorted(one_call)}, {reps} of both {sorted(got.items())}); "
+            f"profiling again")
+        time.sleep(0.5)
     else:
-        pick = lambda key: any(n in key for n in names)  # noqa: E731
-    total = sum(_device_us(ev) for ev in _device_kernels(
-        _profiled(fn, flush, reps))
-        if pick(ev.key) and ev.key not in flush_keys)
-    if not total > 0:
-        fail(f"{what}: torch.profiler saw no device time for "
-             f"{names or 'its kernels'}")
-    return total / reps / 1e3
+        ms = time_ms(fn, flush, reps=reps)
+        EVENT_TIMED.append(what)
+        log(f"[times] {what}: every profiler try lost device events; timed "
+            f"by CUDA events instead: {ms:.4f} ms (event median)")
+        return ms
+    if names is None:
+        if one_call.keys() & one_flush.keys():
+            fail(f"{what}: the call launches the L2 flush's kernel "
+                 f"{sorted(one_call.keys() & one_flush.keys())}, so its "
+                 f"time cannot be told apart")
+        pick = set(one_call)
+    else:
+        pick = {key for key in one_call if any(n in key for n in names)}
+    pick -= one_flush.keys()
+    if not pick:
+        fail(f"{what}: the profiler window showed {sorted(got.items())} but "
+             f"none of {list(names) if names else 'the call alone launches'}")
+    return sum(window[key][1] for key in pick) / reps / 1e3
 
 
 # ------------------------------------------------------------ fixtures ----
@@ -296,6 +343,20 @@ def sass_count(name: str, op: str) -> int:
     return count
 
 
+def res_usage(name: str) -> dict:
+    """{kernel: (registers, stack frame bytes, local bytes)} of the built
+    library of ``csrc/<name>.cu``, read by ``cuobjdump -res-usage`` (a
+    spill needs a stack frame)."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-res-usage", str(_build._target(name))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    return {f: (int(r), int(st), int(lo)) for f, r, st, lo in re.findall(
+        r"Function (\S+?):\s+REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)",
+        text)}
+
+
 def phase_build():
     from repro_torch.kernels import _build
     secs = _build.build_all()
@@ -305,12 +366,29 @@ def phase_build():
         for ln in out.splitlines():
             if "registers" in ln or "spill" in ln or "error" in ln.lower():
                 log(f"[build] {name}: {ln.strip()}")
-    hgmma = sass_count("flash_attention_wgmma", "HGMMA")
-    log(f"[build] flash_attention_wgmma: {hgmma} HGMMA (wgmma) instructions "
-        f"in its SASS")
-    if not hgmma:
-        fail("the tensor-core flash attention kernel has no HGMMA "
-             "instruction")
+    for name in ("flash_attention_wgmma", "kahan_matmul"):
+        hgmma = sass_count(name, "HGMMA")
+        log(f"[build] {name}: {hgmma} HGMMA (wgmma) instructions in its "
+            f"SASS")
+        if not hgmma:
+            fail(f"the tensor-core kernels of {name}.cu have no HGMMA "
+                 f"instruction")
+    # registers and spills of B5 / B6 from the library itself, so a run
+    # that finds it already built checks them too
+    usage = res_usage("kahan_matmul")
+    if not usage:
+        fail("cuobjdump -res-usage listed no kahan_matmul kernel")
+    for fn, (regs, stack, local) in sorted(usage.items()):
+        log(f"[build] kahan_matmul: {fn} REG {regs} STACK {stack} LOCAL "
+            f"{local}")
+    spilled = [fn for fn, (_, stack, local) in usage.items()
+               if stack or local]
+    log(f"[build] kahan_matmul: {len(usage)} kernels, registers "
+        f"{min(r for r, _, _ in usage.values())}-"
+        f"{max(r for r, _, _ in usage.values())}, {len(spilled)} with a "
+        f"stack frame or local memory")
+    if spilled:
+        fail(f"kahan_matmul kernels spill: {spilled}")
 
 
 def _paged_call(x, sl=slice(None), mb=None, q=None, lens=None, offs=None):
@@ -740,79 +818,101 @@ def phase_acc_parity(dev) -> float:
     return 0.0
 
 
-def phase_matmul_parity(dev) -> tuple[float, float]:
-    """B5 and B6 against their twins at the CPU tests' tolerances, and
-    the ill-conditioned deep contraction against an f64 product."""
+def phase_matmul_parity(dev) -> dict:
+    """B5 and B6 against their twins at the CPU tests' tolerances on both
+    routes (M picks one: route S for M <= 64), every dtype pair the
+    wrappers take, and the ill-conditioned deep contraction against an
+    f64 product. Returns the largest error per launch counter."""
     import torch
+    from repro_torch.kernels import ops
     from repro_torch.quant import core as qcore
     km = _module("kahan_matmul")
     g = torch.Generator(device=dev).manual_seed(6)
-    worst = 0.0
+    worst = {km.counter(q8, r): 0.0 for q8 in (False, True)
+             for r in ("tile", "split")}
+
+    def run(q8, m, fn):
+        name = km.counter(q8, km.pick_route(m))
+        before = ops.launches[name]
+        got = fn()
+        torch.cuda.synchronize()
+        if ops.launches[name] != before + 1:
+            fail(f"{name}: the call did not count one launch")
+        return name, got
+
+    # bk = 24 (M 67 and 61 x 120 x 100): a block that is no multiple of
+    # 16, ragged M and N, on each route; M = 8 and 61 take route S
     shapes = [(128, 256, 128, 128, 128, 128), (256, 1024, 128, 128, 128, 256),
               (128, 128, 128, 64, 64, 32), (8, 2816, 1024, 8, 256, 256),
+              (67, 120, 100, 67, 100, 24), (61, 120, 100, 61, 100, 24),
               (2048, 2816, 1024, 256, 256, 256)]
     for m, k, n, bm, bn, bk in shapes:
         for dt in (torch.float32, torch.bfloat16):
             a, b = _randn(g, (m, k), dev, dt), _randn(g, (k, n), dev, dt)
             kw = dict(block_m=bm, block_n=bn, block_k=bk)
-            got = km.kahan_matmul_cuda(a, b, **kw)
             want = km.kahan_matmul_plain(a, b, **kw)
-            torch.cuda.synchronize()
+            name, got = run(False, m, lambda: km.kahan_matmul_cuda(a, b,
+                                                                   **kw))
             err = (got - want).abs()
             # f32 block partials summed in other orders, the same folds:
             # the reference test's f32 tolerance 1e-5 sqrt(K) + 1e-5 rel
             tol = 1e-5 * k ** 0.5 + 1e-5 * want.abs()
             bad = int((err > tol).sum())
-            worst = max(worst, float(err.max()))
-            log(f"[parity] kahan_matmul {m}x{k}x{n} bk={bk} {dt}: "
+            worst[name] = max(worst[name], float(err.max()))
+            log(f"[parity] {name} {m}x{k}x{n} bk={bk} {dt}: "
                 f"max|kernel-plain| {float(err.max()):.3g} (tol 1e-5 "
                 f"sqrt(K) + 1e-5 rel: summation order inside a K block), "
                 f"{bad} over tol")
             if bad or not torch.isfinite(got).all():
-                fail(f"kahan_matmul parity {m}x{k}x{n} {dt}")
+                fail(f"{name} parity {m}x{k}x{n} {dt}")
     # the deep contraction of tests/test_kernels_matmul.py: K = 2^14,
-    # magnitudes 1e-3..1e3, bk = 128
+    # magnitudes 1e-3..1e3, bk = 128; at M = 8 on route S, at M = 72 on
+    # route T (the six-product form)
     k = 1 << 14
     sc = 10.0 ** torch.randint(-3, 4, (1, k), generator=g, device=dev)
-    a = (_randn(g, (8, k), dev) * sc).float()
     b = (_randn(g, (k, 8), dev) * sc.T).float()
-    exact = a.double() @ b.double()
-    got = km.kahan_matmul_cuda(a, b, block_m=8, block_n=8, block_k=128)
-    err_k = float((got.double() - exact).abs().max())
-    err_n = float(((a @ b).double() - exact).abs().max())
-    ok = err_k <= 1.5 * err_n + 1e-6 and \
-        err_k <= 1e-3 * float(exact.abs().max())
-    log(f"[parity] kahan_matmul deep K=2^14 bk=128 ill-conditioned: "
-        f"|kernel-f64| {err_k:.4g}, |naive f32 matmul-f64| {err_n:.4g} "
-        f"(bound 1.5x naive and 1e-3 max|C| = "
-        f"{1e-3 * float(exact.abs().max()):.4g}): {ok}")
-    if not ok:
-        fail("kahan_matmul deep contraction")
-    worst_q = 0.0
-    for fmt in (qcore.INT8, qcore.FP8):
-        for m, k, n in ((8, 512, 128), (16, 256, 256), (67, 2816, 1024)):
-            a = _randn(g, (m, k), dev)
+    for m in (8, 72):
+        a = (_randn(g, (m, k), dev) * sc).float()
+        exact = a.double() @ b.double()
+        err_n = float(((a @ b).double() - exact).abs().max())
+        name, got = run(False, m, lambda: km.kahan_matmul_cuda(
+            a, b, block_m=m, block_n=8, block_k=128))
+        err_k = float((got.double() - exact).abs().max())
+        ok = err_k <= 1.5 * err_n + 1e-6 and \
+            err_k <= 1e-3 * float(exact.abs().max())
+        log(f"[parity] {name} deep M={m} K=2^14 bk=128 ill-conditioned: "
+            f"|kernel-f64| {err_k:.4g}, |naive f32 matmul-f64| {err_n:.4g} "
+            f"(bound 1.5x naive and 1e-3 max|C| = "
+            f"{1e-3 * float(exact.abs().max()):.4g}): {ok}")
+        if not ok:
+            fail(f"{name} deep contraction")
+    for fmt, adt in ((qcore.INT8, torch.float32), (qcore.FP8, torch.float32),
+                     (qcore.INT8, torch.bfloat16)):
+        for m, k, n, bk in ((8, 512, 128, 256), (16, 256, 256, 256),
+                            (67, 2816, 1024, 256), (67, 120, 100, 24),
+                            (61, 120, 100, 24), (2048, 2816, 1024, 256)):
+            a = _randn(g, (m, k), dev, adt)
             qw, s = qcore.quantize_weight(_randn(g, (k, n), dev), fmt,
-                                          block_k=256)
-            got = km.kahan_matmul_q8_cuda(a, qw, s, block_m=m)
+                                          block_k=bk)
             want = km.kahan_matmul_q8_plain(a, qw, s, block_m=m)
             oracle = a.double() @ qcore.dequantize_weight(qw, s).double()
-            torch.cuda.synchronize()
+            name, got = run(True, m, lambda: km.kahan_matmul_q8_cuda(
+                a, qw, s, block_m=m))
             err = (got - want).abs()
             err_o = (got.double() - oracle).abs()
-            # the quant test's tolerance (tests/test_quant.py), widened
-            # by sqrt(K / 512) for the deeper shape
+            # the quant test's tolerance (tests/test_quant.py), widened by
+            # sqrt(K / 512) for the deeper shapes
             atol = 1e-4 * max(1.0, (k / 512) ** 0.5)
             bad = int((err > atol + 1e-5 * want.abs()).sum())
             bad_o = int((err_o > atol + 1e-5 * oracle.abs()).sum())
-            worst_q = max(worst_q, float(err.max()))
-            log(f"[parity] kahan_matmul_q8 {fmt.name} {m}x{k}x{n}: "
-                f"max|kernel-plain| {float(err.max()):.3g}, "
-                f"max|kernel-dequant f64| {float(err_o.max()):.3g} (tol "
-                f"{atol:.3g} abs + 1e-5 rel), {bad} + {bad_o} over tol")
+            worst[name] = max(worst[name], float(err.max()))
+            log(f"[parity] {name} {fmt.name} A {adt} {m}x{k}x{n} bk={bk}: "
+                f"max|kernel-plain| {float(err.max()):.3g}, max|kernel-"
+                f"dequant f64| {float(err_o.max()):.3g} (tol {atol:.3g} abs "
+                f"+ 1e-5 rel), {bad} + {bad_o} over tol")
             if bad or bad_o or not torch.isfinite(got).all():
-                fail(f"kahan_matmul_q8 parity {fmt.name} {m}x{k}x{n}")
-    return worst, worst_q
+                fail(f"{name} parity {fmt.name} {adt} {m}x{k}x{n}")
+    return worst
 
 
 def phase_flash_parity(dev) -> dict:
@@ -918,28 +1018,32 @@ def phase_kernel_path(dev, qwen) -> tuple[dict, dict]:
         fx[key] = (q, k, v)
     if set(launches) != {"flash_attention", "flash_attention_wgmma"}:
         fail(f"flash_attention path routes {sorted(launches)}")
-    # B5: the down projection of a 2048-token prompt, f32 and bf16
+    # B5: the down projection of a 2048-token prompt (route T) and of a
+    # decode batch of 8 (route S), f32 and bf16
     params = api.init_params(qwen, device=dev, seed=SEED)
     w_down = params["layers"][0]["ffn"]["w_down"]
     w_gu = params["layers"][0]["ffn"]["w_gate_up"]
-    a = _randn(g, (2048, qwen.d_ff), dev)
-    pairs = [(a, w_down), (a.to(torch.bfloat16), w_down.to(torch.bfloat16))]
-    outs = _counted(f"kahan_matmul {list(a.shape)} x {list(w_down.shape)} "
-                    f"f32 and bf16 (bk 256)",
-                    lambda: [K.kahan_matmul(x, w, block_k=256)
-                             for x, w in pairs], {"kahan_matmul": 2})
-    for (x, w), o in zip(pairs, outs):
-        want = kahan_matmul_plain(x, w, block_k=256)
-        err = float((o - want).abs().max())
-        tol = 1e-5 * x.shape[1] ** 0.5
-        log(f"[path] kahan_matmul {x.dtype}: max|kernel-plain| {err:.3g} "
-            f"(tol {tol:.3g} + 1e-5 rel)")
-        if not torch.isfinite(o).all() or \
-                bool(((o - want).abs() > tol + 1e-5 * want.abs()).any()):
-            fail(f"kahan_matmul path {x.dtype}")
-    launches["kahan_matmul"] = 2
-    fx["matmul"] = pairs
-    # B6: int8 and fp8 weights of the MLP at a decode batch and a prompt
+    for m, name in ((2048, "kahan_matmul"), (8, "kahan_matmul_split")):
+        a = _randn(g, (m, qwen.d_ff), dev)
+        pairs = [(a, w_down),
+                 (a.to(torch.bfloat16), w_down.to(torch.bfloat16))]
+        outs = _counted(f"kahan_matmul {list(a.shape)} x "
+                        f"{list(w_down.shape)} f32 and bf16 (bk 256)",
+                        lambda: [K.kahan_matmul(x, w, block_k=256)
+                                 for x, w in pairs], {name: 2})
+        for (x, w), o in zip(pairs, outs):
+            want = kahan_matmul_plain(x, w, block_k=256)
+            err = float((o - want).abs().max())
+            tol = 1e-5 * x.shape[1] ** 0.5
+            log(f"[path] {name} {x.dtype} M={m}: max|kernel-plain| "
+                f"{err:.3g} (tol {tol:.3g} + 1e-5 rel)")
+            if not torch.isfinite(o).all() or \
+                    bool(((o - want).abs() > tol + 1e-5 * want.abs()).any()):
+                fail(f"{name} path {x.dtype}")
+        launches[name] = 2
+        fx["matmul" if m > 8 else "matmul_m8"] = pairs
+    # B6: int8 and fp8 weights of the MLP at a decode batch (route S) and
+    # a prompt (route T)
     calls = []
     for fmt in (qcore.INT8, qcore.FP8):
         for w in (w_gu, w_down):
@@ -947,10 +1051,11 @@ def phase_kernel_path(dev, qwen) -> tuple[dict, dict]:
             for m in (8, 2048):
                 calls.append((fmt.name, _randn(g, (m, w.shape[0]), dev), qw,
                               s))
+    want_q8 = {"kahan_matmul_q8": 4, "kahan_matmul_q8_split": 4}
     outs = _counted(f"q8_matmul int8 + fp8 x {list(w_gu.shape)}, "
                     f"{list(w_down.shape)} x M in {{8, 2048}}",
                     lambda: [ops.q8_matmul(x, qw, s) for _, x, qw, s in calls],
-                    {"kahan_matmul_q8": len(calls)})
+                    want_q8)
     for (name, x, qw, s), o in zip(calls, outs):
         want = kahan_matmul_q8_plain(x, qw, s)
         err = (o - want).abs()
@@ -960,7 +1065,7 @@ def phase_kernel_path(dev, qwen) -> tuple[dict, dict]:
             fail(f"q8_matmul path {name} {tuple(x.shape)}x{tuple(qw.shape)}")
     log(f"[path] q8_matmul: {len(calls)} calls finite and within 1e-4 "
         f"sqrt(K/512) + 1e-5 rel of the twin")
-    launches["kahan_matmul_q8"] = len(calls)
+    launches.update(want_q8)
     fx["q8"] = calls
     # B7: G = 4 seeded f32 microbatch gradients accumulated into every
     # leaf of the parameter tree, held bitwise to KahanState.add
@@ -1050,44 +1155,65 @@ def phase_slice_times(dev, fx) -> dict:
         fa.flops(bh, l, l, d, d, True), F32_FLOPS_PER_S,
         f"[{bh}, {l}, {d}] f32 causal, CUDA cores (library: SDPA "
         f"is_causal f32)")
+    # B5 and B6 on their routes: T (wgmma) bound by P bf16 passes at the
+    # tensor-core rate plus the fold at the f32 rate, S (split + fold)
+    # by the bytes or the f32 CUDA-core products
+    tile_k = ("kahan_matmul_tile_kernel",)
+    split_k = ("kahan_matmul_split_kernel", "kahan_matmul_fold_kernel")
+
+    def mm_row(name, x, w, s=None, what=""):
+        m, kk = x.shape
+        n = w.shape[1]
+        q8 = s is not None
+        bk = kk // s.shape[0] if q8 else 256
+        mm, fold = km.flops(m, n, kk, bk, scaled=q8)
+        split = km.pick_route(m) == "split"
+        if split:
+            flops, rate, route_txt = mm, F32_FLOPS_PER_S, "route S"
+        else:
+            p = km.tensor_passes(x.dtype, w.dtype)
+            flops, rate = p * mm, BF16_FLOPS_PER_S
+            route_txt = f"route T, {p} bf16 pass{'es' if p > 1 else ''}"
+        if q8:
+            w_deq = qcore.dequantize_weight(w, s)
+            run = lambda: km.kahan_matmul_q8_cuda(x, w, s)  # noqa: E731
+            plain = lambda: km.kahan_matmul_q8_plain(x, w, s)  # noqa: E731
+            lib = lambda: torch.matmul(x, w_deq)  # noqa: E731
+            nbytes = km.bytes_moved(x, w, s, out_elems=m * n)
+        else:
+            run = lambda: km.kahan_matmul_cuda(x, w)  # noqa: E731
+            plain = lambda: km.kahan_matmul_plain(x, w)  # noqa: E731
+            lib = lambda: torch.matmul(x, w)  # noqa: E731
+            nbytes = km.bytes_moved(x, w, out_elems=m * n)
+        return row(name, run, plain, lib, split_k if split else tile_k,
+                   nbytes, flops, fold, rate,
+                   f"{what} [{m}, {kk}] x [{kk}, {n}] bk {bk}, {route_txt}")
+
     (a, w), (ab, wb) = fx["matmul"]
-    m, kk = a.shape
-    n = w.shape[1]
-    mm, fold = km.flops(m, n, kk, 256)
-    out["kahan_matmul"] = row(
-        "kahan_matmul", lambda: km.kahan_matmul_cuda(a, w),
-        lambda: km.kahan_matmul_plain(a, w), lambda: torch.matmul(a, w),
-        ("kahan_matmul_kernel",), km.bytes_moved(a, w, out_elems=m * n), mm,
-        fold, F32_FLOPS_PER_S,
-        f"[{m}, {kk}] x [{kk}, {n}] f32 bk 256 (library: torch.matmul f32, "
-        f"TF32 off)")
-    out["kahan_matmul"]["bf16"] = row(
-        "kahan_matmul", lambda: km.kahan_matmul_cuda(ab, wb),
-        lambda: km.kahan_matmul_plain(ab, wb), lambda: torch.matmul(ab, wb),
-        ("kahan_matmul_kernel",), km.bytes_moved(ab, wb, out_elems=m * n),
-        mm, fold, BF16_FLOPS_PER_S,
-        f"[{m}, {kk}] x [{kk}, {n}] bf16 bk 256 (library: torch.matmul bf16)")
+    out["kahan_matmul"] = mm_row(
+        "kahan_matmul", a, w,
+        what="f32 (library: torch.matmul f32, TF32 off)")
+    out["kahan_matmul"]["bf16"] = mm_row(
+        "kahan_matmul", ab, wb, what="bf16 (library: torch.matmul bf16)")
+    (a, w), (ab, wb) = fx["matmul_m8"]
+    out["kahan_matmul_split"] = mm_row(
+        "kahan_matmul_split", a, w,
+        what="f32 (library: torch.matmul f32, TF32 off)")
+    out["kahan_matmul_split"]["bf16"] = mm_row(
+        "kahan_matmul_split", ab, wb, what="bf16 (library: torch.matmul bf16)")
     picks = {}
     for name, x, qw, s in fx["q8"]:
         if qw.shape[1] < qw.shape[0]:                 # the down projection
             picks[(name, x.shape[0])] = (x, qw, s)
-    for key in (("int8", 2048), ("int8", 8), ("fp8", 2048)):
+    lib_q8 = "(library: torch.matmul f32 against the weight dequantized once)"
+    for key in (("int8", 2048), ("fp8", 2048), ("int8", 8), ("fp8", 8)):
         x, qw, s = picks[key]
-        w_deq = qcore.dequantize_weight(qw, s)
-        m, kk = x.shape
-        n = qw.shape[1]
-        mm, fold = km.flops(m, n, kk, kk // s.shape[0], scaled=True)
-        r = row("kahan_matmul_q8", lambda: km.kahan_matmul_q8_cuda(x, qw, s),
-                lambda: km.kahan_matmul_q8_plain(x, qw, s),
-                lambda: torch.matmul(x, w_deq), ("kahan_matmul_kernel",),
-                km.bytes_moved(x, qw, s, out_elems=m * n), mm, fold,
-                F32_FLOPS_PER_S,
-                f"{key[0]} [{m}, {kk}] x [{kk}, {n}] bk 256 (library: "
-                f"torch.matmul f32 against the weight dequantized once)")
-        if key == ("int8", 2048):
-            out["kahan_matmul_q8"] = r
+        name = "kahan_matmul_q8" + ("_split" if key[1] == 8 else "")
+        r = mm_row(name, x, qw, s, what=f"{key[0]} {lib_q8}")
+        if key[0] == "int8":
+            out[name] = r
         else:
-            out["kahan_matmul_q8"][f"{key[0]}_m{key[1]}"] = r
+            out[name][key[0]] = r
     kern, upd, n, nleaves = fx["acc"]
     trip = list(zip(kahan.tree_leaves(kern.sum), kahan.tree_leaves(kern.carry),
                     kahan.tree_leaves(upd)))
@@ -1308,12 +1434,15 @@ def main() -> int:
     lat_err = phase_latent_parity(dev)
     red_err = phase_reduce_parity(dev)
     acc_err = phase_acc_parity(dev)
-    mm_err, q8_err = phase_matmul_parity(dev)
+    mm_err = phase_matmul_parity(dev)
     flash_err = phase_flash_parity(dev)
     qwen = get_config("qwen1.5-0.5b")
     k_launch, fx = phase_kernel_path(dev, qwen)
     times = phase_times(dev)
     times.update(phase_slice_times(dev, fx))
+    log(f"[times] profiler tries that lost device events (profiled again): "
+        f"{len(DROPPED_WINDOWS)} {DROPPED_WINDOWS}; rows timed by CUDA "
+        f"events instead: {len(EVENT_TIMED)} {EVENT_TIMED}")
     del fx
     torch.cuda.empty_cache()
     for arch in SMALL_ARCHS:
@@ -1360,16 +1489,14 @@ def main() -> int:
              launches=k_launch["flash_attention_wgmma"],
              max_abs_err=flash_err["flash_attention_wgmma"],
              **times["flash_attention_wgmma"]),
-        dict(name="kahan_matmul", route="cuda",
-             source="src/repro_torch/csrc/kahan_matmul.cu",
-             replaces="src/repro/kernels/kahan_matmul.py:61",
-             launches=k_launch["kahan_matmul"], max_abs_err=mm_err,
-             **times["kahan_matmul"]),
-        dict(name="kahan_matmul_q8", route="cuda",
-             source="src/repro_torch/csrc/kahan_matmul.cu",
-             replaces="src/repro/kernels/kahan_matmul.py:125",
-             launches=k_launch["kahan_matmul_q8"], max_abs_err=q8_err,
-             **times["kahan_matmul_q8"]),
+        *(dict(name=name, route="cuda",
+               source="src/repro_torch/csrc/kahan_matmul.cu",
+               replaces="src/repro/kernels/kahan_matmul.py:"
+                        + ("125" if "q8" in name else "61"),
+               launches=k_launch[name], max_abs_err=mm_err[name],
+               **times[name])
+          for name in ("kahan_matmul", "kahan_matmul_split",
+                       "kahan_matmul_q8", "kahan_matmul_q8_split")),
         dict(name="kahan_acc", route="cuda",
              source="src/repro_torch/csrc/kahan_acc.cu",
              replaces="src/repro/kernels/kahan_acc.py:45",

@@ -14,9 +14,14 @@ shapes, as the reference asserts.
   reference's blocking step by step in PyTorch ops (f32 matmul per K
   block; keep TF32 off on the card, ``device.set_numerics``).
 * ``kahan_matmul_cuda`` / ``kahan_matmul_q8_cuda`` launch
-  ``csrc/kahan_matmul.cu`` (design and bound in that file). Within a K
-  block the kernel sums in its own order, so it agrees with the twins to
-  f32 rounding of the block partials, not bitwise.
+  ``csrc/kahan_matmul.cu`` (design and bounds in that file) on one of
+  two routes that ``pick_route`` chooses by M: route T (``tile``, M >
+  64) runs wgmma on the bf16 tensor cores with f32 operands split into
+  three exact bf16 planes; route S (``split``, M <= 64) computes each
+  K block's partial in its own CTA and folds them in block order in a
+  second kernel.
+  Within a K block each sums in its own order, so they agree with the
+  twins to f32 rounding of the block partials, not bitwise.
 * ``kahan_matmul`` / ``kahan_matmul_q8`` dispatch on A's device.
 
 fp8 weights: ``quantize_weight(w, FP8)`` stores e4m3 bytes as u8. The
@@ -34,9 +39,6 @@ import torch
 from repro_torch.core import kahan
 from repro_torch.kernels import _build
 from repro_torch.quant.core import cast_f32
-
-_IN_TYPES = {torch.bfloat16: 0, torch.float32: 1}     # POOL_* codes
-_Q_TYPES = {torch.int8: 2, torch.uint8: 3}
 
 
 def _block_k(a, b, block_m, block_n, block_k) -> int:
@@ -97,77 +99,109 @@ def kahan_matmul_q8_plain(a, qw, scales, *, block_m: int = 256,
 
 # ------------------------------------------------------------ CUDA kernel --
 
+SPLIT_MAX_M = 64      # route S (split over K blocks) up to this M
+_TYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2,
+          torch.uint8: 3}                             # POOL_* codes
+
+
 def _lib():
     lib = _build.load("kahan_matmul")
     if not getattr(lib, "_typed", False):
-        lib.repro_kahan_matmul.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        lib.repro_kahan_matmul.restype = ctypes.c_int
-        lib.repro_kahan_matmul_q8.argtypes = (
+        lib.repro_kahan_matmul_tile.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        lib.repro_kahan_matmul_q8.restype = ctypes.c_int
+        lib.repro_kahan_matmul_tile.restype = ctypes.c_int
+        lib.repro_kahan_matmul_split.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.repro_kahan_matmul_split.restype = ctypes.c_int
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
 
-def _need_cuda(a, *tensors) -> None:
-    """Contiguous tensors on A's CUDA device, A f32 or bf16, and an M the
-    grid covers (65535 row tiles of 64)."""
-    for t in (a, *tensors):
+def pick_route(m: int) -> str:
+    """``"split"`` (route S: one CTA per (64 columns, K block, 8 rows),
+    then a fold kernel) for M <= ``SPLIT_MAX_M``, else ``"tile"`` (route
+    T: wgmma on tiles of 128 rows). Each route counts its launches under
+    its own name: ``kahan_matmul`` / ``kahan_matmul_q8`` for tile, with
+    ``_split`` appended for split."""
+    return "split" if m <= SPLIT_MAX_M else "tile"
+
+
+def counter(q8: bool, which: str) -> str:
+    """The launch counter of a route: ``kahan_matmul[_q8][_split]``."""
+    name = "kahan_matmul_q8" if q8 else "kahan_matmul"
+    return name + "_split" if which == "split" else name
+
+
+def _launch(a, b, scales, bk: int, which: str):
+    """Launch route ``which`` of ``csrc/kahan_matmul.cu``; returns the
+    output and (route S) the block partials it folded, [K / bk, M, N]."""
+    for t in (a, b) + (() if scales is None else (scales,)):
         if not t.is_cuda or t.device != a.device or not t.is_contiguous():
             raise ValueError("kahan_matmul kernels take contiguous tensors "
                              "on one CUDA device")
-    if a.dtype not in _IN_TYPES:
+    if a.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"A must be f32 or bf16, got {a.dtype}")
-    if a.shape[0] > 65535 * 64:
-        raise ValueError(f"M={a.shape[0]} exceeds the grid's 65535 x 64 rows")
+    (m, k), n = a.shape, b.shape[1]
+    if which == "tile" and -(-m // 128) > 65535:
+        raise ValueError(f"M={m} exceeds the grid's 65535 x 128 rows")
+    if which == "split" and k // bk > 65535:
+        raise ValueError(f"K / bk = {k // bk} exceeds the grid's 65535")
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    ws = None
+    lib = _lib()
+    sp = None if scales is None else scales.data_ptr()
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    types = (m, n, k, bk, _TYPES[a.dtype], _TYPES[b.dtype], stream)
+    if which == "split":
+        ws = torch.empty((k // bk, m, n), dtype=torch.float32,
+                         device=a.device)
+        err = lib.repro_kahan_matmul_split(
+            a.data_ptr(), b.data_ptr(), sp, ws.data_ptr(), out.data_ptr(),
+            *types)
+    else:
+        err = lib.repro_kahan_matmul_tile(
+            a.data_ptr(), b.data_ptr(), sp, out.data_ptr(), *types)
+    name = counter(scales is not None, which)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + lib.repro_error_string(err).decode())
+    _build.launches[name] += 1
+    return out, ws
 
 
 def kahan_matmul_cuda(a, b, *, block_m: int = 256, block_n: int = 256,
                       block_k: int = 256) -> torch.Tensor:
-    """Launch ``csrc/kahan_matmul.cu``; same contract as the plain twin
-    (A and B f32 or bf16)."""
+    """Launch ``csrc/kahan_matmul.cu`` on the route ``pick_route`` picks
+    by M; same contract as the plain twin (A and B f32 or bf16)."""
     bk = _block_k(a, b, block_m, block_n, block_k)
-    _need_cuda(a, b)
-    if b.dtype not in _IN_TYPES:
+    if b.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"B must be f32 or bf16, got {b.dtype}")
-    (m, k), n = a.shape, b.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    lib = _lib()
-    err = lib.repro_kahan_matmul(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, bk,
-        _IN_TYPES[a.dtype], _IN_TYPES[b.dtype],
-        torch.cuda.current_stream(a.device).cuda_stream)
-    if err:
-        raise RuntimeError("kahan_matmul kernel launch failed: "
-                           + lib.repro_error_string(err).decode())
-    _build.launches["kahan_matmul"] += 1
-    return out
+    return _launch(a, b, None, bk, pick_route(a.shape[0]))[0]
 
 
 def kahan_matmul_q8_cuda(a, qw, scales, *, block_m: int = 256,
                          block_n: int = 256) -> torch.Tensor:
-    """Launch the q8 entry of ``csrc/kahan_matmul.cu``: A f32 or bf16,
-    qw int8 or u8 (fp8 e4m3 bytes), scales f32."""
+    """Launch the q8 form of ``csrc/kahan_matmul.cu``: A f32 or bf16, qw
+    int8 or u8 (fp8 e4m3 bytes), scales f32."""
     bk = _q8_block_k(a, qw, scales, block_m, block_n)
-    _need_cuda(a, qw, scales)
-    if qw.dtype not in _Q_TYPES or scales.dtype != torch.float32:
+    if qw.dtype not in (torch.int8, torch.uint8) or \
+            scales.dtype != torch.float32:
         raise ValueError(f"qw must be int8 or u8 (fp8) and scales f32, got "
                          f"{qw.dtype} / {scales.dtype}")
-    (m, k), n = a.shape, qw.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    lib = _lib()
-    err = lib.repro_kahan_matmul_q8(
-        a.data_ptr(), qw.data_ptr(), scales.data_ptr(), out.data_ptr(), m, n,
-        k, bk, _IN_TYPES[a.dtype], _Q_TYPES[qw.dtype],
-        torch.cuda.current_stream(a.device).cuda_stream)
-    if err:
-        raise RuntimeError("kahan_matmul_q8 kernel launch failed: "
-                           + lib.repro_error_string(err).decode())
-    _build.launches["kahan_matmul_q8"] += 1
-    return out
+    return _launch(a, qw, scales, bk, pick_route(a.shape[0]))[0]
+
+
+def split_parts(a, b, bk: int, scales=None):
+    """Route S's output and the block partials [K / bk, M, N] it folded
+    (each times its scales in the q8 form), so a caller can hold the
+    output to a serial fold of the same partials (M <= ``SPLIT_MAX_M``).
+    Counted as a launch of the split route."""
+    if a.shape[0] > SPLIT_MAX_M:
+        raise ValueError(f"route S takes M <= {SPLIT_MAX_M}, got "
+                         f"{a.shape[0]}")
+    return _launch(a, b, scales, bk, "split")
 
 
 # ------------------------------------------------------------ dispatch -----
@@ -187,6 +221,14 @@ def kahan_matmul_q8(a, qw, scales, *, block_m: int = 256,
     fold's K block)."""
     fn = kahan_matmul_q8_cuda if a.is_cuda else kahan_matmul_q8_plain
     return fn(a, qw, scales, block_m=block_m, block_n=block_n)
+
+
+def tensor_passes(a_dtype, b_dtype) -> int:
+    """bf16 tensor-core products route T issues per k16 step: 1 for
+    one-plane operands (bf16, int8, fp8), 3 when one side is f32 (three
+    planes), 6 for f32 x f32 (the products of plane indices i + j <= 2)."""
+    planes = [3 if d == torch.float32 else 1 for d in (a_dtype, b_dtype)]
+    return 6 if planes == [3, 3] else planes[0] * planes[1]
 
 
 def flops(m: int, n: int, k: int, bk: int, scaled: bool = False) -> tuple:

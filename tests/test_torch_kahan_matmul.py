@@ -7,8 +7,11 @@ reference test's tolerance (``tol * sqrt(K)``; within a block the f32
 partial is summed in another order). The int8 q8 path is held to
 ``repro.kernels.ops.q8_matmul``; the fp8 path to ``dequantize_weight``
 then an f32 matmul (the reference kernel reads fp8 bytes as integers).
-The quantizers are held BITWISE. On the card, the CUDA kernels against
-the twins."""
+The quantizers are held BITWISE. The tensor-core route's arithmetic is
+emulated here (exact bf16 planes of f32 operands, the plane products it
+issues, f32 block partials, the fold) and held to the same references
+at the same tolerances. On the card, both CUDA routes against the
+twins."""
 
 import pytest
 
@@ -21,9 +24,11 @@ from repro.kernels import ops as rops  # noqa: E402
 from repro.kernels.kahan_matmul import kahan_matmul as rkm  # noqa: E402
 from repro.quant import core as rq  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.core import kahan as tkahan  # noqa: E402
 from repro_torch.kernels.kahan_matmul import (  # noqa: E402
-    kahan_matmul, kahan_matmul_cuda, kahan_matmul_plain, kahan_matmul_q8_cuda,
-    kahan_matmul_q8_plain)
+    SPLIT_MAX_M, kahan_matmul, kahan_matmul_cuda, kahan_matmul_plain,
+    kahan_matmul_q8_cuda, kahan_matmul_q8_plain, pick_route, split_parts,
+    tensor_passes)
 from repro_torch.quant import core as tq  # noqa: E402
 
 GRID = [(128, 256, 128, 128, 128, 128), (256, 1024, 128, 128, 128, 256),
@@ -55,9 +60,9 @@ def test_twin_matches_reference(m, k, n, bm, bn, bk, dtype):
                                rtol=tol)
 
 
-def _deep_case():
+def _deep_case(m=8):
     rng = np.random.default_rng(1)
-    m = n = 8
+    n = 8
     k = 1 << 14
     scales = 10.0 ** rng.integers(-3, 4, (1, k))
     a = (rng.standard_normal((m, k)) * scales).astype(np.float32)
@@ -145,38 +150,234 @@ def test_shapes_are_checked():
     assert tops.launches == before                 # the CPU twin is no launch
 
 
-def test_cuda_kernel_matches_plain():
+# ------------------------------------------- route T's arithmetic on CPU --
+# Route T feeds the bf16 tensor cores bf16 planes that sum exactly to
+# each operand: hi = bf16(x), mid = bf16(x - hi), lo = x - hi - mid.
+
+# the range where hi + mid + lo == x holds: lo and mid stay in bf16's
+# normal range from 2^-103 up, hi stays finite below (2 - 2^-8) 2^127
+SPLIT_MIN, SPLIT_MAX = 2.0 ** -103, (2 - 2.0 ** -8) * 2.0 ** 127
+
+
+def _split3(x):
+    hi = x.to(torch.bfloat16).float()
+    r = x - hi
+    mid = r.to(torch.bfloat16).float()
+    return hi, mid, r - mid
+
+
+def _assert_exact_split(x):
+    hi, mid, lo = _split3(x)
+    for p in (hi, mid, lo):                  # every plane is a bf16 value
+        assert torch.equal(p.to(torch.bfloat16).float(), p)
+    assert torch.equal((hi + mid + lo).view(torch.int32), x.view(torch.int32))
+
+
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 1e3])
+def test_plane_split_exact_normals(scale):
+    x = torch.from_numpy(_normal((4096,), 20)) * scale
+    _assert_exact_split(x)
+
+
+def test_plane_split_exact_over_magnitudes():
+    rng = np.random.default_rng(21)
+    mag = 10.0 ** rng.uniform(-30, 30, 20000)
+    sign = rng.choice([-1.0, 1.0], 20000)
+    x = torch.from_numpy((sign * mag).astype(np.float32))
+    assert float(x.abs().min()) >= SPLIT_MIN
+    _assert_exact_split(x)
+    # the ends of the stated range
+    ends = torch.tensor([SPLIT_MIN, -SPLIT_MIN, 3.38e38, -3.38e38,
+                         np.finfo(np.float32).tiny * 2.0 ** 23],
+                        dtype=torch.float32)
+    _assert_exact_split(ends)
+
+
+def test_plane_split_zeros_infs_nans():
+    z = torch.tensor([0.0, -0.0])
+    hi, mid, lo = _split3(z)
+    assert torch.equal(hi.view(torch.int32), z.view(torch.int32))
+    assert torch.equal(mid, torch.zeros(2)) and torch.equal(lo, torch.zeros(2))
+    assert torch.equal(hi + mid + lo, z)     # == by value (-0 sums to +0)
+    # outside the range: hi carries inf / NaN, the other planes are NaN,
+    # so a product with them is NaN (the reference would give inf or NaN)
+    special = torch.tensor([float("inf"), float("-inf"), float("nan")])
+    hi, mid, lo = _split3(special)
+    assert torch.equal(hi[:2], special[:2]) and bool(hi[2].isnan())
+    assert bool(mid.isnan().all()) and bool(lo.isnan().all())
+
+
+def _planes(x):
+    """An operand's bf16 planes as f32, largest first: three for f32,
+    one for bf16 and for a widened int8 / fp8 payload."""
+    if x.dtype == torch.float32:
+        return _split3(x)
+    return (tq.cast_f32(x) if x.dtype in (torch.int8, torch.uint8)
+            else x.float(),)
+
+
+def _emulate_tile(a, b, bk, scales=None):
+    """Route T's arithmetic: per K block, the plane products of the
+    kernel smallest first into a 'small' f32 sum and hi.hi into a 'big'
+    one, the partial big + small (times the block's scales), then the
+    Neumaier fold; f32 matmuls stand in for the tensor cores' sums."""
+    pa, pb = _planes(a), _planes(b)
+    pairs = sorted(((i, j) for i in range(len(pa)) for j in range(len(pb))
+                    if i + j <= 2), key=lambda ij: -(ij[0] + ij[1]))
+    assert len(pairs) == tensor_passes(a.dtype, b.dtype)
+    m, k = a.shape
+    s = torch.zeros((m, b.shape[1]))
+    c = torch.zeros_like(s)
+    for blk in range(k // bk):
+        ks = slice(blk * bk, (blk + 1) * bk)
+        small = torch.zeros_like(s)
+        for i, j in pairs[:-1]:
+            small = small + pa[i][:, ks] @ pb[j][ks]
+        part = pa[0][:, ks] @ pb[0][ks] + small
+        if scales is not None:
+            part = part * scales[blk]
+        s, c = tkahan.neumaier_step(s, c, part)
+    return s + c
+
+
+@pytest.mark.parametrize("m,k,n,bm,bn,bk", GRID)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tile_emulation_matches_reference(m, k, n, bm, bn, bk, dtype):
+    a, b = _normal((m, k), 0), _normal((k, n), 1)
+    ja, jb = jnp.asarray(a, dtype), jnp.asarray(b, dtype)
+    want = np.asarray(rkm(ja, jb, block_m=bm, block_n=bn, block_k=bk,
+                          interpret=True))
+    tdt = getattr(torch, dtype)
+    got = _emulate_tile(torch.from_numpy(a).to(tdt),
+                        torch.from_numpy(b).to(tdt), bk)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.numpy(), want, atol=tol * np.sqrt(k),
+                               rtol=tol)
+
+
+def test_tile_emulation_deep_contraction_beats_naive():
+    a, b = _deep_case()
+    got = _emulate_tile(torch.from_numpy(a), torch.from_numpy(b),
+                        128).numpy()
+    naive = (torch.from_numpy(a) @ torch.from_numpy(b)).numpy()
+    want = np.float64(a) @ np.float64(b)
+    err_k = np.abs(got - want).max()
+    err_n = np.abs(naive - want).max()
+    assert err_k <= err_n * 1.5 + 1e-6
+    assert err_k <= 1e-3 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 512, 128), (16, 256, 256)])
+@pytest.mark.parametrize("fmt_name", ["int8", "fp8"])
+@pytest.mark.parametrize("a_dtype", ["float32", "bfloat16"])
+def test_tile_emulation_q8(m, k, n, fmt_name, a_dtype):
+    a, w = _normal((m, k), 2), _normal((k, n), 3)
+    tqw, ts = tq.quantize_weight(torch.from_numpy(w),
+                                 tq.get_format(fmt_name), block_k=256)
+    ta = torch.from_numpy(a).to(getattr(torch, a_dtype))
+    got = _emulate_tile(ta, tqw, k // ts.shape[0], ts).numpy()
+    oracle = ta.double() @ tq.dequantize_weight(tqw, ts).double()
+    np.testing.assert_allclose(got, oracle.numpy(), atol=1e-4, rtol=1e-5)
+    if fmt_name == "int8" and a_dtype == "float32":
+        rqw, rs = rq.quantize_weight(jnp.asarray(w), block_k=256)
+        want = np.asarray(rops.q8_matmul(jnp.asarray(a), rqw, rs,
+                                         interpret=True))
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-5)
+
+
+def test_route_pick_and_passes():
+    assert pick_route(1) == pick_route(SPLIT_MAX_M) == "split"
+    assert pick_route(SPLIT_MAX_M + 1) == pick_route(2048) == "tile"
+    with pytest.raises(ValueError):         # route S holds M <= 64 rows
+        split_parts(torch.zeros(SPLIT_MAX_M + 1, 16), torch.zeros(16, 16), 16)
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert tensor_passes(f32, f32) == 6
+    assert tensor_passes(f32, torch.int8) == tensor_passes(bf16, f32) == 3
+    assert tensor_passes(bf16, bf16) == tensor_passes(bf16, torch.uint8) == 1
+
+
+# ------------------------------------------------------------- on the card --
+
+def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
     from repro_torch import device
     device.set_numerics()
-    for m, k, n, bm, bn, bk in GRID + [(8, 2816, 1024, 8, 256, 256)]:
+
+
+def _counted(name, fn):
+    before = tops.launches[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert tops.launches[name] == before + 1, name
+    return out
+
+
+def _route_counter(m, q8=False):
+    name = "kahan_matmul_q8" if q8 else "kahan_matmul"
+    return name + ("_split" if pick_route(m) == "split" else "")
+
+
+def test_cuda_kernel_matches_plain():
+    _card()
+    # M picks the route: 8 and 61 (eight row groups, the last ragged) on
+    # route S, 64 + 3, 2048 and GRID's on route T; bk = 24 is not a
+    # multiple of 16
+    cases = GRID + [(8, 2816, 1024, 8, 256, 256), (67, 120, 100, 67, 100, 24),
+                    (61, 120, 100, 61, 100, 24),
+                    (2048, 2816, 1024, 256, 256, 256)]
+    for m, k, n, bm, bn, bk in cases:
         for dt in (torch.float32, torch.bfloat16):
             a = torch.from_numpy(_normal((m, k), 8)).to(dt).cuda()
             b = torch.from_numpy(_normal((k, n), 9)).to(dt).cuda()
             kw = dict(block_m=bm, block_n=bn, block_k=bk)
-            before = tops.launches["kahan_matmul"]
-            got = kahan_matmul_cuda(a, b, **kw)
-            assert tops.launches["kahan_matmul"] == before + 1
             want = kahan_matmul_plain(a, b, **kw)
+            got = _counted(_route_counter(m),
+                           lambda: kahan_matmul_cuda(a, b, **kw))
             # both f32 with the same block folds; the block partials are
             # summed in other orders: the reference test's f32 tolerance
             torch.testing.assert_close(got, want, atol=1e-5 * k ** 0.5,
                                        rtol=1e-5)
-    a, b = (torch.from_numpy(x).cuda() for x in _deep_case())
-    got = kahan_matmul_cuda(a, b, block_m=8, block_n=8, block_k=128)
-    want = a.double() @ b.double()
-    naive = a @ b
-    assert (got.double() - want).abs().max() <= \
-        1.5 * (naive.double() - want).abs().max() + 1e-6
+    for m in (8, 72):                       # route S, route T
+        a, b = (torch.from_numpy(x).cuda() for x in _deep_case(m))
+        want = a.double() @ b.double()
+        naive = a @ b
+        got = _counted(_route_counter(m), lambda: kahan_matmul_cuda(
+            a, b, block_m=m, block_n=8, block_k=128))
+        assert (got.double() - want).abs().max() <= \
+            1.5 * (naive.double() - want).abs().max() + 1e-6
     for fmt in (tq.INT8, tq.FP8):
-        for m in (8, 64 + 3):
-            a = torch.from_numpy(_normal((m, 512), 10)).cuda()
-            qw, s = tq.quantize_weight(torch.from_numpy(_normal((512, 192),
-                                                                11)).cuda(),
-                                       fmt, block_k=128)
-            before = tops.launches["kahan_matmul_q8"]
-            got = kahan_matmul_q8_cuda(a, qw, s, block_m=m)
-            assert tops.launches["kahan_matmul_q8"] == before + 1
-            want = kahan_matmul_q8_plain(a, qw, s, block_m=m)
-            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+        for m, k, bk in ((8, 512, 128), (64 + 3, 512, 128), (2048, 512, 128),
+                         (67, 120, 24), (61, 120, 24)):
+            for adt in (torch.float32, torch.bfloat16):
+                a = torch.from_numpy(_normal((m, k), 10)).to(adt).cuda()
+                qw, s = tq.quantize_weight(torch.from_numpy(
+                    _normal((k, 192), 11)).cuda(), fmt, block_k=bk)
+                want = kahan_matmul_q8_plain(a, qw, s, block_m=m)
+                got = _counted(_route_counter(m, True),
+                               lambda: kahan_matmul_q8_cuda(a, qw, s,
+                                                            block_m=m))
+                torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+
+def test_cuda_split_route_is_the_serial_fold():
+    """Route S folds the same partials in block order: bitwise the serial
+    Neumaier fold of its own partials (not a combine of split pairs)."""
+    _card()
+    for m, k, n, bk, q8 in ((8, 2816, 1024, 256, False),
+                            (8, 2816, 1024, 256, True),
+                            (67 - 64, 120, 100, 24, False),
+                            (61, 120, 100, 24, True)):
+        a = torch.from_numpy(_normal((m, k), 12)).cuda()
+        if q8:
+            b, s = tq.quantize_weight(torch.from_numpy(
+                _normal((k, n), 13)).cuda(), tq.INT8, block_k=bk)
+        else:
+            b, s = torch.from_numpy(_normal((k, n), 13)).cuda(), None
+        out, ws = split_parts(a, b, bk, s)
+        assert ws.shape == (k // bk, m, n)
+        acc_s = torch.zeros((m, n), device="cuda")
+        acc_c = torch.zeros_like(acc_s)
+        for part in ws:
+            acc_s, acc_c = tkahan.neumaier_step(acc_s, acc_c, part)
+        assert torch.equal(out, acc_s + acc_c)

@@ -232,4 +232,6 @@ def test_public_surface():
     assert set(T.launches) == {"fused_reduce", "paged_attention",
                                "paged_latent_attention", "flash_attention",
                                "flash_attention_wgmma", "kahan_matmul",
-                               "kahan_matmul_q8", "kahan_acc"}
+                               "kahan_matmul_q8", "kahan_acc",
+                               "kahan_matmul_split",
+                               "kahan_matmul_q8_split"}

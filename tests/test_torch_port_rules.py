@@ -1,7 +1,8 @@
-"""Guards on the port's boundaries: ``repro_torch`` and ``chip_smoke.py``
-import neither JAX nor the reference package, the port's entry points
-(the numpy bridge included) run on the GPU unless the caller asks for
-the CPU, and the kernel entry points launch nothing on a CPU tensor."""
+"""Guards on the port's boundaries: ``repro_torch``, ``chip_smoke.py`` and
+the chip-side scripts under ``tools/`` import neither JAX nor the
+reference package, the port's entry points (the numpy bridge included)
+run on the GPU unless the caller asks for the CPU, and the kernel entry
+points launch nothing on a CPU tensor."""
 
 import ast
 from pathlib import Path
@@ -20,7 +21,7 @@ from repro_torch.serving.engine import DecodeEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
