@@ -33,10 +33,10 @@
 // traffic: 0.035 ms at the bf16 tensor-core rate, 0.020 ms for the
 // bytes (H100 SXM data sheet, 700 W power limit), so operations. This
 // kernel does the products on the CUDA cores from shared memory, far
-// from that rate. It is the route of f32 inputs (full f32 products: the
-// reference's f32 tolerance of 2e-5 rules out TF32) and of head dims
-// that are not multiples of 16; bf16 inputs with D and Dv multiples of 16
-// go to the tensor cores (flash_attention_wgmma.cu).
+// from that rate. It is the route of head dims that are not multiples of
+// 16, f32 or bf16; inputs whose D and Dv are multiples of 16 go to the
+// tensor cores (flash_attention_wgmma.cu: bf16, and f32 as exact bf16
+// planes, since the reference's f32 tolerance of 2e-5 rules out TF32).
 //
 // ptxas (sm_90a, -O3, CUDA 12.8): 64 / 78 / 128 registers for Dv up to
 // 32 / 64 / 128; no spills.

@@ -22,16 +22,10 @@
 //
 // Route T (tile), M > 64: wgmma on the bf16 tensor cores. There is no
 // f32 x f32 wgmma that keeps f32 accuracy (TF32 keeps 10 mantissa bits),
-// so each operand enters the tensor cores as bf16 PLANES that sum
-// exactly to it: a bf16 operand, an int8 payload (|q| <= 127: 7 bits)
-// and an e4m3 payload (3 mantissa bits, exponents inside bf16's) are
-// one plane; an f32 value x is three, hi = bf16_rn(x), mid = bf16_rn(x -
-// hi), lo = x - hi - mid, where both differences are exact in f32 and
-// lo is exactly a bf16 value, so hi + mid + lo == x. That holds for
-// every finite x with 2^-103 <= |x| < (2 - 2^-8) 2^127 (below, lo or
-// mid falls under bf16's normal range; above, hi rounds to inf) and
-// for x = 0; inf and NaN give NaN planes. Every bf16 x bf16 product is
-// exact in f32, so the products the kernel issues per k16 step are:
+// so each operand enters the tensor cores as exact bf16 PLANES
+// (wgmma_common.cuh: one plane for bf16 and 8-bit payloads, hi / mid /
+// lo for f32, hi + mid + lo == x). Every bf16 x bf16 product is exact in
+// f32, so the products the kernel issues per k16 step are:
 //   bf16 A, bf16 or 8-bit B: a.b (1 pass);
 //   f32 A with a one-plane B (or bf16 A with f32 B): lo.b, mid.b, hi.b
 //   (3 passes), every product of the exact split, nothing dropped;
@@ -39,16 +33,23 @@
 //   lo.hi, mid.mid, hi.lo, mid.hi, hi.mid, hi.hi (6 passes). The three
 //   dropped (mid.lo, lo.mid, lo.lo) are at most ~2^-24 of |a.b|
 //   together, under one f32 rounding of the product, so below the
-//   reference's own in-block rounding. The deep K = 2^14 case of the
-//   parity phase passes with this six-product form.
-// The tensor core's own f32 accumulation is not round-to-nearest, so
-// the products smaller than hi.hi go to a second accumulator ("small")
-// and hi.hi alone to the first ("big"): the big accumulator takes one
-// accumulation per k16 step, like a bf16 call, and the small one's
-// roundings sit 2^-8 below it. At each block end the partial is the
-// round-to-nearest big + small, times the scale (q8), then the fold;
-// the first product of the next block restarts each accumulator
-// (scale-d = 0).
+//   reference's own in-block rounding.
+// The tensor core's own f32 accumulation does not round to nearest, and
+// chained over a block its error grows with the chain. So with planes,
+// the products smaller than hi.hi go to a "small" accumulator, and hi.hi
+// to a "big" one that restarts (scale-d = 0) at every k16 step: each
+// step's hi.hi is added round-to-nearest (__fadd_rn) into the block's sum
+// in registers. At each block end the partial is that sum + small,
+// rounded to nearest, times the scale (q8), then the fold. On the deep
+// K = 2^14 case (kahan_matmul.deep_case(72), bk = 128) the max error was
+// 2.24x the reference's with hi.hi chained over the block (8 steps);
+// runs of 4, 2 and 1 steps gave 1.15x, 0.91x and 0.78x, at 1.01, 1.05
+// and 1.10 times the f32 time and 1.02, 1.10 and 1.22 times the f32 x
+// int8 time at the qwen1.5 down projection (tools/kahan_hi_run.py, which
+// patches the runs back into a copy of this file; one call, NVIDIA H100
+// 80GB HBM3, 700 W). Accuracy comes first: runs of one step.
+// One-plane operands (bf16 x bf16, bf16 x 8-bit) keep one accumulator
+// chained over the block, as a bf16 matmul does.
 //
 // Design of route T: one CTA per output tile of 128 rows, two consumer
 // warpgroups of 64 rows, A K-major and B MN-major (row-major [K, N])
@@ -114,9 +115,10 @@
 // 3.05 MB, 0.0009 ms at 3.35 TB/s.
 //
 // ptxas (sm_90a, -O3, CUDA 12.8), 25 kernels: route T 151-255 registers
-// (the bf16 TMA kernel 224), route S 80-91, the fold kernel 32; no stack
-// frame (so no spill) in any. chip_smoke.py's build phase reads them
-// from the built library (cuobjdump -res-usage) and fails on a spill.
+// (the bf16 TMA kernel 224; the plane kernels, with the run sum, 212-255),
+// route S 80-91, the fold kernel 32; no stack frame (so no spill) in any.
+// chip_smoke.py's build phase reads them from the built library
+// (cuobjdump -res-usage) and fails on a spill.
 
 #include <cuda.h>
 
@@ -132,16 +134,6 @@ constexpr int kAPlane = kTM * 128;       // 128 rows x 64 bf16: 16 KB
 constexpr int kBPlane = 64 * 128;        // 64 K rows x 64 bf16: 8 KB
 constexpr int kSN = 64;                  // route S: columns per CTA
 constexpr int kSM = 8;                   // route S: rows per CTA
-
-template <int T>
-__host__ __device__ constexpr int esize() {
-  return T == POOL_F32 ? 4 : T == POOL_BF16 ? 2 : 1;
-}
-
-template <int T>
-__host__ __device__ constexpr int planes() {
-  return T == POOL_F32 ? 3 : 1;
-}
 
 // BYTES (8, 16 or 32) bytes of elements of size E from element i0 of
 // `base`: the first n_ok elements, zeros past them. One or two vector
@@ -185,70 +177,6 @@ __device__ __forceinline__ void load_vec(uint32_t (&w)[BYTES / 4],
         v = reinterpret_cast<const unsigned char*>(p)[e];
       w[(e * E) / 4] |= v << (8 * ((e * E) % 4));
     }
-  }
-}
-
-// element e of a raw vector, widened to f32 (exact for every type)
-template <int T, int NW>
-__device__ __forceinline__ float widen(const uint32_t (&w)[NW], int e) {
-  if constexpr (T == POOL_F32) {
-    return __uint_as_float(w[e]);
-  } else if constexpr (T == POOL_BF16) {
-    return __uint_as_float(((w[e >> 1] >> (16 * (e & 1))) & 0xFFFFu) << 16);
-  } else {
-    const uint32_t u = (w[e >> 2] >> (8 * (e & 3))) & 0xFFu;
-    if constexpr (T == POOL_INT8)
-      return static_cast<float>(static_cast<int8_t>(u));
-    else
-      return e4m3_to_f32(static_cast<uint8_t>(u));
-  }
-}
-
-// hi, mid, lo bf16 planes of an f32 x: hi + mid + lo == x exactly (for
-// the range stated at the top of this file)
-__device__ __forceinline__ void split3(float x, float& hi, float& mid,
-                                       float& lo) {
-  hi = __bfloat162float(__float2bfloat16_rn(x));
-  const float r = __fsub_rn(x, hi);
-  mid = __bfloat162float(__float2bfloat16_rn(r));
-  lo = __fsub_rn(r, mid);
-}
-
-__device__ __forceinline__ void st_shared4(unsigned addr, uint32_t a,
-                                           uint32_t b, uint32_t c,
-                                           uint32_t d) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
-               "r"(a), "r"(b), "r"(c), "r"(d)
-               : "memory");
-}
-
-// 8 elements (raw words of type T) -> P bf16 planes, each one 16-byte
-// chunk stored at addr + p * plane_bytes
-template <int T>
-__device__ __forceinline__ void store_planes(
-    const uint32_t (&w)[2 * esize<T>()], unsigned addr, int plane_bytes) {
-  if constexpr (T == POOL_BF16) {
-    st_shared4(addr, w[0], w[1], w[2], w[3]);
-  } else if constexpr (T == POOL_F32) {
-    uint32_t h[4], m[4], l[4];
-#pragma unroll
-    for (int e = 0; e < 8; e += 2) {
-      float h0, m0, l0, h1, m1, l1;
-      split3(__uint_as_float(w[e]), h0, m0, l0);
-      split3(__uint_as_float(w[e + 1]), h1, m1, l1);
-      h[e / 2] = pack_bf16(h0, h1);
-      m[e / 2] = pack_bf16(m0, m1);
-      l[e / 2] = pack_bf16(l0, l1);
-    }
-    st_shared4(addr, h[0], h[1], h[2], h[3]);
-    st_shared4(addr + plane_bytes, m[0], m[1], m[2], m[3]);
-    st_shared4(addr + 2 * plane_bytes, l[0], l[1], l[2], l[3]);
-  } else {
-    uint32_t o[4];
-#pragma unroll
-    for (int e = 0; e < 8; e += 2)
-      o[e / 2] = pack_bf16(widen<T>(w, e), widen<T>(w, e + 1));
-    st_shared4(addr, o[0], o[1], o[2], o[3]);
   }
 }
 
@@ -412,7 +340,10 @@ kahan_matmul_tile_kernel(const void* __restrict__ a,
   const int steps = g.nk * spb;
   const int nstages = (steps + kKS - 1) / kKS;
 
+  static_assert(!kTwoAcc || NB == 1, "planes only on the 64-wide tiles");
   float big[NB][32], small[NB][32], s[NB][32], c[NB][32];
+  // kTwoAcc: the block's round-to-nearest sum of its steps' hi.hi
+  float hs[32];
   float* const c_smem = reinterpret_cast<float*>(
       smem_raw + (base - smem_u32(smem_raw)) + C::kCarryOffset);
 #pragma unroll
@@ -423,6 +354,8 @@ kahan_matmul_tile_kernel(const void* __restrict__ a,
       if constexpr (C::kCarrySmem)
         c_smem[(nb * 32 + i) * kThreads + tid] = 0.0f;
     }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) hs[i] = 0.0f;
   // the carry of output (nb, i) of this thread
   auto carry = [&](int nb, int i) -> float& {
     if constexpr (C::kCarrySmem)
@@ -439,12 +372,22 @@ kahan_matmul_tile_kernel(const void* __restrict__ a,
       if (kTwoAcc) fence_regs(small[nb]);
     }
   };
+  // with planes: a k16 step's hi.hi (a fresh tensor-core sum) joins the
+  // block's sum, round-to-nearest
+  auto add_hi = [&]() {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) hs[i] = __fadd_rn(hs[i], big[0][i]);
+  };
   auto fold = [&](int blk) {
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
-        float x = kTwoAcc ? __fadd_rn(big[nb][i], small[nb][i]) : big[nb][i];
+        float x = big[nb][i];
+        if constexpr (kTwoAcc) {
+          x = __fadd_rn(hs[i], small[nb][i]);
+          hs[i] = 0.0f;
+        }
         if constexpr (kScaled) {
           const int col = g.col0 + 64 * nb + 8 * (i >> 2) + c_lane + (i & 1);
           x = __fmul_rn(x, col < n ? scales[static_cast<long long>(blk) * n +
@@ -458,8 +401,8 @@ kahan_matmul_tile_kernel(const void* __restrict__ a,
   };
 
   // the k16 steps of the next stage from the planes at shared address
-  // pb; returns the block whose fold waits for the stage's last
-  // products (-1 if none)
+  // pb; returns the block whose fold waits for the stage's last products
+  // (-1 if none). With planes, the last step's hi.hi waits too.
   int step = 0, blk = 0, sib = 0;
   auto compute = [&](unsigned pb) -> int {
     int pending = -1;
@@ -496,21 +439,25 @@ kahan_matmul_tile_kernel(const void* __restrict__ a,
         if constexpr (NB == 2)
           wgmma_ss_tb_n128(big[0], big[NB - 1], da[0], db[0], acc);
         else
-          wgmma_ss_tb(big[0], da[0], db[0], acc);
+          // with planes hi.hi restarts (scale-d 0) at every step; else
+          // it chains over the block
+          wgmma_ss_tb(big[0], da[0], db[0], kTwoAcc ? 0 : acc);
         ++step;
-        if (++sib == spb) {              // the block ends on this step
-          sib = 0;
+        const bool blk_end = ++sib == spb;
+        if (blk_end) sib = 0;
+        if (kTwoAcc || blk_end) {
           if (kk + 1 < kKS && step < steps) {
             wgmma_commit();
             wgmma_wait0();
             fence_acc();
-            fold(blk);
+            if (kTwoAcc) add_hi();
+            if (blk_end) fold(blk);
             fence_acc();
             wgmma_fence();
-          } else {
+          } else if (blk_end) {
             pending = blk;
           }
-          ++blk;
+          if (blk_end) ++blk;
         }
       }
     }
@@ -520,6 +467,7 @@ kahan_matmul_tile_kernel(const void* __restrict__ a,
   auto finish = [&](int pending) {
     wgmma_wait0();
     fence_acc();
+    if (kTwoAcc) add_hi();
     if (pending >= 0) fold(pending);
   };
 
@@ -558,12 +506,13 @@ kahan_matmul_tile_kernel(const void* __restrict__ a,
       __syncthreads();          // every product of t - 2 is done
       const int pending = compute(base + (t % kStages) * C::kPlanes);
       if (tid == 0 && t + kStages - 2 < nstages) issue(t + kStages - 2);
-      if (pending >= 0)
+      if (kTwoAcc || pending >= 0)
         finish(pending);
       else
         wgmma_wait1();
     }
-    finish(-1);
+    wgmma_wait0();
+    fence_acc();
   } else if constexpr (S == STAGE_RAW) {
     // raw tiles by TMA (A 128 x 64, B 64 x 64 elements, row-major, zero
     // past M and N) three stages deep; every thread splits / widens its

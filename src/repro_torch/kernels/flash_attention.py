@@ -11,11 +11,12 @@ Lk never contribute), masked p is multiplied to 0, and the output is
 
 * ``flash_attention_plain`` walks the reference's (qc, kc) blocks in
   order, one online-softmax step per key block.
-* ``flash_attention_cuda`` launches one of two kernels, by ``route``:
-  bf16 inputs whose D and Dv are multiples of 16 up to 128 go to
-  ``csrc/flash_attention_wgmma.cu`` (wgmma on the tensor cores, p
-  rounded to bf16 for the P V product), everything else to
-  ``csrc/flash_attention.cu`` (CUDA cores, f32 products). Both tile by
+* ``flash_attention_cuda`` launches one of three kernels, by ``route``:
+  inputs whose D and Dv are multiples of 16 up to 128 go to
+  ``csrc/flash_attention_wgmma.cu`` (wgmma on the tensor cores): bf16
+  with p rounded to bf16 for the P V product, f32 with every operand as
+  exact bf16 planes and six plane products per product; other head dims
+  to ``csrc/flash_attention.cu`` (CUDA cores, f32 products). All tile by
   their own sizes (design and bound in those files), so they agree with
   the twin at a tolerance, not bitwise.
 * ``flash_attention`` dispatches on q's device.
@@ -120,12 +121,17 @@ def _lib():
 def _wgmma_lib():
     lib = _build.load("flash_attention_wgmma")
     if not getattr(lib, "_typed", False):
-        fn = lib.repro_flash_attention_wgmma
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.repro_flash_attention_wgmma_smem.argtypes = [ctypes.c_int] * 2
-        lib.repro_flash_attention_wgmma_smem.restype = ctypes.c_longlong
+        for fn in (lib.repro_flash_attention_wgmma,
+                   lib.repro_flash_attention_wgmma_f32):
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        for fn in (lib.repro_flash_attention_wgmma_smem,
+                   lib.repro_flash_attention_wgmma_f32_smem):
+            fn.argtypes = [ctypes.c_int] * 2
+            fn.restype = ctypes.c_longlong
+        lib.repro_flash_attention_wgmma_f32_rows.argtypes = [ctypes.c_int]
+        lib.repro_flash_attention_wgmma_f32_rows.restype = ctypes.c_int
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -133,17 +139,19 @@ def _wgmma_lib():
 
 
 def route(q, k, v) -> str:
-    """The kernel a CUDA call takes, by dtype and head dims alone:
-    ``flash_attention_wgmma`` (``csrc/flash_attention_wgmma.cu``, the
-    tensor cores) for bf16 inputs whose D and Dv are multiples of 16 up to
-    128, else ``flash_attention`` (``csrc/flash_attention.cu``, the CUDA
-    cores, full f32 products). Both count their launches under their own
-    name in ``_build.launches``."""
+    """The kernel a CUDA call takes, by dtype and head dims alone: where D
+    and Dv are multiples of 16 up to 128, the tensor cores
+    (``csrc/flash_attention_wgmma.cu``): ``flash_attention_wgmma`` for
+    bf16, ``flash_attention_wgmma_f32`` for f32 (exact bf16 planes); else
+    ``flash_attention`` (``csrc/flash_attention.cu``, the CUDA cores, full
+    f32 products). Each counts its launches under its own name in
+    ``_build.launches``."""
     *_, d, dv = _check(q, k, v)
-    if (q.dtype == torch.bfloat16 and k.dtype == v.dtype == q.dtype
+    if (q.dtype in _IO_TYPES and k.dtype == v.dtype == q.dtype
             and d % 16 == 0 and dv % 16 == 0 and d <= MAX_HEAD_DIM
             and dv <= MAX_HEAD_DIM):
-        return "flash_attention_wgmma"
+        return ("flash_attention_wgmma" if q.dtype == torch.bfloat16
+                else "flash_attention_wgmma_f32")
     return "flash_attention"
 
 
@@ -165,15 +173,20 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, q_block: int = 256,
         raise ValueError(f"head dims up to {MAX_HEAD_DIM}, got D={d}, "
                          f"Dv={dv}")
     name = route(q, k, v)
-    wgmma = name == "flash_attention_wgmma"
+    wgmma = name != "flash_attention"
     if wgmma:
         if any(t.data_ptr() % 16 for t in (q, k, v)):
             raise ValueError("the tensor-core route reads 16-byte rows: q / "
                              "k / v must start 16-byte aligned")
-        if -(-lq // WGMMA_ROWS) > 65535:
-            raise ValueError(f"Lq={lq} exceeds the grid's 65535 query tiles")
         lib = _wgmma_lib()
-        smem = lib.repro_flash_attention_wgmma_smem(d, dv)
+        if name == "flash_attention_wgmma":
+            rows = WGMMA_ROWS
+            smem = lib.repro_flash_attention_wgmma_smem(d, dv)
+        else:
+            rows = lib.repro_flash_attention_wgmma_f32_rows(d)
+            smem = lib.repro_flash_attention_wgmma_f32_smem(d, dv)
+        if -(-lq // rows) > 65535:
+            raise ValueError(f"Lq={lq} exceeds the grid's 65535 query tiles")
     else:
         if bh > 65535:
             raise ValueError(f"BH={bh} exceeds the grid's 65535")
@@ -186,8 +199,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, q_block: int = 256,
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     if wgmma:
-        err = lib.repro_flash_attention_wgmma(
-            *ptrs, bh, lq, lk, d, dv, float(d ** -0.5), int(causal), stream)
+        fn = (lib.repro_flash_attention_wgmma if name == "flash_attention_wgmma"
+              else lib.repro_flash_attention_wgmma_f32)
+        err = fn(*ptrs, bh, lq, lk, d, dv, float(d ** -0.5), int(causal),
+                 stream)
     else:
         err = lib.repro_flash_attention(
             *ptrs, bh, lq, lk, d, dv, float(d ** -0.5), int(causal),

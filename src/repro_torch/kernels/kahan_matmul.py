@@ -241,3 +241,37 @@ def flops(m: int, n: int, k: int, bk: int, scaled: bool = False) -> tuple:
 def bytes_moved(*tensors, out_elems: int) -> int:
     """Least HBM traffic: every input once, the f32 output once."""
     return sum(t.numel() * t.element_size() for t in tensors) + 4 * out_elems
+
+
+# ------------------------------------------- the deep accuracy case -------
+
+def deep_case(m: int = 8):
+    """An ill-conditioned contraction deep in K (numpy f32 A [m, 2^14], B
+    [2^14, 8], magnitudes 1e-3..1e3 per K index, seed 1): the case that
+    holds route T's compensation to the reference's at bk = 128."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    n, k = 8, 1 << 14
+    scales = 10.0 ** rng.integers(-3, 4, (1, k))
+    a = (rng.standard_normal((m, k)) * scales).astype(np.float32)
+    b = (rng.standard_normal((k, n)) * scales.T).astype(np.float32)
+    return a, b
+
+
+# max |C - exact| of the reference ``repro.kernels.kahan_matmul.kahan_matmul
+# (..., block_m=M, block_n=8, block_k=128, interpret=True)`` on
+# ``deep_case(M)``, measured on the CPU (XLA) and pinned by
+# tests/test_torch_kahan_matmul.py::test_reference_deep_error_is_pinned;
+# the card cannot run the reference, so its checks read these
+DEEP_CASE_REFERENCE_ERR = {8: 11.246876902878284, 72: 14.656442247331142}
+
+# the same for f32 A against ``deep_case(M)``'s B quantized per 128-row K
+# block (``quant.core.quantize_weight``), |C - A @ dequant(B)|: the
+# reference ``kahan_matmul_q8(..., block_m=M, block_n=8, interpret=True)``
+# (an fp8 payload passed as float8_e4m3fn, which it widens as e4m3),
+# pinned by
+# tests/test_torch_kahan_matmul.py::test_reference_deep_q8_error_is_pinned
+DEEP_CASE_Q8_REFERENCE_ERR = {("int8", 8): 10.809860930778086,
+                              ("fp8", 8): 10.453886933624744,
+                              ("int8", 72): 12.10521353292279,
+                              ("fp8", 72): 20.533587262034416}

@@ -30,7 +30,12 @@ the c_kv latent itself. q_lat [B, W, H, C]; q_rope [B, W, H, R]; pools
 [nb, bs, C] / [nb, bs, R]; per-token scales [nb, bs]; the output is the
 f32 context latent [B, W, H, C]. ``paged_latent_attention_plain`` is the
 block-by-block twin, ``paged_latent_attention_cuda`` launches
-``csrc/paged_latent_attention.cu``.
+``csrc/paged_latent_attention.cu``: a split kernel on the tensor cores over
+fixed partitions of table slots (q, p and f32 pools as exact bf16 planes)
+and a merge kernel that folds the partitions in index order, a chunk of
+partitions at a time, through an f32 scratch whose size the library
+gives (one chunk's partitions: it does not grow with the context); one
+call counts one ``paged_latent_attention`` launch.
 """
 
 from __future__ import annotations
@@ -297,16 +302,30 @@ def _latent_lib():
     lib = _build.load("paged_latent_attention")
     if not getattr(lib, "_typed", False):
         fn = lib.repro_paged_latent_attention
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                        + [ctypes.c_float] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.repro_paged_latent_attention_smem.argtypes = [ctypes.c_int] * 3
+        lib.repro_paged_latent_attention_smem.argtypes = [ctypes.c_int] * 4
         lib.repro_paged_latent_attention_smem.restype = ctypes.c_longlong
+        lib.repro_paged_latent_attention_scratch.argtypes = [ctypes.c_int] * 4
+        lib.repro_paged_latent_attention_scratch.restype = ctypes.c_longlong
+        for name in ("slots", "chunk"):
+            fn = getattr(lib, f"repro_paged_latent_attention_{name}")
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def latent_scratch_floats(b: int, rows: int, c: int, mb: int) -> int:
+    """f32 scratch of one latent call, from the library: per sequence the
+    (m, l_sum, l_carry) per row and (acc_sum, acc_carry) per output element
+    of one chunk's partitions, and past one chunk the state of the chunks
+    before."""
+    return _latent_lib().repro_paged_latent_attention_scratch(b, rows, c, mb)
 
 
 def paged_latent_attention_cuda(q_lat, q_rope, ck_pool, kr_pool, block_table,
@@ -344,21 +363,32 @@ def paged_latent_attention_cuda(q_lat, q_rope, ck_pool, kr_pool, block_table,
         _need(ck_scale.dtype == kr_scale.dtype == torch.float32,
               "scales must be f32")
         _need(ck_scale.shape == kr_scale.shape == (nb, bs), "scale shapes")
+    _need(all(t.data_ptr() % 16 == 0 for t in (q_lat, q_rope, ck_pool,
+                                               kr_pool)),
+          "queries and pools must start 16-byte aligned")
+    _need(w * h <= 65535, f"W * H = {w * h} rows exceed the grid's 65535")
     lib = _latent_lib()
-    smem = lib.repro_paged_latent_attention_smem(c, r, bs)
+    smem = lib.repro_paged_latent_attention_smem(
+        c, r, _POOL_TYPES[ck_pool.dtype], bs)
+    _need(smem > 0, f"the kernel takes C and R multiples of 8 up to 512 / "
+          f"64 and a block whose tokens, padded to 16, fit the keys it holds "
+          f"at once (64 for a one-plane pool, 16 for f32); got C={c}, R={r}, "
+          f"bs={bs}, a {ck_pool.dtype} pool")
     if smem > _SMEM_LIMIT:
         raise ValueError(f"paged_latent_attention_cuda needs {smem} B of "
-                         f"shared memory for C={c}, R={r}, bs={bs}; the "
-                         f"limit is {_SMEM_LIMIT} B")
+                         f"shared memory for C={c}, R={r}; the limit is "
+                         f"{_SMEM_LIMIT} B")
     out = torch.empty((b, w, h, c), dtype=torch.float32, device=dev)
+    part = torch.empty(latent_scratch_floats(b, w * h, c, mb),
+                       dtype=torch.float32, device=dev)
     err = lib.repro_paged_latent_attention(
         q_lat.data_ptr(), q_rope.data_ptr(), ck_pool.data_ptr(),
         kr_pool.data_ptr(), ck_scale.data_ptr() if quant else None,
         kr_scale.data_ptr() if quant else None, block_table.data_ptr(),
-        lens.data_ptr(), q_offsets.data_ptr(), out.data_ptr(), b, w, h, c, r,
-        bs, mb, float(scale), _POOL_TYPES[ck_pool.dtype],
-        _IO_TYPES[q_lat.dtype], _IO_TYPES[q_rope.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+        lens.data_ptr(), q_offsets.data_ptr(), out.data_ptr(),
+        part.data_ptr(), b, w, h, c, r, bs, mb, float(scale),
+        _POOL_TYPES[ck_pool.dtype], _IO_TYPES[q_lat.dtype],
+        _IO_TYPES[q_rope.dtype], torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("paged_latent_attention kernel launch failed: "
                            + lib.repro_error_string(err).decode())
@@ -391,3 +421,22 @@ def latent_flops(q_lat, q_rope, q_offsets) -> int:
     keys = int((q_offsets.to(torch.int64) + 1).sum()) * w \
         + b * w * (w - 1) // 2
     return keys * h * (2 * (c + r) + 2 * c)
+
+
+def latent_tensor_flops(q_lat, q_rope, ck_pool, q_offsets) -> int:
+    """Tensor-core flops the split kernel's products need for the data:
+    each row against each key it sees, 2 C per bf16 pass of the latent
+    score and of P V and 2 R per pass of the rope score. Passes are the
+    plane products a query (or p, f32) makes with the pool: 1 for bf16
+    against a one-plane pool (bf16, int8, fp8), 3 for f32 against one, 6
+    for f32 against an f32 pool."""
+    def passes(a_dtype):
+        pa_, pb_ = (3 if dt == torch.float32 else 1
+                    for dt in (a_dtype, ck_pool.dtype))
+        return 6 if pa_ == pb_ == 3 else pa_ * pb_
+    b, w, h, c = q_lat.shape
+    r = q_rope.shape[-1]
+    keys = int((q_offsets.to(torch.int64) + 1).sum()) * w \
+        + b * w * (w - 1) // 2
+    return keys * h * (2 * c * (passes(q_lat.dtype) + passes(torch.float32))
+                       + 2 * r * passes(q_rope.dtype))

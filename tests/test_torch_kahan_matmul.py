@@ -22,13 +22,15 @@ import numpy as np  # noqa: E402
 
 from repro.kernels import ops as rops  # noqa: E402
 from repro.kernels.kahan_matmul import kahan_matmul as rkm  # noqa: E402
+from repro.kernels.kahan_matmul import kahan_matmul_q8 as rkm_q8  # noqa: E402
 from repro.quant import core as rq  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.core import kahan as tkahan  # noqa: E402
 from repro_torch.kernels.kahan_matmul import (  # noqa: E402
-    SPLIT_MAX_M, kahan_matmul, kahan_matmul_cuda, kahan_matmul_plain,
-    kahan_matmul_q8_cuda, kahan_matmul_q8_plain, pick_route, split_parts,
-    tensor_passes)
+    DEEP_CASE_Q8_REFERENCE_ERR, DEEP_CASE_REFERENCE_ERR, SPLIT_MAX_M,
+    deep_case, kahan_matmul,
+    kahan_matmul_cuda, kahan_matmul_plain, kahan_matmul_q8_cuda,
+    kahan_matmul_q8_plain, pick_route, split_parts, tensor_passes)
 from repro_torch.quant import core as tq  # noqa: E402
 
 GRID = [(128, 256, 128, 128, 128, 128), (256, 1024, 128, 128, 128, 256),
@@ -60,14 +62,61 @@ def test_twin_matches_reference(m, k, n, bm, bn, bk, dtype):
                                rtol=tol)
 
 
-def _deep_case(m=8):
-    rng = np.random.default_rng(1)
-    n = 8
-    k = 1 << 14
-    scales = 10.0 ** rng.integers(-3, 4, (1, k))
-    a = (rng.standard_normal((m, k)) * scales).astype(np.float32)
-    b = (rng.standard_normal((k, n)) * scales.T).astype(np.float32)
-    return a, b
+_deep_case = deep_case
+
+
+@pytest.mark.parametrize("m", sorted(DEEP_CASE_REFERENCE_ERR))
+def test_reference_deep_error_is_pinned(m):
+    """The reference's own error on the deep case at bk = 128, which the
+    card-side checks hold route T (M = 72) and route S (M = 8) to, since
+    the card cannot run the reference: pinned here with the twin's and the
+    route T emulation's, both within 2x of it, and naive f32's, at least
+    2x it."""
+    a, b = _deep_case(m)
+    exact = np.float64(a) @ np.float64(b)
+    ref = np.asarray(rkm(jnp.asarray(a), jnp.asarray(b), block_m=m,
+                         block_n=8, block_k=128, interpret=True))
+    err_r = np.abs(ref - exact).max()
+    assert abs(err_r - DEEP_CASE_REFERENCE_ERR[m]) <= \
+        1e-3 * DEEP_CASE_REFERENCE_ERR[m]
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    naive = np.abs((ta @ tb).numpy() - exact).max()
+    assert naive >= 2 * err_r
+    twin = kahan_matmul_plain(ta, tb, block_m=m, block_n=8,
+                              block_k=128).numpy()
+    emul = _emulate_tile(ta, tb, 128).numpy()
+    assert np.abs(twin - exact).max() <= 2 * err_r
+    assert np.abs(emul - exact).max() <= 2 * err_r
+
+
+@pytest.mark.parametrize("fmt_name,m", sorted(DEEP_CASE_Q8_REFERENCE_ERR))
+def test_reference_deep_q8_error_is_pinned(fmt_name, m):
+    """The reference q8 kernel's own error on the deep case with B
+    quantized per 128-row block (f32 x 8-bit: route T's three plane
+    products), pinned for the card-side measurements, with the twin's and
+    the route T emulation's within 2x of it and naive f32's at least 2x
+    it. The fp8 payload goes to the reference as float8_e4m3fn, which it
+    widens as e4m3."""
+    ml_dtypes = pytest.importorskip("ml_dtypes")
+    a, b = _deep_case(m)
+    qw, s = tq.quantize_weight(torch.from_numpy(b), tq.get_format(fmt_name),
+                               block_k=128)
+    deq = tq.dequantize_weight(qw, s)
+    exact = np.float64(a) @ deq.double().numpy()
+    payload = qw.numpy() if fmt_name == "int8" else \
+        qw.numpy().view(ml_dtypes.float8_e4m3fn)
+    ref = np.asarray(rkm_q8(jnp.asarray(a), jnp.asarray(payload),
+                            jnp.asarray(s.numpy()), block_m=m, block_n=8,
+                            interpret=True))
+    err_r = np.abs(ref - exact).max()
+    pinned = DEEP_CASE_Q8_REFERENCE_ERR[(fmt_name, m)]
+    assert abs(err_r - pinned) <= 1e-3 * pinned
+    ta = torch.from_numpy(a)
+    assert np.abs((ta @ deq).numpy() - exact).max() >= 2 * err_r
+    twin = kahan_matmul_q8_plain(ta, qw, s, block_m=m, block_n=8).numpy()
+    emul = _emulate_tile(ta, qw, 128, s).numpy()
+    assert np.abs(twin - exact).max() <= 2 * err_r
+    assert np.abs(emul - exact).max() <= 2 * err_r
 
 
 def test_deep_contraction_beats_naive():
@@ -344,8 +393,10 @@ def test_cuda_kernel_matches_plain():
         naive = a @ b
         got = _counted(_route_counter(m), lambda: kahan_matmul_cuda(
             a, b, block_m=m, block_n=8, block_k=128))
-        assert (got.double() - want).abs().max() <= \
-            1.5 * (naive.double() - want).abs().max() + 1e-6
+        err = (got.double() - want).abs().max()
+        assert err <= 1.5 * (naive.double() - want).abs().max() + 1e-6
+        # and within 2x of the reference's own error on these inputs
+        assert err <= 2 * DEEP_CASE_REFERENCE_ERR[m]
     for fmt in (tq.INT8, tq.FP8):
         for m, k, bk in ((8, 512, 128), (64 + 3, 512, 128), (2048, 512, 128),
                          (67, 120, 24), (61, 120, 24)):

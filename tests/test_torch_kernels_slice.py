@@ -231,7 +231,8 @@ def test_public_surface():
         assert callable(getattr(T, name)), name
     assert set(T.launches) == {"fused_reduce", "paged_attention",
                                "paged_latent_attention", "flash_attention",
-                               "flash_attention_wgmma", "kahan_matmul",
+                               "flash_attention_wgmma",
+                               "flash_attention_wgmma_f32", "kahan_matmul",
                                "kahan_matmul_q8", "kahan_acc",
                                "kahan_matmul_split",
                                "kahan_matmul_q8_split"}
