@@ -15,22 +15,26 @@ Phases (each prints its own lines; any failure exits non-zero):
              with the tolerance and its reason: the GQA attention kernel
              and the MLA latent attention kernel (every pool format, W in
              {1, 5}, partition-edge lengths; width, batch and table-width
-             invariance bitwise), the reduction at main-path shapes; the
+             invariance bitwise), the reduction at main-path shapes (and
+             its own guarantees: each row bitwise its B = 1 call, two
+             calls bitwise equal, the arrival counters zero after); the
              compensated accumulate (bitwise), the compensated matmul and
              its int8 / fp8 form on both routes (tile, wgmma; split over
              K blocks where M <= 64) for every dtype pair, plus an
              ill-conditioned K = 2^14 case against an f64 product on each
              route, within 1.5x naive f32's error and 2x the reference's
              own (pinned by the CPU tests); and flash attention on its
-             three routes (bf16 and f32 on the tensor cores, other head
-             dims on the CUDA cores; causal or not, ragged lengths,
-             one-row and one-key calls);
+             two routes (bf16 and f32 on the tensor cores) at head dims
+             from 8 to 128, multiples of 16 or not (causal or not, ragged
+             lengths, one-row and one-key calls);
 4. path    — the kernel entry points of ``repro_torch.kernels`` at
              qwen1.5-0.5b's full widths, each with its launch counters
              zeroed just before and read just after: flash attention of
-             four 2048-token prompts ([64, 2048, 64] causal, bf16 and f32
-             on the tensor cores, and f32 at a head dim of 40 on the
-             CUDA cores), the down projection with compensated K
+             four 2048-token prompts ([64, 2048, 64] causal, and at a
+             head dim of 40, bf16 and f32 on the tensor cores), the
+             paper's scalar products on 2^24 pairs through
+             ``ops.kahan_dot`` / ``kahan_sum`` / ``naive_dot`` and the
+             blocked shims, the down projection with compensated K
              accumulation (f32 and bf16, M = 2048 on the tile route and
              M = 8 on the split route), int8 / fp8 MLP weights at M = 8
              (split) and 2048 (tile), and 4 microbatches of gradients
@@ -42,7 +46,8 @@ Phases (each prints its own lines; any failure exits non-zero):
              the plain twin, beside the least time the card could take
              (HBM 3.35 TB/s, f32 CUDA-core 67 TFLOP/s, bf16 tensor
              cores 989 TFLOP/s; H100 SXM data sheet); a row whose
-             profiler window shows none of its kernels fails;
+             profiler window shows none of its kernels fails, and so does
+             a fused_reduce call that launches more than one kernel;
 6. small   — reduced qwen1.5 and reduced deepseek-v2 served on the card
              and on the CPU (plain twins) from the same weights: logits
              agree;
@@ -53,7 +58,8 @@ Phases (each prints its own lines; any failure exits non-zero):
              seeded weights, 8 slots, 16 requests of 64-512 prompt tokens,
              32 new tokens each; the counters must match the decode-step
              count; then a profiled decode window of each, used only when
-             it holds every paged-attention launch it should.
+             it holds every paged-attention launch it should and one
+             fused_reduce kernel per reduction call.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``. Imports nothing of ``jax`` or of the
@@ -614,35 +620,21 @@ def phase_latent_parity(dev) -> float:
 
 # the (rows, vocab) shapes the two served paths hand the reduction: an
 # 8-slot decode step and a request's first token, at qwen1.5's and
-# deepseek-v2's vocab widths. The split geometry follows N: 151936 gives
-# 38 splits of 4000 with a ragged last one, 102400 gives 25 of 4096 and
-# no tail.
+# deepseek-v2's vocab widths. The split geometry follows N alone: 151936
+# gives 38 splits of 4096 with a ragged last one, 102400 gives 25 of 4096
+# and no tail.
 REDUCE_SHAPES = ((8, 151936), (1, 151936), (8, 102400), (1, 102400))
 
 
 def phase_reduce_parity(dev) -> float:
     import torch
-    from repro_torch.kernels import engine
-    eps = 2.0 ** -24
     g = torch.Generator(device=dev).manual_seed(2)
     worst = 0.0
     for rows, n in REDUCE_SHAPES:
         worst = max(worst, reduce_rows_parity(dev, g, rows, n),
                     ill_conditioned_reduce(dev, g, rows, n))
-    # the flat form: one compensated dot of 2^24 pairs against fp64
-    n = 1 << 24
-    a = torch.randn(n, generator=g, device=dev)
-    b = torch.randn(n, generator=g, device=dev)
-    (dot,) = engine.fused_reduce_flat((a, b), outputs=("dot",))
-    exact = float((a.double() * b.double()).sum())
-    terms = float((a.double() * b.double()).abs().sum())
-    tol = 2 * eps * 2 * abs(exact) + 8 * eps ** 2 * terms
-    ok = abs(float(dot) - exact) <= tol
-    log(f"[parity] fused_reduce_flat dot n=2^24: |kernel-fp64| "
-        f"{abs(float(dot) - exact):.3g} (tol 2 ulp + 8 eps^2 sum|xy| = "
-        f"{tol:.3g}): {ok}")
-    if not ok:
-        fail("fused_reduce_flat dot")
+    reduce_invariance(dev, g)
+    # the flat form (B2f) is checked on the path, by phase_flat_path
     return worst
 
 
@@ -680,7 +672,7 @@ def reduce_rows_parity(dev, g, rows: int, n: int) -> float:
             else:
                 # naive f32 sums: error <= depth * eps * sum|x|, depth =
                 # sequential adds per thread + the tree levels
-                nsplit, seg = engine.splits(rows, n)
+                nsplit, seg = engine.splits(n)
                 depth = seg / 256 + 8 + nsplit.bit_length() + 8
                 tol = depth * eps * terms.sum(1)
                 why = f"{depth:.0f} eps sum|x| (naive: summation depth)"
@@ -695,6 +687,43 @@ def reduce_rows_parity(dev, g, rows: int, n: int) -> float:
             if not ok:
                 fail(f"fused_reduce [{rows},{n}] {o} compensated={comp}")
     return worst
+
+
+def reduce_invariance(dev, g) -> None:
+    """The one-launch kernel's own guarantees, each fatal if broken: row i
+    of a B = 8 call is bitwise a B = 1 call on that row (the splits depend
+    on N alone), two calls give the same bits (the last CTA folds the
+    partials in a fixed order, whichever arrives last), and the arrival
+    counters read zero after every call."""
+    import torch
+    from repro_torch.kernels import engine
+    n = 151936
+    x = (torch.randn((8, n), generator=g, device=dev) * 4.0 + 1.0)
+    y = torch.randn((8, n), generator=g, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for outs, comp in ((("max", "sum", "sumsq"), True), (("dot",), True),
+                       (("sum", "maxabs"), False)):
+        ops = (x, y) if "dot" in outs else (x,)
+        first = engine.fused_reduce_rows_cuda(ops, outputs=outs,
+                                              compensated=comp)
+        again = engine.fused_reduce_rows_cuda(ops, outputs=outs,
+                                              compensated=comp)
+        rows = [engine.fused_reduce_rows_cuda(
+            tuple(op[i:i + 1] for op in ops), outputs=outs, compensated=comp)
+            for i in range(8)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
+        by_row = all(torch.equal(a[i:i + 1], r[k])
+                     for i, r in enumerate(rows)
+                     for k, a in enumerate(first))
+        counters = int(engine._COUNTERS[(x.device.index, stream)]
+                       .count_nonzero())
+        log(f"[parity] fused_reduce [8,{n}] {outs} compensated={comp}: two "
+            f"calls bitwise equal {same}; each row bitwise its B = 1 call "
+            f"{by_row}; arrival counters non-zero after the calls: "
+            f"{counters}")
+        if not (same and by_row and counters == 0):
+            fail(f"fused_reduce invariance {outs} compensated={comp}")
 
 
 def ill_conditioned_reduce(dev, g, rows: int, n: int) -> float:
@@ -814,22 +843,31 @@ def phase_times(dev):
         f"split + merge (library: SDPA on gathered rows)", plain_reps=5)
     # fused reduce at the decode step's first call: [8, 151936] f32,
     # (max, sum, sumsq); no single PyTorch call computes the compensated
-    # fused statistics
+    # fused statistics. One call must launch exactly one kernel.
     g = torch.Generator(device=dev).manual_seed(3)
     lg = torch.randn((8, 151936), generator=g, device=dev)
     outs = ("max", "sum", "sumsq")
+    b2 = lambda: engine.fused_reduce_rows_cuda((lg,), outputs=outs)  # noqa: E731
+    for _ in range(PROFILE_TRIES):      # a window may lose its events
+        one = _launches(b2, None, 1)
+        if one:
+            break
+    log(f"[times] fused_reduce: one call launches {sorted(one.items())}")
+    if sum(n for n, _ in one.values()) != 1 or \
+            not all("fused_reduce_kernel" in k for k in one):
+        fail(f"a fused_reduce call launched {sorted(one)}, not one kernel")
     out["fused_reduce"] = time_row(
-        flush, "fused_reduce",
-        lambda: engine.fused_reduce_rows_cuda((lg,), outputs=outs),
+        flush, "fused_reduce", b2,
         lambda: engine.fused_reduce_rows_plain((lg,), outputs=outs), None,
-        ("reduce_pass1", "reduce_pass2"),
+        ("fused_reduce_kernel",),
         engine.bytes_moved(8, 151936, 1, len(outs)), 0,
         8 * 151936 * (6 + 1 + 6 + 1), F32_FLOPS_PER_S,
-        "[8,151936] (max,sum,sumsq), both passes (library: none)",
+        "[8,151936] (max,sum,sumsq), one launch (library: none)",
         plain_reps=5)
     # the flat form (fused_reduce_flat): one compensated dot of 2^24 f32
-    # pairs, the parity phase's shape; torch.dot is the same function,
-    # uncompensated
+    # pairs, the parity phase's shape, beside the same kernel with
+    # compensated=False (the paper's baseline) and torch.dot (the same
+    # function, uncompensated)
     n = 1 << 24
     a = torch.randn(n, generator=g, device=dev)
     b = torch.randn(n, generator=g, device=dev)
@@ -837,9 +875,20 @@ def phase_times(dev):
         flush, "fused_reduce_flat",
         lambda: engine.fused_reduce_flat((a, b), outputs=("dot",)),
         lambda: engine.fused_reduce_flat_plain((a, b), outputs=("dot",)),
-        lambda: torch.dot(a, b), ("reduce_pass1", "reduce_pass2"),
+        lambda: torch.dot(a, b), ("fused_reduce_kernel",),
         engine.bytes_moved(1, n, 2, 1), 0, n * 8, F32_FLOPS_PER_S,
-        "dot n=2^24, both passes (library: torch.dot, uncompensated)")
+        "dot n=2^24, one launch (library: torch.dot, uncompensated)")
+    naive = kernel_ms(lambda: engine.fused_reduce_flat(
+        (a, b), outputs=("dot",), compensated=False), flush,
+        ("fused_reduce_kernel",), what="fused_reduce_flat naive")
+    flat = out["fused_reduce_flat"]
+    flat["naive_ms"] = naive
+    log(f"[times] fused_reduce_flat dot n=2^24: compensated {flat['ms']:.4f} "
+        f"ms, the same kernel with compensated=False {naive:.4f} ms "
+        f"(compensated / naive {flat['ms'] / naive:.3f}), torch.dot "
+        f"{flat['library_ms']:.4f} ms (compensated / torch.dot "
+        f"{flat['ms'] / flat['library_ms']:.3f}); profiler device time, L2 "
+        f"flushed")
     # the latent (MLA) kernel at the deepseek serve phase's decode shape:
     # B = 8 slots, W = 1, H = 128, C = 512, R = 64, bs = 16, 64-block
     # tables, 2304 live tokens, bf16 pools; SDPA on gathered rows: q =
@@ -1040,24 +1089,30 @@ def phase_matmul_parity(dev) -> dict:
 
 
 def phase_flash_parity(dev) -> dict:
-    """B4 against its twin on its three routes: bf16 and f32 on the tensor
-    cores where D and Dv are multiples of 16, other head dims on the CUDA
-    cores; causal and not, ragged lengths (482 is a drawn prompt length of
-    the serve phases), Lq != Lk, one-row and one-key calls, Dv != D.
-    Returns the largest error per route."""
+    """B4 against its twin on its two routes, bf16 and f32 on the tensor
+    cores, at every head dim up to 128: causal and not, ragged lengths
+    (482 is a drawn prompt length of the serve phases), Lq != Lk, one-row
+    and one-key calls, Dv != D, and D / Dv that are no multiple of 16 (8,
+    24, 36, 40, 72, 100, 127: bf16 rows of 36, 100 and 127 elements and
+    f32 rows of 127 are not 16-byte aligned). Returns the largest error
+    per route."""
     import torch
     from repro_torch.kernels import ops
     fa = _module("flash_attention")
     g = torch.Generator(device=dev).manual_seed(7)
-    worst = {"flash_attention": 0.0, "flash_attention_wgmma": 0.0,
-             "flash_attention_wgmma_f32": 0.0}
+    worst = {"flash_attention_wgmma": 0.0, "flash_attention_wgmma_f32": 0.0}
     cases = [(482, 482, 64, 64, True), (482, 482, 64, 64, False),
              (130, 257, 64, 64, False), (3, 7, 64, 64, True),
              (100, 40, 32, 32, True), (40, 100, 32, 32, True),
              (256, 256, 128, 128, True), (1, 257, 64, 64, False),
              (1, 1, 64, 64, True), (257, 1, 64, 64, True),
              (200, 300, 64, 128, True), (200, 300, 128, 32, False),
-             (130, 257, 40, 40, True), (100, 40, 40, 24, False)]
+             (130, 257, 40, 40, True), (100, 40, 40, 24, False),
+             (130, 257, 8, 8, True), (64, 65, 24, 72, False),
+             (200, 300, 36, 36, True), (3, 7, 36, 100, True),
+             (130, 257, 72, 40, False), (257, 130, 100, 127, True),
+             (100, 100, 127, 127, False), (1, 65, 127, 8, True),
+             (482, 482, 40, 40, True)]
     for lq, lk, d, dv, causal in cases:
         for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
             q = _randn(g, (16, lq, d), dev, dt)
@@ -1083,10 +1138,10 @@ def phase_flash_parity(dev) -> dict:
                     not torch.isfinite(got.float()).all():
                 fail(f"flash_attention parity Lq={lq} Lk={lk} D={d} Dv={dv} "
                      f"{dt}")
+            # every D, Dv up to 128 takes the tensor-core route of its dtype
             tc = {torch.bfloat16: "flash_attention_wgmma",
                   torch.float32: "flash_attention_wgmma_f32"}[dt]
-            if route != (tc if d % 16 == 0 and dv % 16 == 0
-                         else "flash_attention"):
+            if route != tc:
                 fail(f"{dt} D={d} Dv={dv} took {route}")
     return worst
 
@@ -1123,13 +1178,14 @@ def phase_kernel_path(dev, qwen) -> tuple[dict, dict]:
     from repro_torch.quant import core as qcore
     g = torch.Generator(device=dev).manual_seed(SEED + 8)
     launches, fx = {}, {}
-    # B4: prefill attention of four 2048-token prompts, 16 heads, D = 64:
+    # B4: prefill attention of four 2048-token prompts, 16 heads, D = 64,
     # bf16 and f32 on the tensor cores; and the same prompts with a head
-    # dim of 40 (no multiple of 16), f32, the CUDA-core route's case
+    # dim of 40 (no multiple of 16: padded to a 64-wide panel in the kernel)
     bh, l, d = 4 * qwen.num_heads, 2048, qwen.head_dim
     for dt, name, key, dd in ((torch.bfloat16, "bf16", "flash", d),
                               (torch.float32, "f32", "flash_f32", d),
-                              (torch.float32, "f32", "flash_cc", 40)):
+                              (torch.bfloat16, "bf16", "flash_40", 40),
+                              (torch.float32, "f32", "flash_f32_40", 40)):
         q, k, v = (_randn(g, (bh, l, dd), dev, dt) for _ in range(3))
         route = _module("flash_attention").route(q, k, v)
         out = _counted(f"flash_attention [{bh}, {l}, {dd}] {name} causal",
@@ -1145,11 +1201,15 @@ def phase_kernel_path(dev, qwen) -> tuple[dict, dict]:
         if out.shape != (bh, l, dd) or out.dtype != dt or \
                 not torch.isfinite(out.float()).all() or err > tol:
             fail(f"flash_attention path {name} D={dd}")
-        launches[route] = 1
+        launches[route] = launches.get(route, 0) + 1
         fx[key] = (q, k, v)
-    if set(launches) != {"flash_attention", "flash_attention_wgmma",
-                         "flash_attention_wgmma_f32"}:
-        fail(f"flash_attention path routes {sorted(launches)}")
+    if launches != {"flash_attention_wgmma": 2,
+                    "flash_attention_wgmma_f32": 2}:
+        fail(f"flash_attention path routes {launches}")
+    # B2f: the paper's scalar products through the entry points that reach
+    # the flat reduction: ops.kahan_dot / kahan_sum / naive_dot and the
+    # blocked shims, on 2^24 f32 pairs, one kernel launch each
+    launches["fused_reduce"], fx["flat_err"] = phase_flat_path(dev, g)
     # B5: the down projection of a 2048-token prompt (route T) and of a
     # decode batch of 8 (route S), f32 and bf16
     params = api.init_params(qwen, device=dev, seed=SEED)
@@ -1230,6 +1290,92 @@ def phase_kernel_path(dev, qwen) -> tuple[dict, dict]:
     return launches, fx
 
 
+def phase_flat_path(dev, g) -> tuple[int, float]:
+    """The flat reduction's entry points on 2^24 f32 pairs (as (2^17, 128)
+    blocks for the shims), counted, each held against its plain twin run
+    on the same card tensors in the schedule the entry point asks for
+    (``unroll`` / ``block_rows`` as the shim or wrapper resolves them) and
+    against the fp64 sum of its f32 terms (the products rounded to f32,
+    as the twin and the reference round them before they sum, so
+    compensation does not cover that rounding):
+
+    * compensated: kernel and twin each within 2 ulp + 8 eps^2 sum|terms|
+      of the fp64 sum, and the kernel within that of the twin;
+    * naive: the kernel within 16x the twin's own measured gap to the
+      fp64 sum, the largest over three summation orders of the twin (the
+      entry point's blocks, a quarter and four times them), so one order
+      that lands near the exact sum by chance does not set the bound.
+
+    Returns the launches and the largest |kernel - twin|."""
+    import torch
+    from repro_torch.kernels import engine, ops
+    from repro_torch.kernels.kahan_dot import kahan_dot_blocked
+    from repro_torch.kernels.kahan_sum import kahan_sum_blocked
+    from repro_torch.kernels.naive_dot import naive_dot_blocked
+    eps = 2.0 ** -24
+    n = 1 << 24
+    x = _randn(g, (n,), dev)
+    y = _randn(g, (n,), dev)
+    x2, y2 = x.view(-1, 128), y.view(-1, 128)
+    calls = {"ops.kahan_dot": lambda: ops.kahan_dot(x, y),
+             "ops.kahan_sum": lambda: ops.kahan_sum(x),
+             "ops.naive_dot": lambda: ops.naive_dot(x, y),
+             "kahan_dot_blocked": lambda: kahan_dot_blocked(x2, y2),
+             "kahan_sum_blocked": lambda: kahan_sum_blocked(x2),
+             "naive_dot_blocked": lambda: naive_dot_blocked(x2, y2)}
+    # (operands, output, unroll, block_rows, compensated) as each entry
+    # point passes them to the engine
+    spec = {"ops.kahan_dot": ((x, y), "dot", None, None, True),
+            "ops.kahan_sum": ((x,), "sum", None, None, True),
+            "ops.naive_dot": ((x, y), "dot", None, None, False),
+            "kahan_dot_blocked": ((x, y), "dot", None, 256, True),
+            "kahan_sum_blocked": ((x,), "sum", None, 512, True),
+            "naive_dot_blocked": ((x, y), "dot", 1, 256, False)}
+    got = _counted(f"the flat reduction's entry points on {n} f32 pairs",
+                   lambda: {k: float(f()) for k, f in calls.items()},
+                   {"fused_reduce": len(calls)})
+
+    def twin(what, blocks=1.0):
+        ops_, o, u, rows, comp = spec[what]
+        (out,) = engine.fused_reduce_flat_plain(
+            ops_, outputs=(o,), unroll=u, compensated=comp,
+            block_elems=int(engine.block_elems_for(n, u, rows) * blocks))
+        return float(out)
+
+    xy = (x * y).double()
+    exact_dot, exact_sum = float(xy.sum()), float(x.double().sum())
+    worst, plain = 0.0, {}
+    for what, v in got.items():
+        dot = spec[what][1] == "dot"
+        exact = exact_dot if dot else exact_sum
+        terms = float((xy if dot else x.double()).abs().sum())
+        p = plain[what] = twin(what)
+        worst = max(worst, abs(v - p))
+        if spec[what][4]:
+            tol = 2 * eps * 2 * abs(exact) + 8 * eps ** 2 * terms
+            ok = max(abs(v - exact), abs(p - exact), abs(v - p)) <= tol
+            why = "2 ulp + 8 eps^2 sum|terms|"
+        else:
+            gap = max(abs(t - exact) for t in (p, twin(what, 0.25),
+                                               twin(what, 4.0)))
+            tol = 16 * gap
+            ok = abs(v - exact) <= tol
+            why = f"16x the naive twin's largest gap {gap:.3g} over 3 orders"
+        log(f"[path] {what}: |kernel-fp64| {abs(v - exact):.3g}, "
+            f"|twin-fp64| {abs(p - exact):.3g}, |kernel-twin| "
+            f"{abs(v - p):.3g} (tol {why} = {tol:.3g}): {ok}")
+        if not ok:
+            fail(f"{what} on the card")
+    # what the f32 rounding of the products costs, which compensation
+    # does not cover: the compensated twin against the exact products
+    p = plain["ops.kahan_dot"]
+    exact64 = float((x.double() * y.double()).sum())
+    log(f"[path] the f32 products' own rounding: |kahan twin - fp64 sum of "
+        f"exact products| {abs(p - exact64):.3g}, against the fp64 sum of "
+        f"the f32 products {abs(p - exact_dot):.3g}")
+    return len(calls), worst
+
+
 def phase_slice_times(dev, fx) -> dict:
     """B4-B7 timed at the path's shapes, as ``phase_times`` times B1-B3."""
     import torch
@@ -1244,69 +1390,32 @@ def phase_slice_times(dev, fx) -> dict:
     def row(*a, **kw):
         return time_row(flush, *a, **kw)
 
-    # B4 on its three routes at the path's shapes: bf16 on the tensor cores
-    q, k, v = fx["flash"]
-    bh, l, d = q.shape
-    q4, k4, v4 = (t.view(4, bh // 4, l, d) for t in (q, k, v))
-    out["flash_attention_wgmma"] = row(
-        "flash_attention_wgmma", lambda: fa.flash_attention_cuda(q, k, v),
-        lambda: fa.flash_attention_plain(q, k, v),
-        lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
-        ("flash_attention_wgmma_kernel",), fa.bytes_moved(q, k, v),
-        fa.flops(bh, l, l, d, d, True), 0, BF16_FLOPS_PER_S,
-        f"[{bh}, {l}, {d}] bf16 causal, tensor cores (library: SDPA "
-        f"is_causal, top-left)")
-    # the f32 route on the tensor cores (six bf16 passes), and the
-    # CUDA-core kernel on the same f32 inputs through its C entry point
-    # (not counted), to hold the two designs side by side in one run
-    qf, kf, vf = fx["flash_f32"]
-    qf4, kf4, vf4 = (t.view(4, bh // 4, l, d) for t in (qf, kf, vf))
-    out["flash_attention_wgmma_f32"] = row(
-        "flash_attention_wgmma_f32",
-        lambda: fa.flash_attention_cuda(qf, kf, vf),
-        lambda: fa.flash_attention_plain(qf, kf, vf),
-        lambda: F.scaled_dot_product_attention(qf4, kf4, vf4,
-                                               is_causal=True),
-        ("flash_attention_wgmma_f32_kernel",), fa.bytes_moved(qf, kf, vf),
-        6 * fa.flops(bh, l, l, d, d, True), 0, BF16_FLOPS_PER_S,
-        f"[{bh}, {l}, {d}] f32 causal, tensor cores, six bf16 passes "
-        f"(library: SDPA is_causal f32)")
-    lib_cc = fa._lib()
-
-    def cuda_cores(qq, kk, vv, io):
-        o_cc = torch.empty_like(qq)
-
-        def launch():
-            err = lib_cc.repro_flash_attention(
-                qq.data_ptr(), kk.data_ptr(), vv.data_ptr(), o_cc.data_ptr(),
-                bh, l, l, d, d, float(d ** -0.5), 1, io,
-                torch.cuda.current_stream().cuda_stream)
-            if err:
-                fail("flash_attention (CUDA cores) did not launch")
-        return launch
-    for key, (qq, kk, vv), io, dname in (
-            ("flash_attention_wgmma", fx["flash"], 0, "bf16"),
-            ("flash_attention_wgmma_f32", fx["flash_f32"], 1, "f32")):
-        cc_ms = kernel_ms(cuda_cores(qq, kk, vv, io), flush,
-                          ("flash_attention_kernel",),
-                          what=f"flash_attention CUDA cores, {dname}")
-        out[key][f"cuda_core_{dname}_ms"] = cc_ms
-        log(f"[times] {key}: the CUDA-core kernel on the same {dname} "
-            f"inputs {cc_ms:.4f} ms (profiler device time), "
-            f"{cc_ms / out[key]['ms']:.1f}x the tensor-core kernel")
-    # the CUDA-core route at its path call: a head dim of 40
-    qc, kc, vc = fx["flash_cc"]
-    dc = qc.shape[2]
-    qc4, kc4, vc4 = (t.view(4, bh // 4, l, dc) for t in (qc, kc, vc))
-    out["flash_attention"] = row(
-        "flash_attention", lambda: fa.flash_attention_cuda(qc, kc, vc),
-        lambda: fa.flash_attention_plain(qc, kc, vc),
-        lambda: F.scaled_dot_product_attention(qc4, kc4, vc4,
-                                               is_causal=True),
-        ("flash_attention_kernel",), fa.bytes_moved(qc, kc, vc), 0,
-        fa.flops(bh, l, l, dc, dc, True), F32_FLOPS_PER_S,
-        f"[{bh}, {l}, {dc}] f32 causal, CUDA cores (library: SDPA "
-        f"is_causal f32)")
+    # B4 on its two routes at the path's shapes, D = 64 and a head dim of
+    # 40 (padded to a 64-wide panel): bf16 bound by its tensor-core
+    # products, f32 by its six bf16 passes; SDPA on the same inputs
+    for key, io, dname in (("flash", torch.bfloat16, "bf16"),
+                           ("flash_f32", torch.float32, "f32")):
+        name = ("flash_attention_wgmma" if io == torch.bfloat16
+                else "flash_attention_wgmma_f32")
+        for suffix in ("", "_40"):
+            q, k, v = fx[key + suffix]
+            bh, l, d = q.shape
+            q4, k4, v4 = (t.view(4, bh // 4, l, d) for t in (q, k, v))
+            passes = 1 if io == torch.bfloat16 else 6
+            r = row(
+                name, lambda q=q, k=k, v=v: fa.flash_attention_cuda(q, k, v),
+                lambda q=q, k=k, v=v: fa.flash_attention_plain(q, k, v),
+                lambda q4=q4, k4=k4, v4=v4: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True),
+                (name + "_kernel",), fa.bytes_moved(q, k, v),
+                passes * fa.flops(bh, l, l, d, d, True), 0, BF16_FLOPS_PER_S,
+                f"[{bh}, {l}, {d}] {dname} causal, tensor cores"
+                f"{', six bf16 passes' if passes > 1 else ''} (library: SDPA "
+                f"is_causal {dname})")
+            if suffix:
+                out[name]["head_dim_40"] = r
+            else:
+                out[name] = r
     # B5 and B6 on their routes: T (wgmma) bound by P bf16 passes at the
     # tensor-core rate plus the fold at the f32 rate, S (split + fold)
     # by the bytes or the f32 CUDA-core products
@@ -1495,8 +1604,7 @@ def phase_serve(dev, kind: str, cfg, what: str):
         f"{step_med:.3f} ms; {st['prefill_chunks']} prefill chunks; "
         f"set-up {setup_s:.2f} s; peak device memory {peak_gib:.2f} GiB")
     log(f"[serve] launching wrapper calls {launches} (each fused_reduce "
-        f"call launches reduce_pass1 and reduce_pass2); guard trips "
-        f"{st['guard_trips']}")
+        f"call is one kernel launch); guard trips {st['guard_trips']}")
     if not all(r.done and len(r.output) == 32 for r in reqs):
         fail("a request did not finish with its full output")
     if st["guard_trips"] or engine.quarantined:
@@ -1566,12 +1674,16 @@ def profile_decode(engine, cfg, n_steps: int = 4) -> None:
         kern = _device_kernels(prof)
         counts = {n: sum(ev.count for ev in kern if n in ev.key)
                   for n in names}
-        if all(c == want for c in counts.values()):
+        reduce_n = sum(ev.count for ev in kern
+                       if "fused_reduce_kernel" in ev.key)
+        if all(c == want for c in counts.values()) and \
+                reduce_n == 2 * n_steps:
             break
         lost += 1
         log(f"[profile] {cfg.name} decode window, try {attempt + 1}: the "
-            f"profiler lost device events ({counts}, want {want} each); "
-            f"tracing again")
+            f"profiler lost device events ({counts}, want {want} each; "
+            f"fused_reduce_kernel {reduce_n}, want {2 * n_steps}); tracing "
+            f"again")
         time.sleep(0.5)
     else:
         fail(f"{cfg.name}: every decode window lost device events")
@@ -1581,7 +1693,9 @@ def profile_decode(engine, cfg, n_steps: int = 4) -> None:
         f"{wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step, "
         f"device idle share {1 - busy_ms / wall_ms:.3f}, "
         f"{per_step:.0f} kernels/step; launches of {', '.join(names)}: "
-        f"{counts} (want {want} each); windows lost to the profiler: {lost}")
+        f"{counts} (want {want} each), of fused_reduce_kernel {reduce_n} "
+        f"(two calls per step, one kernel each); windows lost to the "
+        f"profiler: {lost}")
     label = "MLA latent attention" if cfg.mla is not None else \
         "GQA attention"
     mine = [ev for ev in kern if any(n in ev.key for n in names)]
@@ -1619,6 +1733,7 @@ def main() -> int:
     k_launch, fx = phase_kernel_path(dev, qwen)
     times = phase_times(dev)
     times.update(phase_slice_times(dev, fx))
+    flat_err = fx["flat_err"]
     log(f"[times] profiler tries that lost device events (profiled again): "
         f"{len(DROPPED_WINDOWS)} {DROPPED_WINDOWS}; rows timed by CUDA "
         f"events instead: {len(EVENT_TIMED)} {EVENT_TIMED}")
@@ -1645,23 +1760,19 @@ def main() -> int:
         dict(name="fused_reduce", route="cuda",
              source="src/repro_torch/csrc/fused_reduce.cu",
              replaces="src/repro/kernels/engine.py:327",
-             launches=q_launch["fused_reduce"] + d_launch["fused_reduce"],
+             launches=q_launch["fused_reduce"] + d_launch["fused_reduce"]
+             + k_launch["fused_reduce"],
              launches_by_path={"qwen1.5-0.5b": q_launch["fused_reduce"],
-                               "deepseek-v2-236b": d_launch["fused_reduce"]},
+                               "deepseek-v2-236b": d_launch["fused_reduce"],
+                               "flat entry points": k_launch["fused_reduce"]},
              max_abs_err=red_err, **times["fused_reduce"],
              flat=dict(replaces="src/repro/kernels/engine.py:282",
-                       **times["fused_reduce_flat"])),
+                       max_abs_err=flat_err, **times["fused_reduce_flat"])),
         dict(name="paged_latent_attention", route="cuda",
              source="src/repro_torch/csrc/paged_latent_attention.cu",
              replaces="src/repro/kernels/paged_attention.py:354",
              launches=d_launch["paged_latent_attention"],
              max_abs_err=lat_err, **times["paged_latent_attention"]),
-        dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/csrc/flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention.py:144",
-             launches=k_launch["flash_attention"],
-             max_abs_err=flash_err["flash_attention"],
-             **times["flash_attention"]),
         *(dict(name=name, route="cuda",
                source="src/repro_torch/csrc/flash_attention_wgmma.cu",
                replaces="src/repro/kernels/flash_attention.py:144",

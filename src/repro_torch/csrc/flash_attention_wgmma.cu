@@ -1,8 +1,20 @@
 // Flash attention (online softmax, uncompensated) on the Hopper tensor
-// cores (sm_90a): the routes of flash_attention.cu for head dims D and Dv
-// that are multiples of 16 up to 128, bf16 (flash_attention_wgmma_kernel)
-// and f32 (flash_attention_wgmma_f32_kernel, below); flash_attention.cu
-// keeps other head dims.
+// cores (sm_90a), every head dim D, Dv in [1, 128]: bf16
+// (flash_attention_wgmma_kernel) and f32 (flash_attention_wgmma_f32_kernel,
+// below). Head dims are padded with exact zeros to a 64-wide panel (D, Dv
+// <= 64) or two: a padded column adds +0 to every score and yields an
+// output column that is never stored. Every k16 step of the padded
+// panels runs: a runtime skip of the steps wholly past D (D = 40 needs 3
+// of a panel's 4) made ptxas inject warpgroup.arrive fences around the
+// products (C7519), and D = 40 ran no faster with it (PERF.md).
+//
+// Rows of any D start aligned to the element size only, so the loaders
+// copy as wide as every row's alignment allows (copy_width: 16, 8 or 4
+// bytes by cp.async, zero-filled past Lk and D); bf16 rows of odd D
+// (2-byte aligned) are staged by plain loads and 16-byte shared stores,
+// which wait for their loads and so lose the ring's overlap. The stores
+// write pairs where Dv is even and single elements where it is odd, so
+// no byte past Dv is written.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py,
 // `_flash_kernel` launched by `flash_attention_pallas`. The semantics are
@@ -37,8 +49,8 @@
 // 64 rows each; under causal masking the CTAs walk the query tiles
 // heaviest first (the grid's y index reversed), so the short tiles fill
 // the tail wave. Q is staged once; K / V tiles of 64 keys go through a
-// two-stage ring in shared memory filled by 16-byte cp.async (zero-fill
-// past Lk and past D / Dv), issued one tile ahead of the compute. All
+// two-stage ring in shared memory filled by cp.async (zero-fill past Lk
+// and past D / Dv), issued one tile ahead of the compute. All
 // tiles are stored in the 128-byte swizzle (16-byte chunk c of row r at
 // chunk c ^ (r % 8)), in 64-element-wide panels, so one wgmma
 // descriptor (SBO 1024 bytes) addresses them:
@@ -62,10 +74,11 @@
 // softmax of tile t with the P V product of tile t - 1 (FA3's
 // intra-warpgroup overlap) was slower on the card and is not used.
 //
-// ptxas (sm_90a, -O3, CUDA 12.8), bf16: 120 / 144 / 117 / 148 registers
-// for (D, Dv) padded to (64, 64) / (64, 128) / (128, 64) / (128, 128),
-// no spills; the (64, 64) build keeps two CTAs per SM. SASS: 8 / 12 / 12
-// / 16 HGMMA instructions, 48 in all (f32: below).
+// ptxas (sm_90a, -O3, CUDA 12.8), bf16: 117 / 145 / 117 / 150 registers
+// for (D, Dv) padded to (64, 64) / (64, 128) / (128, 64) / (128, 128)
+// in the ALIGNED builds (127 / 167 / 128 / 174 in the general ones), no
+// spills; the (64, 64) builds keep two CTAs per SM. SASS: 96 HGMMA
+// instructions over the eight builds (f32: below).
 
 #include "superkernel_common.cuh"
 #include "wgmma_common.cuh"
@@ -84,14 +97,62 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// cp.async of W bytes (4, 8 or 16; src and dst W-aligned), zero-filled
+// past `bytes` (0 or W)
+template <int W>
+__device__ __forceinline__ void cp_async_zfill(unsigned dst, const void* src,
+                                               int bytes) {
+  if constexpr (W == 16) {
+    cp_async16_zfill(dst, src, bytes);
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+                 "l"(src), "n"(W), "r"(bytes)
+                 : "memory");
+  }
+}
+
+// The widest copy (16, 8, 4 or 2 bytes) that every row of an [*, D]
+// matrix of `esize`-byte elements at `p` starts aligned to.
+int copy_width(const void* p, int d, int esize) {
+  int w = 16;
+  while (w > esize &&
+         ((reinterpret_cast<uintptr_t>(p) | (uintptr_t)d * esize) % w))
+    w /= 2;
+  return w;
+}
+
+// One thread's 16-byte chunks of the tile (rows r, r + kRowsPer, ...) by
+// copies of W bytes; a copy lies wholly inside or wholly past D, as every
+// row starts W-aligned and D is a whole number of W-byte copies.
+template <int W, int R, int kRowsPer>
+__device__ __forceinline__ void stage_chunks(unsigned at,
+                                             const __nv_bfloat16* from,
+                                             const __nv_bfloat16* src,
+                                             int col, int rows_left, int D) {
+  constexpr int kE = W / 2;        // elements per copy
+#pragma unroll
+  for (int j = 0; j < R / kRowsPer; ++j)
+#pragma unroll
+    for (int i = 0; i < 16 / W; ++i) {
+      const bool ok = j * kRowsPer < rows_left && col + i * kE < D;
+      cp_async_zfill<W>(at + j * kRowsPer * 128 + i * W,
+                        ok ? from + (long long)j * kRowsPer * D + i * kE
+                           : src,
+                        ok ? W : 0);
+    }
+}
+
 // Stage rows [row0, row0 + R) of a [L, D] bf16 matrix into the swizzled
 // panels at `dst` (shared address): panel p (columns 64p..64p+63) is
 // R x 128 bytes; rows past L and columns past D are zero-filled, never
-// read.
-template <int R, int DP>
+// read, so the padded k16 steps add exact zeros. Rows start w-aligned
+// (copy_width): by cp.async of w bytes, or for odd D (2-byte rows) by
+// plain loads and 16-byte shared stores, which wait for their loads.
+// ALIGNED builds (every row 16-byte aligned) keep the 16-byte path only.
+template <int R, int DP, bool ALIGNED>
 __device__ __forceinline__ void stage_tile(unsigned dst,
                                            const __nv_bfloat16* src,
-                                           int row0, int L, int D) {
+                                           int row0, int L, int D, int w) {
   constexpr int kChunks = DP / 8;  // 16-byte chunks per padded row
   constexpr int kRowsPer = kThreads / kChunks;    // rows of one pass
   static_assert(R % kRowsPer == 0 && kRowsPer % 8 == 0,
@@ -100,24 +161,43 @@ __device__ __forceinline__ void stage_tile(unsigned dst,
   const int r0 = threadIdx.x / kChunks;
   const unsigned at =
       dst + (cg >> 3) * (R * 128) + r0 * 128 + (((cg & 7) ^ (r0 & 7)) << 4);
-  const bool col_ok = cg * 8 < D;
-  const __nv_bfloat16* from = src + (long long)(row0 + r0) * D + cg * 8;
+  const int col = cg * 8;
+  const int rows_left = L - row0 - r0;
+  const __nv_bfloat16* from = src + (long long)(row0 + r0) * D + col;
+  if (ALIGNED || w == 16) {
+    stage_chunks<16, R, kRowsPer>(at, from, src, col, rows_left, D);
+  } else if (w == 8) {
+    stage_chunks<8, R, kRowsPer>(at, from, src, col, rows_left, D);
+  } else if (w == 4) {
+    stage_chunks<4, R, kRowsPer>(at, from, src, col, rows_left, D);
+  } else {
+    const unsigned short* f = reinterpret_cast<const unsigned short*>(from);
 #pragma unroll
-  for (int j = 0; j < R / kRowsPer; ++j) {
-    const bool ok = col_ok && row0 + r0 + j * kRowsPer < L;
-    cp_async16_zfill(at + j * kRowsPer * 128,
-                     ok ? from + (long long)j * kRowsPer * D : src,
-                     ok ? 16 : 0);
+    for (int j = 0; j < R / kRowsPer; ++j) {
+      const bool row_ok = j * kRowsPer < rows_left;
+      uint32_t v[4];
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        const long long o = (long long)j * kRowsPer * D + e;
+        const uint32_t lo =
+            row_ok && col + e < D ? __ldg(f + o) : 0u;
+        const uint32_t hi =
+            row_ok && col + e + 1 < D ? __ldg(f + o + 1) : 0u;
+        v[e / 2] = lo | (hi << 16);
+      }
+      st_shared4(at + j * kRowsPer * 128, v[0], v[1], v[2], v[3]);
+    }
   }
 }
 
-template <int DP, int DVP>
+template <int DP, int DVP, bool ALIGNED>
 __global__ void __launch_bounds__(kThreads, DVP == 64 ? 2 : 1)
 flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
                              const __nv_bfloat16* __restrict__ v,
                              __nv_bfloat16* __restrict__ out, int lq, int lk,
-                             int d, int dv, float scale_log2, int causal) {
+                             int d, int dv, float scale_log2, int causal,
+                             int wq, int wk, int wv) {
   constexpr int kNP = DVP / 64;    // 64-wide panels of Dv
   constexpr int kQBytes = kM * DP * 2;
   constexpr int kKBytes = kN * DP * 2;
@@ -152,9 +232,9 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     if (causal) wg_tiles = min(tiles, (min(qw + 64, lq) - 1) / kN + 1);
   }
 
-  stage_tile<kM, DP>(q_s, qb, q0, lq, d);
-  stage_tile<kN, DP>(k_s, kb, 0, lk, d);
-  stage_tile<kN, DVP>(v_s, vb, 0, lk, dv);
+  stage_tile<kM, DP, ALIGNED>(q_s, qb, q0, lq, d, wq);
+  stage_tile<kN, DP, ALIGNED>(k_s, kb, 0, lk, d, wk);
+  stage_tile<kN, DVP, ALIGNED>(v_s, vb, 0, lk, dv, wv);
   cp_async_commit();
 
   float o[kNP][32];
@@ -173,8 +253,10 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     const int st = t & 1;
     if (t + 1 < tiles) {
       const int k1 = (t + 1) * kN;
-      stage_tile<kN, DP>(k_s + (st ^ 1) * kKBytes, kb, k1, lk, d);
-      stage_tile<kN, DVP>(v_s + (st ^ 1) * kVBytes, vb, k1, lk, dv);
+      stage_tile<kN, DP, ALIGNED>(k_s + (st ^ 1) * kKBytes, kb, k1, lk, d,
+                                  wk);
+      stage_tile<kN, DVP, ALIGNED>(v_s + (st ^ 1) * kVBytes, vb, k1, lk, dv,
+                                   wv);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -305,16 +387,39 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
         if (col >= dv) continue;
         const float x = __fdiv_rn(o[pp][4 * j + 2 * h], l[h]);
         const float y = __fdiv_rn(o[pp][4 * j + 2 * h + 1], l[h]);
-        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-            __floats2bfloat162_rn(x, y);
+        if (ALIGNED || dv % 2 == 0) {   // col, col + 1 real, 4-byte aligned
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(x, y);
+        } else {                     // odd Dv: no byte past it is written
+          orow[col] = __float2bfloat16_rn(x);
+          if (col + 1 < dv) orow[col + 1] = __float2bfloat16_rn(y);
+        }
       }
   }
 }
 
+// raw f32 rows [row0, row0 + kN) of an [L, D] matrix into a [kN][DPAD]
+// tile, zero past L and D, by cp.async of W bytes (every row starts
+// W-aligned: copy_width), the CTA's kT threads in turn
+template <int W, int kT>
+__device__ __forceinline__ void stage_raw_w(unsigned dst, const float* src,
+                                            int row0, int L, int D,
+                                            int DPAD, int tid) {
+  constexpr int kE = W / 4;        // elements per copy
+  const int chunks = DPAD / kE;
+  for (int i = tid; i < kN * chunks; i += kT) {
+    const int t = i / chunks, c = (i - t * chunks) * kE;
+    const bool ok = row0 + t < L && c < D;
+    cp_async_zfill<W>(dst + (t * DPAD + c) * 4,
+                      ok ? src + (long long)(row0 + t) * D + c : src,
+                      ok ? W : 0);
+  }
+}
+
 // ------------------------------------------------------- the f32 route --
-// f32 q / k / v (D, Dv multiples of 16 up to 128) as exact bf16 planes
+// f32 q / k / v (D, Dv up to 128) as exact bf16 planes
 // (hi, mid, lo: wgmma_common.cuh). Q is split once per CTA; each K / V
-// tile of 64 keys arrives raw (f32, 16-byte cp.async, one tile ahead) and
+// tile of 64 keys arrives raw (f32, cp.async, one tile ahead) and
 // is split ONCE into its planes in shared memory, then serves every k16
 // step of the CTA's rows (splitting per product was what bounded the
 // matmul's f32 kernels). S = Q Kᵀ takes the six products q_i . k_j with
@@ -335,8 +440,8 @@ flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 // would need 0.513 ms for the 34.4 GFLOP). Its time and SDPA f32's are
 // in PERF.md.
 //
-// ptxas (sm_90a, -O3, CUDA 12.8), f32: 208-255 registers over the four
-// (D, Dv) builds, no spills; 288 HGMMA instructions.
+// ptxas (sm_90a, -O3, CUDA 12.8), f32: 208-255 registers over the eight
+// builds, no spills; 576 HGMMA instructions.
 template <int DP>
 __host__ __device__ constexpr int f32_rows() {
   return DP == 64 ? 128 : 64;
@@ -349,14 +454,14 @@ __host__ __device__ constexpr long long f32_smem_bytes() {
          3LL * kN * DVP * 2 + 4LL * kN * (DP + DVP);
 }
 
-template <int DP, int DVP>
+template <int DP, int DVP, bool ALIGNED>
 __global__ void __launch_bounds__(f32_rows<DP>() * 2, 1)
 flash_attention_wgmma_f32_kernel(const float* __restrict__ q,
                                  const float* __restrict__ k,
                                  const float* __restrict__ v,
                                  float* __restrict__ out, int lq, int lk,
                                  int d, int dv, float scale_log2,
-                                 int causal) {
+                                 int causal, int wq, int wk, int wv) {
   constexpr int kMF = f32_rows<DP>();
   constexpr int kT = kMF * 2;            // threads: one warpgroup / 64 rows
   constexpr int kNP = DVP / 64;          // 64-wide panels of Dv
@@ -391,16 +496,14 @@ flash_attention_wgmma_f32_kernel(const float* __restrict__ q,
     if (causal) wg_tiles = min(tiles, (min(qw + 64, lq) - 1) / kN + 1);
   }
 
-  // raw f32 rows [row0, row0 + kN) of an [L, D] matrix, zero past L and D
   auto stage_raw = [&](unsigned dst, const float* src, int row0, int L,
-                       int D, int DPAD) {
-    const int chunks = DPAD / 4;
-    for (int i = tid; i < kN * chunks; i += kT) {
-      const int t = i / chunks, c4 = i - t * chunks;
-      const bool ok = row0 + t < L && 4 * c4 < D;
-      cp_async16_zfill(dst + (t * DPAD + 4 * c4) * 4,
-                       ok ? src + (long long)(row0 + t) * D + 4 * c4 : src,
-                       ok ? 16 : 0);
+                       int D, int DPAD, int w) {
+    if (ALIGNED || w == 16) {
+      stage_raw_w<16, kT>(dst, src, row0, L, D, DPAD, tid);
+    } else if (w == 8) {
+      stage_raw_w<8, kT>(dst, src, row0, L, D, DPAD, tid);
+    } else {
+      stage_raw_w<4, kT>(dst, src, row0, L, D, DPAD, tid);
     }
   };
   // split rows of a raw f32 tile into swizzled planes (panel-major)
@@ -428,22 +531,23 @@ flash_attention_wgmma_f32_kernel(const float* __restrict__ q,
     const int t = i / (DP / 8), c8 = i - t * (DP / 8);
     uint32_t w[8];
     const bool ok = q0 + t < lq && 8 * c8 < d;
-    if (ok) {
-      const uint4* p =
-          reinterpret_cast<const uint4*>(qb + (long long)(q0 + t) * d + 8 * c8);
-      const uint4 a = p[0], b = p[1];
+    const float* p = qb + (long long)(q0 + t) * d + 8 * c8;
+    if (ok && (ALIGNED || wq == 16) && 8 * c8 + 8 <= d) {
+      const uint4 a = reinterpret_cast<const uint4*>(p)[0];
+      const uint4 b = reinterpret_cast<const uint4*>(p)[1];
       w[0] = a.x, w[1] = a.y, w[2] = a.z, w[3] = a.w;
       w[4] = b.x, w[5] = b.y, w[6] = b.z, w[7] = b.w;
-    } else {
+    } else {                     // a row's last chunk, or rows not 16-aligned
 #pragma unroll
-      for (int e = 0; e < 8; ++e) w[e] = 0u;
+      for (int e = 0; e < 8; ++e)
+        w[e] = ok && 8 * c8 + e < d ? __float_as_uint(p[e]) : 0u;
     }
     store_planes<POOL_F32>(w, q_s + (c8 >> 3) * (kMF * 128) + t * 128 +
                                   (((c8 & 7) ^ (t & 7)) << 4),
                            kQPl);
   }
-  stage_raw(kr_s, kb, 0, lk, d, DP);
-  stage_raw(vr_s, vb, 0, lk, dv, DVP);
+  stage_raw(kr_s, kb, 0, lk, d, DP, wk);
+  stage_raw(vr_s, vb, 0, lk, dv, DVP, wv);
   cp_async_commit();
 
   float o[kNP][32];
@@ -465,8 +569,8 @@ flash_attention_wgmma_f32_kernel(const float* __restrict__ q,
     fence_proxy_async();
     __syncthreads();             // planes written; the raw slot is free
     if (t + 1 < tiles) {
-      stage_raw(kr_s, kb, (t + 1) * kN, lk, d, DP);
-      stage_raw(vr_s, vb, (t + 1) * kN, lk, dv, DVP);
+      stage_raw(kr_s, kb, (t + 1) * kN, lk, d, DP, wk);
+      stage_raw(vr_s, vb, (t + 1) * kN, lk, dv, DVP, wv);
       cp_async_commit();
     }
     if (t >= wg_tiles) continue;
@@ -607,11 +711,24 @@ flash_attention_wgmma_f32_kernel(const float* __restrict__ q,
       for (int j = 0; j < 8; ++j) {
         const int col = pp * 64 + 8 * j + c_lane;
         if (col >= dv) continue;
-        *reinterpret_cast<float2*>(orow + col) =
-            make_float2(__fdiv_rn(o[pp][4 * j + 2 * h], l[h]),
-                        __fdiv_rn(o[pp][4 * j + 2 * h + 1], l[h]));
+        const float x = __fdiv_rn(o[pp][4 * j + 2 * h], l[h]);
+        const float y = __fdiv_rn(o[pp][4 * j + 2 * h + 1], l[h]);
+        if (ALIGNED || dv % 2 == 0) {   // col, col + 1 real, 8-byte aligned
+          *reinterpret_cast<float2*>(orow + col) = make_float2(x, y);
+        } else {                     // odd Dv: no byte past it is written
+          orow[col] = x;
+          if (col + 1 < dv) orow[col + 1] = y;
+        }
       }
   }
+}
+
+// Every row of q, k and v 16-byte aligned: the ALIGNED build. The general
+// build gives the same bits on such rows and runs 2-4% slower at D = 64
+// and 40 (its loaders' width branches; tools/flash_aligned_ab.py, NVIDIA
+// H100 80GB HBM3, 700 W).
+bool all_aligned(int wq, int wk, int wv) {
+  return wq == 16 && wk == 16 && wv == 16;
 }
 
 template <int DP, int DVP>
@@ -620,15 +737,20 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
                cudaStream_t stream) {
   constexpr long long smem = f32_smem_bytes<DP, DVP>();
   constexpr int kMF = f32_rows<DP>();
+  const int wq = copy_width(q, d, 4), wk = copy_width(k, d, 4),
+            wv = copy_width(v, dv, 4);
+  auto kernel = all_aligned(wq, wk, wv)
+                    ? flash_attention_wgmma_f32_kernel<DP, DVP, true>
+                    : flash_attention_wgmma_f32_kernel<DP, DVP, false>;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_wgmma_f32_kernel<DP, DVP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(bh, (lq + kMF - 1) / kMF);
-  flash_attention_wgmma_f32_kernel<DP, DVP><<<grid, kMF * 2, smem, stream>>>(
+  kernel<<<grid, kMF * 2, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lq, lk, d, dv,
-      scale * kLog2e, causal);
+      scale * kLog2e, causal, wq, wk, wv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -642,16 +764,21 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
            int lq, int lk, int d, int dv, float scale, int causal,
            cudaStream_t stream) {
   const long long smem = smem_bytes<DP, DVP>();
+  const int wq = copy_width(q, d, 2), wk = copy_width(k, d, 2),
+            wv = copy_width(v, dv, 2);
+  auto kernel = all_aligned(wq, wk, wv)
+                    ? flash_attention_wgmma_kernel<DP, DVP, true>
+                    : flash_attention_wgmma_kernel<DP, DVP, false>;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_wgmma_kernel<DP, DVP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(bh, (lq + kM - 1) / kM);
-  flash_attention_wgmma_kernel<DP, DVP><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      lq, lk, d, dv, scale * kLog2e, causal);
+      lq, lk, d, dv, scale * kLog2e, causal, wq, wk, wv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -666,9 +793,10 @@ long long repro_flash_attention_wgmma_smem(int d, int dv) {
   return dv <= 64 ? smem_bytes<128, 64>() : smem_bytes<128, 128>();
 }
 
-// q, k: [bh, lq | lk, d]; v: [bh, lk, dv]; out: [bh, lq, dv]; all bf16,
-// 16-byte aligned; d, dv multiples of 16 in [16, 128]. Launches on
-// `stream`; returns cudaGetLastError().
+// q, k: [bh, lq | lk, d]; v: [bh, lk, dv]; out: [bh, lq, dv]; all bf16;
+// d, dv in [1, 128], any alignment of the element type (the loaders copy
+// as wide as the rows' alignment allows). Launches on `stream`; returns
+// cudaGetLastError().
 int repro_flash_attention_wgmma(const void* q, const void* k, const void* v,
                                 void* out, int bh, int lq, int lk, int d,
                                 int dv, float scale, int causal,
@@ -689,7 +817,7 @@ int repro_flash_attention_wgmma(const void* q, const void* k, const void* v,
 }
 
 // The f32 route: q, k: [bh, lq | lk, d]; v: [bh, lk, dv]; out: [bh, lq,
-// dv]; all f32, 16-byte aligned; d, dv multiples of 16 in [16, 128].
+// dv]; all f32; d, dv in [1, 128], any alignment of the element type.
 long long repro_flash_attention_wgmma_f32_smem(int d, int dv) {
   if (d <= 64)
     return dv <= 64 ? f32_smem_bytes<64, 64>() : f32_smem_bytes<64, 128>();

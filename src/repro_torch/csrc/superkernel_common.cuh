@@ -1,6 +1,6 @@
 // Device helpers shared by the two paged-attention superkernels
 // (paged_attention.cu, GQA form; paged_latent_attention.cu, MLA latent
-// form) and by flash_attention.cu, kahan_matmul.cu and kahan_acc.cu.
+// form) and by flash_attention_wgmma.cu, kahan_matmul.cu and kahan_acc.cu.
 // All must follow the same compensation rules, so they live here once:
 //
 // * Neumaier chains use __fadd_rn / __fmul_rn: no FMA contraction, or

@@ -17,16 +17,15 @@ and waits for all of them. Nothing here runs at import time.
 ``launches`` counts, per kernel, the wrapper calls that launched it on
 the card: each ``*_cuda`` wrapper adds one right after its C entry point
 returned success, and nothing else touches the count (one
-``fused_reduce`` call is two kernel launches, ``reduce_pass1`` and
-``reduce_pass2``; one ``paged_attention`` call is the split and the
-merge kernel, and so is one ``paged_latent_attention`` call; one
-route-S matmul call is the split and the fold
-kernel). ``kahan_matmul`` and ``kahan_matmul_q8`` share the source
-``kahan_matmul.cu`` and are counted apart, each route apart: the tile
-route (wgmma) under those names, the split route under
-``kahan_matmul_split`` / ``kahan_matmul_q8_split``; ``flash_attention``,
+``fused_reduce`` call is one kernel launch; one ``paged_attention`` call
+is the split and the merge kernel, and so is one
+``paged_latent_attention`` call; one route-S matmul call is the split
+and the fold kernel). ``kahan_matmul`` and ``kahan_matmul_q8`` share
+the source ``kahan_matmul.cu`` and are counted apart, each route apart:
+the tile route (wgmma) under those names, the split route under
+``kahan_matmul_split`` / ``kahan_matmul_q8_split``;
 ``flash_attention_wgmma`` (bf16) and ``flash_attention_wgmma_f32`` (the
-same source's f32 kernel) are the three routes of one entry point.
+same source's f32 kernel) are the two routes of one entry point.
 ``reset_launches`` zeroes every count.
 """
 
@@ -42,8 +41,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused_reduce", "paged_attention", "paged_latent_attention",
-           "flash_attention", "flash_attention_wgmma", "kahan_matmul",
-           "kahan_acc")
+           "flash_attention_wgmma", "kahan_matmul", "kahan_acc")
 KERNELS = SOURCES + ("flash_attention_wgmma_f32", "kahan_matmul_split",
                      "kahan_matmul_q8", "kahan_matmul_q8_split")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

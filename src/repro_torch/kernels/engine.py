@@ -6,14 +6,18 @@ Kahan/Neumaier reduction). One pass over the operands emits any subset of
 ``compensated=False``) and ``max``/``maxabs``.
 
 * ``fused_reduce_rows_plain`` / ``fused_reduce_flat_plain`` mirror the
-  reference's stream layout exactly: ``pick_block_elems`` blocks, each
-  reshaped to ``(U, chunks, 8, 128)`` Neumaier streams that persist across
-  blocks, then a TwoSum fold over streams, sublanes and lanes. The
-  compensated outputs are therefore bitwise the reference's.
-* ``fused_reduce_rows_cuda`` launches ``csrc/fused_reduce.cu`` (design and
-  bound in that file). Its stream layout is the GPU's own (per-thread
-  streams, TwoSum block and split folds), so it agrees with the plain
-  twin to the compensated-sum error bound, not bitwise.
+  reference's stream layout exactly: ``block_elems`` blocks (by default
+  ``pick_block_elems``), each reshaped to ``(unroll, chunks, 8, 128)``
+  Neumaier streams that persist across blocks, then a TwoSum fold over
+  streams, sublanes and lanes. The compensated outputs are therefore
+  bitwise the reference's, at its defaults and at any ``unroll`` /
+  ``block_elems`` it accepts.
+* ``fused_reduce_rows_cuda`` launches ``csrc/fused_reduce.cu``, one
+  kernel per call (design and bound in that file). Its stream layout is
+  the GPU's own (splits set by N alone, per-thread streams, warp and
+  split folds in a fixed order), so it agrees with the plain twin to the
+  compensated-sum error bound, not bitwise; its own results are bitwise
+  the same from run to run and for a row at any batch size.
 
 ``fused_reduce_rows`` / ``fused_reduce_flat`` dispatch on the operand's
 device: the plain twin for a CPU tensor, the kernel for a CUDA tensor.
@@ -42,9 +46,8 @@ DEFAULT_UNROLL = {"dot": 4, "sum": 4, "sumsq": 4, None: 4}
 DEFAULT_BLOCK_ELEMS = 32 * TILE
 
 _SLOT = {o: i for i, o in enumerate(ALL_OUTPUTS)}   # kernel output rows
-_SMS = 132                                          # H100 SXM
-_THREADS = 256
-_MIN_SPLIT_ELEMS = _THREADS * 16
+SPLIT_ELEMS = 4096          # least elements per CTA of the kernel
+MAX_SPLITS = 256            # most CTAs per row (``splits``)
 
 
 def default_unroll(outputs) -> int:
@@ -66,15 +69,46 @@ def check_outputs(outputs, n_operands: int) -> tuple[str, ...]:
     return outputs
 
 
-def pick_block_elems(n: int, unroll: int) -> int:
-    """Largest block <= ~DEFAULT_BLOCK_ELEMS, an exact multiple of
-    unroll * TILE (the reference's stream granule); halves while a block
-    would cover more than twice the input."""
+def pick_block_elems(n: int, unroll: int,
+                     requested: int = DEFAULT_BLOCK_ELEMS) -> int:
+    """Largest block <= ~requested, an exact multiple of unroll * TILE
+    (the reference's stream granule) whatever ``requested`` is; halves
+    while a block would cover more than twice the input."""
     floor = unroll * TILE
-    k = max(DEFAULT_BLOCK_ELEMS // floor, 1)
+    k = max(requested // floor, 1)
     while k > 1 and k * floor >= 2 * max(n, 1):
         k //= 2
     return k * floor
+
+
+def block_elems_for(n: int, unroll: int | None,
+                    block_rows: int | None = None) -> int:
+    """Engine block elements for the ``block_rows`` knob of the
+    reference's shims and ``ops`` wrappers (its ``ops._block_elems``):
+    the default blocks without one, blocks of about ``block_rows`` x 128
+    elements with one. ``unroll=None`` is the default unroll, which
+    ``schedule`` resolves alike for every compensated output."""
+    u = default_unroll(("dot",)) if unroll is None else unroll
+    requested = DEFAULT_BLOCK_ELEMS if block_rows is None \
+        else block_rows * LANES
+    return pick_block_elems(n, u, requested=requested)
+
+
+def schedule(outputs, n: int, unroll: int | None = None,
+             block_elems: int | None = None) -> tuple[int, int]:
+    """(unroll, block_elems) as the reference resolves and asserts them:
+    the outputs' default unroll, ``pick_block_elems`` blocks, a power-of-2
+    unroll and blocks that are whole multiples of unroll * TILE, else
+    ``ValueError``."""
+    unroll = default_unroll(outputs) if unroll is None else unroll
+    if unroll < 1 or unroll & (unroll - 1):
+        raise ValueError(f"unroll must be a power of 2, got {unroll}")
+    if block_elems is None:
+        block_elems = pick_block_elems(n, unroll)
+    if block_elems < 1 or block_elems % (unroll * TILE):
+        raise ValueError(f"block_elems {block_elems} is not a multiple of "
+                         f"unroll * TILE = {unroll * TILE}")
+    return unroll, block_elems
 
 
 # ------------------------------------------------------------ plain twin ---
@@ -91,15 +125,15 @@ def _binary_fold_axis(s, c, axis: int):
     return s, c
 
 
-def fused_reduce_rows_plain(operands, *, outputs,
+def fused_reduce_rows_plain(operands, *, outputs, unroll: int | None = None,
+                            block_elems: int | None = None,
                             compensated: bool = True) -> tuple:
-    """(B, N) operands -> tuple of (B,) tensors, in the reference's order
-    (its default unroll and block schedule)."""
+    """(B, N) operands -> tuple of (B,) tensors, in the reference's order:
+    ``unroll`` streams and ``block_elems`` blocks (``schedule``)."""
     operands = tuple(operands)
     outputs = check_outputs(outputs, len(operands))
     b, n = operands[0].shape
-    unroll = default_unroll(outputs)
-    block_elems = pick_block_elems(n, unroll)
+    unroll, block_elems = schedule(outputs, n, unroll, block_elems)
     acc = torch.promote_types(operands[0].dtype, torch.float32)
     nblk = -(-n // block_elems)
     pad = nblk * block_elems - n
@@ -153,26 +187,51 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.repro_fused_reduce_scratch.argtypes = [ctypes.c_int] * 2
+        lib.repro_fused_reduce_scratch.restype = ctypes.c_longlong
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
 
-def splits(rows: int, n: int) -> tuple[int, int]:
-    """(S, seg): splits per row so that rows * S covers the SMs a few
-    times over without making a split shorter than 4096 elements; ``seg``
-    is a multiple of 4 so splits start on 16-byte boundaries."""
-    s = max(1, min(-(-4 * _SMS // rows), -(-n // _MIN_SPLIT_ELEMS)))
-    seg = -(-(-(-n // s)) // 4) * 4
+def splits(n: int) -> tuple[int, int]:
+    """(S, seg): a row of N elements is cut into S splits of ``seg``
+    (the last one ragged), one CTA each: ``SPLIT_ELEMS``, doubled until
+    the row has at most ``MAX_SPLITS``. ``seg`` is set by N alone, so a
+    row's result does not depend on the batch it is in; it is a multiple
+    of 4 so splits start on 16-byte boundaries. Sized on the card by
+    ``tools/reduce_split_sizes.py``."""
+    seg = SPLIT_ELEMS
+    while -(-n // seg) > MAX_SPLITS:
+        seg *= 2
     return -(-n // seg), seg
 
 
-def fused_reduce_rows_cuda(operands, *, outputs,
+# arrival counters of the kernel's last-CTA fold, per (device, stream):
+# zeroed once, and every call leaves them zero
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _counters(dev: torch.device, stream: int, rows: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < rows:
+        buf = torch.zeros(max(rows, 64), dtype=torch.int32, device=dev)
+        _COUNTERS[key] = buf
+    return buf
+
+
+def fused_reduce_rows_cuda(operands, *, outputs, unroll: int | None = None,
+                           block_elems: int | None = None,
                            compensated: bool = True) -> tuple:
-    """Launch ``csrc/fused_reduce.cu`` on (B, N) f32 CUDA operands."""
+    """Launch ``csrc/fused_reduce.cu`` on (B, N) f32 CUDA operands: one
+    kernel per call. ``unroll`` / ``block_elems`` are checked as the
+    reference asserts them, but the kernel streams in its own layout
+    (``splits``, per-thread streams), so they change no number beyond the
+    compensated bound."""
     operands = tuple(operands)
     outputs = check_outputs(outputs, len(operands))
     x = operands[0]
@@ -186,20 +245,22 @@ def fused_reduce_rows_cuda(operands, *, outputs,
     b, n = x.shape
     if n < 1 or b < 1 or b > 65535:
         raise ValueError(f"unsupported shape {tuple(x.shape)}")
+    schedule(outputs, n, unroll, block_elems)
     flags = 0
     for o in outputs:
         flags |= 1 << _SLOT[o]
-    nsplit, seg = splits(b, n)
-    part = torch.empty((len(ALL_OUTPUTS), b, nsplit, 2), dtype=torch.float32,
-                       device=x.device)
+    nsplit, seg = splits(n)
+    lib = _lib()
+    part = torch.empty(lib.repro_fused_reduce_scratch(b, nsplit),
+                       dtype=torch.float32, device=x.device)
     out = torch.empty((len(ALL_OUTPUTS), b), dtype=torch.float32,
                       device=x.device)
     y = operands[1] if len(operands) == 2 else None
-    lib = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.repro_fused_reduce_rows(
         x.data_ptr(), None if y is None else y.data_ptr(), b, n, nsplit, seg,
-        flags, int(compensated), part.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        flags, int(compensated), part.data_ptr(),
+        _counters(x.device, stream, b).data_ptr(), out.data_ptr(), stream)
     if err:
         raise RuntimeError("fused_reduce kernel launch failed: "
                            + lib.repro_error_string(err).decode())
@@ -209,22 +270,24 @@ def fused_reduce_rows_cuda(operands, *, outputs,
 
 # ------------------------------------------------------------ dispatch -----
 
-def fused_reduce_rows(operands, *, outputs,
+def fused_reduce_rows(operands, *, outputs, unroll: int | None = None,
+                      block_elems: int | None = None,
                       compensated: bool = True) -> tuple:
     """(B, N) -> tuple of (B,): plain twin on CPU, the kernel on CUDA."""
     operands = tuple(operands)
-    if operands[0].is_cuda:
-        return fused_reduce_rows_cuda(operands, outputs=outputs,
-                                      compensated=compensated)
-    return fused_reduce_rows_plain(operands, outputs=outputs,
-                                   compensated=compensated)
+    fn = (fused_reduce_rows_cuda if operands[0].is_cuda
+          else fused_reduce_rows_plain)
+    return fn(operands, outputs=outputs, unroll=unroll,
+              block_elems=block_elems, compensated=compensated)
 
 
-def fused_reduce_flat(operands, *, outputs,
+def fused_reduce_flat(operands, *, outputs, unroll: int | None = None,
+                      block_elems: int | None = None,
                       compensated: bool = True) -> tuple:
     """(N,) -> tuple of 0-d tensors: the rows form at B = 1."""
     outs = fused_reduce_rows(tuple(op.reshape(1, -1) for op in operands),
-                             outputs=outputs, compensated=compensated)
+                             outputs=outputs, unroll=unroll,
+                             block_elems=block_elems, compensated=compensated)
     return tuple(o[0] for o in outs)
 
 

@@ -11,14 +11,13 @@ Lk never contribute), masked p is multiplied to 0, and the output is
 
 * ``flash_attention_plain`` walks the reference's (qc, kc) blocks in
   order, one online-softmax step per key block.
-* ``flash_attention_cuda`` launches one of three kernels, by ``route``:
-  inputs whose D and Dv are multiples of 16 up to 128 go to
-  ``csrc/flash_attention_wgmma.cu`` (wgmma on the tensor cores): bf16
-  with p rounded to bf16 for the P V product, f32 with every operand as
-  exact bf16 planes and six plane products per product; other head dims
-  to ``csrc/flash_attention.cu`` (CUDA cores, f32 products). All tile by
-  their own sizes (design and bound in those files), so they agree with
-  the twin at a tolerance, not bitwise.
+* ``flash_attention_cuda`` launches one of two kernels of
+  ``csrc/flash_attention_wgmma.cu`` (wgmma on the tensor cores), by
+  ``route``, for every head dim D, Dv up to 128: bf16 with p rounded to
+  bf16 for the P V product, f32 with every operand as exact bf16 planes
+  and six plane products per product. Head dims are zero-padded to 64 or
+  128 inside the kernel. Both tile by their own sizes (design and bound in
+  that file), so they agree with the twin at a tolerance, not bitwise.
 * ``flash_attention`` dispatches on q's device.
 """
 
@@ -32,7 +31,7 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
-_IO_TYPES = {torch.bfloat16: 0, torch.float32: 1}
+_IO_TYPES = (torch.bfloat16, torch.float32)
 _SMEM_LIMIT = 227 * 1024         # H100 dynamic shared memory per block
 WGMMA_ROWS = 128                 # query rows per CTA of the tensor-core route
 
@@ -102,22 +101,6 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return out
 
 
-def _lib():
-    lib = _build.load("flash_attention")
-    if not getattr(lib, "_typed", False):
-        fn = lib.repro_flash_attention
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.repro_flash_attention_smem.argtypes = [ctypes.c_int] * 2
-        lib.repro_flash_attention_smem.restype = ctypes.c_longlong
-        lib.repro_error_string.argtypes = [ctypes.c_int]
-        lib.repro_error_string.restype = ctypes.c_char_p
-        lib._typed = True
-    return lib
-
-
 def _wgmma_lib():
     lib = _build.load("flash_attention_wgmma")
     if not getattr(lib, "_typed", False):
@@ -139,74 +122,53 @@ def _wgmma_lib():
 
 
 def route(q, k, v) -> str:
-    """The kernel a CUDA call takes, by dtype and head dims alone: where D
-    and Dv are multiples of 16 up to 128, the tensor cores
-    (``csrc/flash_attention_wgmma.cu``): ``flash_attention_wgmma`` for
-    bf16, ``flash_attention_wgmma_f32`` for f32 (exact bf16 planes); else
-    ``flash_attention`` (``csrc/flash_attention.cu``, the CUDA cores, full
-    f32 products). Each counts its launches under its own name in
-    ``_build.launches``."""
+    """The kernel a CUDA call takes, by dtype alone, for every D, Dv up to
+    128 (``csrc/flash_attention_wgmma.cu``, the tensor cores):
+    ``flash_attention_wgmma`` for bf16, ``flash_attention_wgmma_f32`` for
+    f32 (exact bf16 planes). Each counts its launches under its own name
+    in ``_build.launches``. Other dtypes, mixed dtypes and head dims past
+    128 are refused (``ValueError``)."""
     *_, d, dv = _check(q, k, v)
-    if (q.dtype in _IO_TYPES and k.dtype == v.dtype == q.dtype
-            and d % 16 == 0 and dv % 16 == 0 and d <= MAX_HEAD_DIM
-            and dv <= MAX_HEAD_DIM):
-        return ("flash_attention_wgmma" if q.dtype == torch.bfloat16
-                else "flash_attention_wgmma_f32")
-    return "flash_attention"
-
-
-def flash_attention_cuda(q, k, v, *, causal: bool = True, q_block: int = 256,
-                         kv_block: int = 256) -> torch.Tensor:
-    """Launch the route's kernel (``route``); same contract as the plain
-    twin. The kernels pick their own tiles, so ``q_block`` / ``kv_block``
-    change no number beyond rounding."""
-    bh, lq, lk, d, dv = _check(q, k, v)
-    dev = q.device
-    for t in (q, k, v):
-        if not t.is_cuda or t.device != dev or not t.is_contiguous():
-            raise ValueError("flash_attention_cuda takes contiguous tensors "
-                             "on one CUDA device")
     if q.dtype not in _IO_TYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q / k / v must all be f32 or all bf16, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
     if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
         raise ValueError(f"head dims up to {MAX_HEAD_DIM}, got D={d}, "
                          f"Dv={dv}")
+    return ("flash_attention_wgmma" if q.dtype == torch.bfloat16
+            else "flash_attention_wgmma_f32")
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True, q_block: int = 256,
+                         kv_block: int = 256) -> torch.Tensor:
+    """Launch the route's kernel (``route``); same contract as the plain
+    twin. The kernels pick their own tiles, so ``q_block`` / ``kv_block``
+    change no number beyond rounding. Any alignment of the element type is
+    taken: the kernel's loaders copy as wide as the rows allow."""
+    bh, lq, lk, d, dv = _check(q, k, v)
+    dev = q.device
+    for t in (q, k, v):
+        if not t.is_cuda or t.device != dev or not t.is_contiguous():
+            raise ValueError("flash_attention_cuda takes contiguous tensors "
+                             "on one CUDA device")
     name = route(q, k, v)
-    wgmma = name != "flash_attention"
-    if wgmma:
-        if any(t.data_ptr() % 16 for t in (q, k, v)):
-            raise ValueError("the tensor-core route reads 16-byte rows: q / "
-                             "k / v must start 16-byte aligned")
-        lib = _wgmma_lib()
-        if name == "flash_attention_wgmma":
-            rows = WGMMA_ROWS
-            smem = lib.repro_flash_attention_wgmma_smem(d, dv)
-        else:
-            rows = lib.repro_flash_attention_wgmma_f32_rows(d)
-            smem = lib.repro_flash_attention_wgmma_f32_smem(d, dv)
-        if -(-lq // rows) > 65535:
-            raise ValueError(f"Lq={lq} exceeds the grid's 65535 query tiles")
+    lib = _wgmma_lib()
+    if name == "flash_attention_wgmma":
+        fn, rows = lib.repro_flash_attention_wgmma, WGMMA_ROWS
+        smem = lib.repro_flash_attention_wgmma_smem(d, dv)
     else:
-        if bh > 65535:
-            raise ValueError(f"BH={bh} exceeds the grid's 65535")
-        lib = _lib()
-        smem = lib.repro_flash_attention_smem(d, dv)
+        fn = lib.repro_flash_attention_wgmma_f32
+        rows = lib.repro_flash_attention_wgmma_f32_rows(d)
+        smem = lib.repro_flash_attention_wgmma_f32_smem(d, dv)
+    if -(-lq // rows) > 65535:
+        raise ValueError(f"Lq={lq} exceeds the grid's 65535 query tiles")
     if smem > _SMEM_LIMIT:
         raise ValueError(f"D={d}, Dv={dv} need more shared memory than "
                          f"{_SMEM_LIMIT} B")
     out = torch.empty((bh, lq, dv), dtype=q.dtype, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    if wgmma:
-        fn = (lib.repro_flash_attention_wgmma if name == "flash_attention_wgmma"
-              else lib.repro_flash_attention_wgmma_f32)
-        err = fn(*ptrs, bh, lq, lk, d, dv, float(d ** -0.5), int(causal),
-                 stream)
-    else:
-        err = lib.repro_flash_attention(
-            *ptrs, bh, lq, lk, d, dv, float(d ** -0.5), int(causal),
-            _IO_TYPES[q.dtype], stream)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
+             lq, lk, d, dv, float(d ** -0.5), int(causal),
+             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: "
                            + lib.repro_error_string(err).decode())

@@ -1,7 +1,9 @@
 """Compensated scalar product of (M, 128) operands: the historical
 ``kahan_dot_blocked`` entry point (twin of ``repro.kernels.kahan_dot``),
 a shim over the reduction engine (``kernels.engine``; the plain twin on
-a CPU tensor, ``csrc/fused_reduce.cu`` on a CUDA tensor)."""
+a CPU tensor, ``csrc/fused_reduce.cu`` on a CUDA tensor). ``block_rows``
+and ``unroll`` set the plain twin's block schedule as they set the
+reference's."""
 
 from __future__ import annotations
 
@@ -21,9 +23,12 @@ def check_blocked(*operands: torch.Tensor) -> None:
         raise ValueError("operands must have one shape")
 
 
-def kahan_dot_blocked(x2d: torch.Tensor, y2d: torch.Tensor) -> torch.Tensor:
+def kahan_dot_blocked(x2d: torch.Tensor, y2d: torch.Tensor, *,
+                      block_rows: int = 256,
+                      unroll: int | None = None) -> torch.Tensor:
     """Compensated dot of two (M, 128) tensors -> 0-d f32 scalar."""
     check_blocked(x2d, y2d)
-    (out,) = engine.fused_reduce_flat((x2d.reshape(-1), y2d.reshape(-1)),
-                                      outputs=("dot",))
+    (out,) = engine.fused_reduce_flat(
+        (x2d.reshape(-1), y2d.reshape(-1)), outputs=("dot",), unroll=unroll,
+        block_elems=engine.block_elems_for(x2d.numel(), unroll, block_rows))
     return out

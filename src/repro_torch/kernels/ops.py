@@ -21,9 +21,13 @@ from repro_torch.kernels.kahan_matmul import kahan_matmul_q8
 
 
 # ------------------------------------------------------------ reductions --
+# ``unroll`` and ``block_rows`` are the reference's knobs: they set the
+# plain twin's stream layout (bitwise the reference's); the kernel checks
+# them and streams in its own layout (``kernels.engine``).
 
 def batched_fused_reduce(x: torch.Tensor, y: torch.Tensor | None = None, *,
                          outputs=("sum", "sumsq", "maxabs"),
+                         unroll: int | None = None,
                          compensated: bool = True) -> dict:
     """Row-wise fused reduction: (B, N) -> {output: (B,)} in one call."""
     if x.dim() != 2:
@@ -32,13 +36,14 @@ def batched_fused_reduce(x: torch.Tensor, y: torch.Tensor | None = None, *,
     if "dot" in outputs and y is None:
         raise ValueError("'dot' output requires the second operand y")
     operands = (x, y) if "dot" in outputs else (x,)
-    outs = engine.fused_reduce_rows(operands, outputs=outputs,
+    outs = engine.fused_reduce_rows(operands, outputs=outputs, unroll=unroll,
                                     compensated=compensated)
     return dict(zip(outputs, outs))
 
 
 def fused_reduce(x: torch.Tensor, y: torch.Tensor | None = None, *,
                  outputs=("sum", "sumsq", "maxabs"),
+                 unroll: int | None = None,
                  compensated: bool = True) -> dict:
     """One streaming pass over the flattened operands -> {output: scalar}:
     the batched form at B = 1."""
@@ -46,32 +51,52 @@ def fused_reduce(x: torch.Tensor, y: torch.Tensor | None = None, *,
         raise ValueError("x and y must have the same shape")
     out = batched_fused_reduce(
         x.reshape(1, -1), None if y is None else y.reshape(1, -1),
-        outputs=outputs, compensated=compensated)
+        outputs=outputs, unroll=unroll, compensated=compensated)
     return {k: v[0] for k, v in out.items()}
 
 
-def batched_kahan_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def batched_kahan_dot(x: torch.Tensor, y: torch.Tensor, *,
+                      unroll: int | None = None) -> torch.Tensor:
     """Many independent compensated dots in one call: (B, N) x (B, N) ->
     (B,)."""
     if x.dim() != 2 or x.shape != y.shape:
         raise ValueError(f"batched_kahan_dot takes two (B, N) tensors, got "
                          f"{tuple(x.shape)} and {tuple(y.shape)}")
-    return batched_fused_reduce(x, y, outputs=("dot",))["dot"]
+    return batched_fused_reduce(x, y, outputs=("dot",), unroll=unroll)["dot"]
 
 
-def kahan_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def _scalar(operands, output: str, block_rows, unroll,
+            compensated: bool = True) -> torch.Tensor:
+    """One output over the flattened operands, in the blocks that
+    ``block_rows`` / ``unroll`` select."""
+    if any(op.shape != operands[0].shape for op in operands):
+        raise ValueError("x and y must have the same shape")
+    flat = tuple(op.reshape(-1) for op in operands)
+    (out,) = engine.fused_reduce_flat(
+        flat, outputs=(output,), unroll=unroll, compensated=compensated,
+        block_elems=engine.block_elems_for(flat[0].numel(), unroll,
+                                           block_rows))
+    return out
+
+
+def kahan_dot(x: torch.Tensor, y: torch.Tensor, *,
+              block_rows: int | None = None,
+              unroll: int | None = None) -> torch.Tensor:
     """Compensated scalar product of two same-shape tensors -> scalar."""
-    return fused_reduce(x, y, outputs=("dot",))["dot"]
+    return _scalar((x, y), "dot", block_rows, unroll)
 
 
-def kahan_sum(x: torch.Tensor) -> torch.Tensor:
+def kahan_sum(x: torch.Tensor, *, block_rows: int | None = None,
+              unroll: int | None = None) -> torch.Tensor:
     """Compensated full-tensor sum -> scalar."""
-    return fused_reduce(x, outputs=("sum",))["sum"]
+    return _scalar((x,), "sum", block_rows, unroll)
 
 
-def naive_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def naive_dot(x: torch.Tensor, y: torch.Tensor, *,
+              block_rows: int | None = None,
+              unroll: int | None = None) -> torch.Tensor:
     """Baseline (uncompensated) scalar product -> scalar."""
-    return fused_reduce(x, y, outputs=("dot",), compensated=False)["dot"]
+    return _scalar((x, y), "dot", block_rows, unroll, compensated=False)
 
 
 # ------------------------------------------------------------ attention ---

@@ -6,14 +6,14 @@ mode) at the reference test's tolerance (f32 2e-5, bf16 2e-2: the same
 online-softmax steps, matmuls summed in other orders). Causal is the
 Pallas kernel's top-left mask (q_pos >= k_pos), pinned with Lq != Lk,
 where it differs from the bottom-right mask of the reference test's
-oracle. On the card, each CUDA route against the twin: inputs whose D
-and Dv are multiples of 16 up to 128 take the tensor cores, bf16
-(``flash_attention_wgmma``, p rounded to bf16 for P V) and f32
-(``flash_attention_wgmma_f32``, exact bf16 planes), other head dims the
-CUDA-core kernel (``flash_attention``); the CPU tests pin which route
-each call takes and what the wrapper refuses, and emulate the f32
-tensor-core route's arithmetic (planes, six plane products, 64-key
-tiles) against the reference at its f32 tolerance."""
+oracle. On the card, each CUDA route against the twin: every D, Dv up
+to 128 takes the tensor cores, bf16 (``flash_attention_wgmma``, p
+rounded to bf16 for P V) and f32 (``flash_attention_wgmma_f32``, exact
+bf16 planes), head dims zero-padded inside the kernel; the CPU tests pin
+which route each call takes and what the wrapper refuses, and emulate
+the f32 tensor-core route's arithmetic (planes, six plane products,
+64-key tiles, head dims padded with zeros) against the reference at its
+f32 tolerance."""
 
 import pytest
 
@@ -111,19 +111,28 @@ def test_shapes_are_checked():
     (torch.bfloat16, 128, 128, "flash_attention_wgmma"),
     (torch.bfloat16, 16, 112, "flash_attention_wgmma"),
     (torch.bfloat16, 64, 128, "flash_attention_wgmma"),
-    (torch.bfloat16, 40, 40, "flash_attention"),      # D not a multiple of 16
-    (torch.bfloat16, 64, 24, "flash_attention"),      # Dv not one either
-    (torch.bfloat16, 144, 64, "flash_attention"),     # past 128: refused
+    (torch.bfloat16, 40, 40, "flash_attention_wgmma"),   # padded to 64
+    (torch.bfloat16, 64, 24, "flash_attention_wgmma"),   # Dv padded
+    (torch.bfloat16, 144, 64, None),                     # past 128: refused
+    (torch.bfloat16, 127, 1, "flash_attention_wgmma"),   # 2-byte rows
     (torch.float32, 64, 64, "flash_attention_wgmma_f32"),   # exact planes
     (torch.float32, 128, 32, "flash_attention_wgmma_f32"),
     (torch.float32, 16, 112, "flash_attention_wgmma_f32"),
-    (torch.float32, 40, 40, "flash_attention"),       # D not a multiple of 16
-    (torch.float32, 64, 24, "flash_attention"),       # Dv not one either
-    (torch.float32, 144, 64, "flash_attention"),      # past 128: refused
+    (torch.float32, 40, 40, "flash_attention_wgmma_f32"),   # padded to 64
+    (torch.float32, 64, 24, "flash_attention_wgmma_f32"),   # Dv padded
+    (torch.float32, 144, 64, None),                         # refused
+    (torch.float32, 36, 100, "flash_attention_wgmma_f32"),
+    (torch.float16, 64, 64, None),                          # no f16 route
 ])
 def test_route_by_dtype_and_head_dims(dtype, d, dv, want):
+    """Every D, Dv up to 128 takes the tensor-core route of its dtype;
+    head dims past 128 and other dtypes are refused."""
     q = torch.zeros(2, 5, d, dtype=dtype)
     v = torch.zeros(2, 7, dv, dtype=dtype)
+    if want is None:
+        with pytest.raises(ValueError):
+            route(q, torch.zeros(2, 7, d, dtype=dtype), v)
+        return
     assert route(q, torch.zeros(2, 7, d, dtype=dtype), v) == want
     assert want in tops.launches
 
@@ -145,13 +154,14 @@ def _six(a, b):
     return a[0] @ b[0] + small
 
 
-def _emulate_wgmma_f32(q, k, v, causal):
+def _emulate_wgmma_f32(q, k, v, causal, scale_dim=None):
     """csrc/flash_attention_wgmma.cu's f32 route in torch ops: 64-key
     tiles, scores and P V as six plane products, the softmax in base 2
-    of the log2-scaled score, acc = acc * corr + P V."""
+    of the log2-scaled score, acc = acc * corr + P V. ``scale_dim`` is
+    the real head dim where q / k come padded."""
     _, lq, d = q.shape
     lk = k.shape[1]
-    scale_log2 = np.float32(d ** -0.5 * np.log2(np.e))
+    scale_log2 = np.float32((scale_dim or d) ** -0.5 * np.log2(np.e))
     qp = _split3(q)
     m = torch.full((q.shape[0], lq, 1), -1e30)
     l = torch.zeros_like(m)
@@ -184,14 +194,48 @@ def test_f32_tensor_core_emulation_matches_reference(lq, lk, d, qb, kb,
                                rtol=2e-5)
 
 
-@pytest.mark.parametrize("case", ["cpu", "shape", "rank", "empty"])
+def _pad(x, width):
+    """x with its last dim zero-padded to ``width`` (the kernel's panel)."""
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
+@pytest.mark.parametrize("lq,lk,d,dv,causal", [
+    (130, 257, 40, 24, True), (100, 100, 40, 40, False),
+    (70, 90, 36, 36, True), (3, 7, 36, 100, False), (64, 65, 127, 8, True)])
+def test_f32_tensor_core_emulation_odd_head_dims(lq, lk, d, dv, causal):
+    """The f32 route at head dims that are no multiple of 16: q / k and v
+    zero-padded to the kernel's 64- or 128-wide panels, the six plane
+    products over the padded panels (the padded columns add +0 to every
+    score), the padded output columns dropped; held to the reference at
+    its f32 tolerance, and the padding changes no bit of the emulation."""
+    rng = np.random.default_rng(lq + d + dv)
+    arrs = [rng.standard_normal((3, n, w)).astype(np.float32)
+            for n, w in ((lq, d), (lk, d), (lk, dv))]
+    q, k, v = (torch.from_numpy(a) for a in arrs)
+    assert route(q, k, v) == "flash_attention_wgmma_f32"
+    want = rfa.flash_attention_pallas(*(jnp.asarray(a) for a in arrs),
+                                      causal=causal, q_block=64,
+                                      kv_block=64, interpret=True)
+    dp, dvp = (64 if w <= 64 else 128 for w in (d, dv))
+    padded = _emulate_wgmma_f32(_pad(q, dp), _pad(k, dp), _pad(v, dvp),
+                                causal, scale_dim=d)
+    assert not padded[..., dv:].any()
+    got = padded[..., :dv]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+    assert torch.equal(got, _emulate_wgmma_f32(q, k, v, causal))
+
+
+@pytest.mark.parametrize("case", ["cpu", "shape", "rank", "empty", "wide"])
 def test_cuda_wrapper_refuses(case):
     """What ``flash_attention_cuda`` raises before it touches a card."""
     q = torch.zeros(2, 5, 64, dtype=torch.bfloat16)
+    wide = torch.zeros(2, 5, 144, dtype=torch.bfloat16)
     args = {"cpu": (q, q, q),
             "shape": (q, torch.zeros(2, 6, 32, dtype=torch.bfloat16), q),
             "rank": (q[0], q[0], q[0]),
-            "empty": (q[:, :0], q, q)}[case]
+            "empty": (q[:, :0], q, q),
+            "wide": (wide, wide, q)}[case]
     before = dict(tops.launches)
     with pytest.raises(ValueError):
         flash_attention_cuda(*args)
@@ -219,13 +263,17 @@ def test_cuda_kernel_matches_plain():
 TENSOR_CORE_CASES = [
     (1, 257, 64, 64, False), (1, 1, 64, 64, True), (257, 1, 64, 64, True),
     (40, 100, 32, 32, True), (200, 300, 64, 128, True),
-    (200, 300, 128, 32, False), (482, 482, 64, 64, False)]
+    (200, 300, 128, 32, False), (482, 482, 64, 64, False),
+    (130, 257, 40, 24, True), (70, 90, 36, 36, False),
+    (100, 100, 127, 100, True), (65, 64, 8, 72, True)]
 
 
 @pytest.mark.parametrize("lq,lk,d,dv,causal", TENSOR_CORE_CASES)
 def test_cuda_tensor_core_route_matches_plain(lq, lk, d, dv, causal):
-    """The tensor-core route on one-row and one-key calls, Dv != D and
-    both head-dim panels, at the bf16 tolerance (2e-2 abs + rel)."""
+    """The tensor-core route on one-row and one-key calls, Dv != D, both
+    head-dim panels and head dims that are no multiple of 16 (bf16 rows of
+    36 and 127 elements are not 16-byte aligned), at the bf16 tolerance
+    (2e-2 abs + rel)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
     rng = np.random.default_rng(3)
@@ -246,8 +294,7 @@ def test_cuda_tensor_core_route_matches_plain(lq, lk, d, dv, causal):
     (256, 256, 128, 128, True), (130, 257, 16, 112, True)])
 def test_cuda_f32_tensor_core_route_matches_plain(lq, lk, d, dv, causal):
     """The f32 tensor-core route (exact planes) on the same grid, at the
-    f32 tolerance (2e-5 abs + rel); a head dim of 40 stays on the CUDA
-    cores."""
+    f32 tolerance (2e-5 abs + rel); a head dim of 40 takes it too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
     rng = np.random.default_rng(4)
@@ -262,10 +309,10 @@ def test_cuda_f32_tensor_core_route_matches_plain(lq, lk, d, dv, causal):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
     odd = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
            .cuda() for s in ((4, lq, 40), (4, lk, 40), (4, lk, 40))]
-    assert route(*odd) == "flash_attention"
-    before = tops.launches["flash_attention"]
+    assert route(*odd) == "flash_attention_wgmma_f32"
+    before = tops.launches["flash_attention_wgmma_f32"]
     got = flash_attention_cuda(*odd, causal=causal)
-    assert tops.launches["flash_attention"] == before + 1
+    assert tops.launches["flash_attention_wgmma_f32"] == before + 1
     torch.testing.assert_close(got, flash_attention_plain(*odd,
                                                           causal=causal),
                                atol=2e-5, rtol=2e-5)

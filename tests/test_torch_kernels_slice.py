@@ -31,6 +31,7 @@ from repro.quant import core as rq  # noqa: E402
 from repro_torch.kernels import kahan_dot as tkd  # noqa: E402
 from repro_torch.kernels import kahan_sum as tks  # noqa: E402
 from repro_torch.kernels import naive_dot as tnd  # noqa: E402
+from repro_torch.kernels.engine import LANES  # noqa: E402
 
 R, T = rker.ops, tker.ops
 
@@ -211,6 +212,84 @@ def case_ref_oracles():
     assert rr.condition_number(x) == tr.condition_number(tx)
 
 
+def _ill_conditioned(m, seed):
+    """(m, 128) f32: +-1e6 pairs that cancel exactly plus unit normals,
+    shuffled; sum|x| ~ 1e11 against a sum of a few hundred, so a
+    different stream layout changes the last bits of the compensated
+    sum."""
+    rng = np.random.default_rng(seed)
+    n = m * LANES
+    a = rng.standard_normal(n // 3) * 1e6
+    x = np.concatenate([a, -a, rng.standard_normal(n - 2 * (n // 3))])
+    x = x.astype(np.float32)
+    rng.shuffle(x)
+    return x.reshape(m, LANES)
+
+
+@pytest.mark.parametrize("shim", ["kahan_sum", "kahan_dot", "naive_dot"])
+@pytest.mark.parametrize("block_rows,unroll", [
+    (None, None), (64, 1), (64, 2), (64, 4), (256, 1), (256, 2), (256, 4),
+    (512, 1), (512, 2), (512, 4)])
+def test_blocked_shims_follow_reference_schedule(shim, block_rows, unroll):
+    """The ``*_blocked`` shims at the reference's defaults (None: 256 rows
+    for the dots, 512 for the sum) and at explicit ``block_rows`` /
+    ``unroll``, on 2048 x 128 ill-conditioned rows: the compensated sum and
+    dot bitwise the reference's, the naive dot at the naive bound (XLA
+    orders a block's sums). With the engine's default blocks instead of
+    512-row ones, ``kahan_sum_blocked`` differs from the reference here."""
+    x, y = _ill_conditioned(2048, 2), _ill_conditioned(2048, 3)
+    kw = {} if block_rows is None else dict(block_rows=block_rows,
+                                            unroll=unroll)
+    jx, jy = jnp.asarray(x), jnp.asarray(y)
+    if shim == "kahan_sum":
+        _bitwise(rks.kahan_sum_blocked(jx, interpret=True, **kw),
+                 tks.kahan_sum_blocked(_t(x), **kw))
+    elif shim == "kahan_dot":
+        _bitwise(rkd.kahan_dot_blocked(jx, jy, interpret=True, **kw),
+                 tkd.kahan_dot_blocked(_t(x), _t(y), **kw))
+    else:
+        rkw = {k: v for k, v in kw.items() if k == "block_rows"}
+        bound = 2100 * 2.0 ** -24 * float(np.abs(x * y).astype(
+            np.float64).sum())
+        want = float(rnd.naive_dot_blocked(jx, jy, interpret=True, **rkw))
+        got = float(tnd.naive_dot_blocked(_t(x), _t(y), **kw))
+        assert abs(got - want) <= bound
+    if block_rows is None and shim == "kahan_sum":
+        (engine_default,) = tker.engine.fused_reduce_flat_plain(
+            (_t(x).reshape(-1),), outputs=("sum",))
+        assert float(engine_default) != float(tks.kahan_sum_blocked(_t(x)))
+
+
+def test_ops_take_the_reference_knobs():
+    """``ops.kahan_dot`` / ``kahan_sum`` / ``naive_dot`` take
+    ``block_rows`` and ``unroll``, the fused forms ``unroll``, mapped as
+    the reference maps them: compensated results bitwise."""
+    x, y = _ill_conditioned(600, 3), _ill_conditioned(600, 4)
+    jx, jy, tx, ty = jnp.asarray(x), jnp.asarray(y), _t(x), _t(y)
+    for kw in (dict(block_rows=64, unroll=2), dict(block_rows=512),
+               dict(unroll=1)):
+        _bitwise(R.kahan_sum(jx, interpret=True, **kw),
+                 T.kahan_sum(tx, **kw))
+        _bitwise(R.kahan_dot(jx, jy, interpret=True, **kw),
+                 T.kahan_dot(tx, ty, **kw))
+        bound = 2100 * 2.0 ** -24 * float(np.abs(x * y).astype(
+            np.float64).sum())
+        assert abs(float(R.naive_dot(jx, jy, interpret=True, **kw))
+                   - float(T.naive_dot(tx, ty, **kw))) <= bound
+    for u in (1, 2):
+        _bitwise(R.batched_kahan_dot(jx, jy, unroll=u, interpret=True),
+                 T.batched_kahan_dot(tx, ty, unroll=u))
+        want = R.fused_reduce(jx, outputs=("sum", "sumsq"), unroll=u,
+                              interpret=True)
+        got = T.fused_reduce(tx, outputs=("sum", "sumsq"), unroll=u)
+        for k in want:
+            _bitwise(want[k], got[k])
+        want = R.batched_fused_reduce(jx, outputs=("sum",), unroll=u,
+                                      interpret=True)
+        _bitwise(want["sum"], T.batched_fused_reduce(tx, outputs=("sum",),
+                                                     unroll=u)["sum"])
+
+
 CASES = {name[5:]: fn for name, fn in sorted(globals().items())
          if name.startswith("case_")}
 
@@ -230,7 +309,7 @@ def test_public_surface():
                  "kahan_accumulate", "paged_attention", "q8_matmul"):
         assert callable(getattr(T, name)), name
     assert set(T.launches) == {"fused_reduce", "paged_attention",
-                               "paged_latent_attention", "flash_attention",
+                               "paged_latent_attention",
                                "flash_attention_wgmma",
                                "flash_attention_wgmma_f32", "kahan_matmul",
                                "kahan_matmul_q8", "kahan_acc",

@@ -11,6 +11,8 @@ naive-summation bound instead. The CUDA kernel is compared with the
 plain twin on the card (skipped without a GPU).
 """
 
+import inspect
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -18,6 +20,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from _hypothesis_fallback import given, settings, strategies as st  # noqa: E402,E501
 from repro.kernels import engine as re  # noqa: E402
 from repro.kernels import ops as rops  # noqa: E402
 from repro_torch.kernels import engine as te  # noqa: E402
@@ -128,6 +131,9 @@ def test_block_schedule_matches_reference():
     for n in (1, 100, 4097, 151936, 10_000_000):
         for u in (1, 2, 4, 8):
             assert te.pick_block_elems(n, u) == re.pick_block_elems(n, u)
+            for req in (1000, 64 * 128, 512 * 128):
+                assert te.pick_block_elems(n, u, requested=req) == \
+                    re.pick_block_elems(n, u, requested=req)
     assert te.default_unroll(("max", "sumsq")) == \
         re.default_unroll(("max", "sumsq"))
 
@@ -146,9 +152,67 @@ def test_dispatch_checks():
 
 
 def test_splits_cover_rows():
-    for b, n in ((8, 151936), (1, 1 << 24), (3, 5), (64, 4096)):
-        s, seg = te.splits(b, n)
+    for n in (151936, 102400, 1 << 24, 5, 4096):
+        s, seg = te.splits(n)
         assert seg % 4 == 0 and s * seg >= n and (s - 1) * seg < n
+
+
+@settings(max_examples=50, deadline=None)
+@given(st.integers(min_value=1, max_value=1 << 26))
+def test_splits_depend_on_n_alone(n):
+    """The kernel's split geometry takes N and nothing else (no batch
+    size, no device), so a row's bits are the same at any B; the splits
+    cover the row, start on 16-byte boundaries, never outnumber
+    ``MAX_SPLITS``, and their length does not shrink as N grows."""
+    s, seg = te.splits(n)
+    assert list(inspect.signature(te.splits).parameters) == ["n"]
+    assert seg % 4 == 0 and s * seg >= n and (s - 1) * seg < n
+    assert s <= te.MAX_SPLITS and seg >= te.SPLIT_ELEMS
+    assert te.splits(n) == (s, seg)
+    assert te.splits(n + 1)[1] >= seg
+
+
+@pytest.mark.parametrize("unroll,block_elems", [
+    (1, 1024), (1, 5 * 1024), (2, 2048), (2, 8 * 2048), (4, 4096),
+    (4, 16 * 4096), (8, 8192)])
+@pytest.mark.parametrize("compensated", [True, False])
+def test_rows_plain_explicit_schedule(unroll, block_elems, compensated):
+    """``fused_reduce_rows_plain`` with the reference's ``unroll`` /
+    ``block_elems`` is bitwise the reference's compensated result at the
+    same values (maxima too); naive sums at the naive bound (XLA orders
+    a block's sums)."""
+    x, y = _data((3, 40000), unroll + block_elems)
+    outputs = ("dot", "sum", "sumsq", "max", "maxabs")
+    jops = (jnp.asarray(x), jnp.asarray(y))
+    want = re.fused_reduce_rows(jops, outputs=outputs, unroll=unroll,
+                                block_elems=block_elems,
+                                compensated=compensated, interpret=True)
+    got = te.fused_reduce_rows_plain(
+        (torch.from_numpy(x), torch.from_numpy(y)), outputs=outputs,
+        unroll=unroll, block_elems=block_elems, compensated=compensated)
+    terms = {"dot": np.abs(x * y), "sum": np.abs(x), "sumsq": x * x}
+    for o, w, g in zip(outputs, want, got):
+        w, g = np.asarray(w), g.numpy()
+        if compensated or o not in terms:
+            np.testing.assert_array_equal(w.view(np.uint32),
+                                          g.view(np.uint32), err_msg=o)
+        else:
+            depth = 40000 / block_elems + block_elems / 1024 + 1024
+            bound = depth * F32_EPS * terms[o].astype(np.float64).sum(1)
+            assert np.all(np.abs(w.astype(np.float64) - g) <= bound), o
+
+
+def test_schedule_is_checked_as_the_reference_asserts():
+    x = torch.zeros(2, 3000)
+    for kw in (dict(unroll=3), dict(unroll=0), dict(unroll=4,
+                                                    block_elems=2048),
+               dict(block_elems=1000)):
+        with pytest.raises(ValueError):
+            te.fused_reduce_rows((x,), outputs=("sum",), **kw)
+    with pytest.raises(ValueError):
+        tops.batched_fused_reduce(x, outputs=("sum",), unroll=3)
+    assert te.schedule(("sum",), 3000) == (4, 4096)
+    assert te.schedule(("max",), 3000, 2, 6144) == (2, 6144)
 
 
 @pytest.mark.parametrize("compensated", [True, False])
