@@ -47,19 +47,38 @@ Phases (each prints its own lines; any failure exits non-zero):
              (HBM 3.35 TB/s, f32 CUDA-core 67 TFLOP/s, bf16 tensor
              cores 989 TFLOP/s; H100 SXM data sheet); a row whose
              profiler window shows none of its kernels fails, and so does
-             a fused_reduce call that launches more than one kernel;
+             a fused_reduce call that launches more than one kernel; the
+             verify window's rows: B1 and B3 at B = 8, W = 5, B2 at
+             [40, 151936];
 6. small   — reduced qwen1.5 and reduced deepseek-v2 served on the card
              and on the CPU (plain twins) from the same weights: logits
              agree;
-7. serve   — two main paths behind ``DecodeEngine``, each with its launch
-             counters zeroed just before and read just after: full-width
-             qwen1.5-0.5b (24 layers) and full-width deepseek-v2-236b cut
-             to 3 layers (1 dense + 2 MoE; MLA latent pools), random
-             seeded weights, 8 slots, 16 requests of 64-512 prompt tokens,
-             32 new tokens each; the counters must match the decode-step
-             count; then a profiled decode window of each, used only when
-             it holds every paged-attention launch it should and one
-             fused_reduce kernel per reduction call.
+7. verify  — the speculative verify window (``verify_fn``) for 8 slots x
+             5 tokens against 5 sequential ``decode_fn`` steps on a copy
+             of the cache: full-width qwen1.5-0.5b over bf16, int8 and
+             fp8 pools and the 3-layer deepseek-v2-236b (MoE tokens routed
+             differently in the window are left out and printed); prints
+             the formulation noise N (max |logit difference|), holds the
+             argmax, the written entries (one storage step), ``len``
+             before and after ``set_lens`` and one attention launch per
+             layer;
+8. serve   — the main paths, each with its launch counters zeroed just
+             before and read just after: full-width qwen1.5-0.5b (24
+             layers) behind ``DecodeEngine`` over bf16, int8 and fp8
+             pools, then behind ``SpecDecodeEngine`` with an n-gram
+             proposer (spec_k 4) and a self-draft (``DraftModelProposer``
+             on the same weights, spec_k 3), whose streams must equal the
+             bf16 ``DecodeEngine`` streams but past a printed near-tie
+             (a verify row's top-2 gap within 4 N); full-width
+             deepseek-v2-236b cut to 3 layers (1 dense + 2 MoE; MLA latent
+             pools) behind ``DecodeEngine`` and ``SpecDecodeEngine``
+             (n-gram, spec_k 4). Random seeded weights, 8 slots, 16
+             requests of 64-512 prompt tokens, 32 new tokens each; the
+             counters must match the decode, verify and draft steps;
+             every non-spec path and the n-gram qwen path end in a
+             profiled window of 4 steps, used only when it holds every
+             paged-attention launch it should and one fused_reduce kernel
+             per reduction call.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``. Imports nothing of ``jax`` or of the
@@ -619,11 +638,12 @@ def phase_latent_parity(dev) -> float:
 
 
 # the (rows, vocab) shapes the two served paths hand the reduction: an
-# 8-slot decode step and a request's first token, at qwen1.5's and
-# deepseek-v2's vocab widths. The split geometry follows N alone: 151936
-# gives 38 splits of 4096 with a ragged last one, 102400 gives 25 of 4096
-# and no tail.
-REDUCE_SHAPES = ((8, 151936), (1, 151936), (8, 102400), (1, 102400))
+# 8-slot decode step, a request's first token and a verify step (8 slots
+# x (k + 1) = 5 window positions), at qwen1.5's and deepseek-v2's vocab
+# widths. The split geometry follows N alone: 151936 gives 38 splits of
+# 4096 with a ragged last one, 102400 gives 25 of 4096 and no tail.
+REDUCE_SHAPES = ((8, 151936), (1, 151936), (8, 102400), (1, 102400),
+                 (40, 151936), (40, 102400))
 
 
 def phase_reduce_parity(dev) -> float:
@@ -924,6 +944,90 @@ def phase_times(dev):
         f"(f32 products) would be bound at "
         f"""{bound(nbytes, 0, pa.latent_flops(x["q_lat"], x["q_rope"],
                                             x["q_offsets"]))[0]:.4f} ms""")
+    out.update(verify_times(dev, flush))
+    return out
+
+
+def _window_mask(lens, w: int, length: int):
+    """[B, 1, W, L] bool: query row j of a sequence sees the keys below
+    lens - W + j + 1 (the window was just appended)."""
+    import torch
+    kpos = torch.arange(length, device=lens.device)
+    lim = (lens[:, None] - w + 1
+           + torch.arange(w, device=lens.device)[None, :])      # [B, W]
+    return (kpos[None, None, :] < lim[:, :, None])[:, None]
+
+
+def verify_times(dev, flush) -> dict:
+    """The three kernels of the verify window at its shapes: B1 and B3 at
+    B = 8 slots, W = k + 1 = 5 rows each (the decode rows' tables and
+    lengths, the window the last 5 positions), and B2 over the window's
+    [8 x 5, 151936] logits. Libraries: SDPA on the gathered rows with the
+    window's causal mask (B3's in f32); none for B2."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import engine
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import paged
+    w = VERIFY_K + 1
+    lens = [544, 65, 300, 400, 97, 512, 130, 256]
+    out = {}
+    x = attention_case(dev, mb=64, w=w, lens=lens)
+    args = (x["q"], x["kpool"], x["vpool"], x["block_table"], x["lens"],
+            x["q_offsets"])
+    kg = paged.gather_blocks(x["kpool"], x["block_table"]).transpose(1, 2)
+    vg = paged.gather_blocks(x["vpool"], x["block_table"]).transpose(1, 2)
+    mask = _window_mask(x["lens"], w, kg.shape[2])
+    qs = x["q"].transpose(1, 2)
+    keys = int(mask.sum())                  # (row, key) pairs the data needs
+    out["paged_attention_verify"] = time_row(
+        flush, "paged_attention W=5", lambda: pa.paged_attention_cuda(*args),
+        lambda: pa.paged_attention_plain(*args),
+        lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask),
+        PAGED_KERNELS,
+        pa.bytes_moved(x["q"], x["kpool"], x["vpool"], x["block_table"],
+                       x["lens"]),
+        0, 4 * keys * x["q"].shape[2] * x["q"].shape[3], F32_FLOPS_PER_S,
+        f"B=8 W={w} Hq=Hkv=16 D=64 bs=16 tokens={int(x['lens'].sum())} "
+        f"bf16 pools, the verify window (library: SDPA on gathered rows, "
+        f"window-causal mask)", plain_reps=5)
+    x = latent_case(dev, mb=64, w=w, lens=lens)
+    largs, kw = _latent_args(x)
+    ckg = paged.gather_blocks(x["ck_pool"], x["block_table"]).float()
+    krg = paged.gather_blocks(x["kr_pool"], x["block_table"]).float()
+    h = x["q_lat"].shape[2]
+    kq = torch.cat([ckg, krg], dim=-1)[:, None].expand(-1, h, -1, -1)
+    vq = ckg[:, None].expand(-1, h, -1, -1)
+    qq = torch.cat([x["q_lat"], x["q_rope"].float()], dim=-1).transpose(1, 2)
+    lmask = _window_mask(x["lens"], w, ckg.shape[1])
+    out["paged_latent_attention_verify"] = time_row(
+        flush, "paged_latent_attention W=5",
+        lambda: pa.paged_latent_attention_cuda(*largs, **kw),
+        lambda: pa.paged_latent_attention_plain(*largs, **kw),
+        lambda: F.scaled_dot_product_attention(qq, kq, vq, attn_mask=lmask,
+                                               scale=x["scale"]),
+        LATENT_KERNELS,
+        pa.latent_bytes_moved(x["q_lat"], x["q_rope"], x["ck_pool"],
+                              x["kr_pool"], x["block_table"], x["lens"]),
+        pa.latent_tensor_flops(x["q_lat"], x["q_rope"], x["ck_pool"],
+                               x["q_offsets"]), 0, BF16_FLOPS_PER_S,
+        f"B=8 W={w} H=128 C=512 R=64 bs=16 tokens={int(x['lens'].sum())}, "
+        f"the verify window, bf16 tensor-core passes (library: SDPA on "
+        f"gathered rows, f32, window-causal mask)", plain_reps=2)
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = 8 * w
+    lg = torch.randn((rows, 151936), generator=g, device=dev)
+    outs = ("max", "sum", "sumsq")
+    out["fused_reduce_verify"] = time_row(
+        flush, "fused_reduce [40,151936]",
+        lambda: engine.fused_reduce_rows_cuda((lg,), outputs=outs),
+        lambda: engine.fused_reduce_rows_plain((lg,), outputs=outs), None,
+        ("fused_reduce_kernel",),
+        engine.bytes_moved(rows, 151936, 1, len(outs)), 0,
+        rows * 151936 * (6 + 1 + 6 + 1), F32_FLOPS_PER_S,
+        f"[{rows},151936] (max,sum,sumsq), a verify step's first call, one "
+        f"launch (library: none, no single PyTorch call computes the "
+        f"compensated fused statistics)", plain_reps=3)
     return out
 
 
@@ -1556,30 +1660,275 @@ def make_requests(cfg, n: int = 16, new_tokens: int = 32):
     return reqs
 
 
-def phase_serve(dev, kind: str, cfg, what: str):
-    """One main path: ``cfg`` behind ``DecodeEngine`` on the card. The
-    launch counters are zeroed just before the 16 requests run and read
-    just after; each decode step must have launched the model's attention
-    kernel once per layer and the reduction twice, plus twice per
-    request's first token."""
+# the verify window: spec_k of the verify parity and n-gram phases (windows
+# of k + 1 = 5 rows per slot), and of the self-draft phase
+VERIFY_K = 4
+DRAFT_K = 3
+STORAGE_STEP = {"bf16": 2.0 ** -7, "int8": 1 / 127, "fp8": 1 / 8}
+SCALE_OF = {"kpool": "kscale", "vpool": "vscale", "c_kv": "c_kv_scale",
+            "k_rope": "k_rope_scale"}
+
+
+def phase_verify_parity(dev, cfg, params, label: str) -> float:
+    """The verify window against the decode steps it replaces, on the
+    card. 8 prompts of 17-480 tokens are prefilled; then, on copies of
+    that cache:
+
+    * control: a 1-token window through ``verify_fn`` against one
+      ``decode_fn`` step. Same rows, same GEMM shapes (M = 8), the
+      superkernel at width 1 both ways: logits and written entries must
+      be bitwise equal;
+    * the window: 5 tokens per slot (the decode steps' greedy stream)
+      through ``verify_fn`` against 5 decode steps. Its GEMMs run at
+      M = 40 rows and cuBLAS picks its kernels by M, so they sum in
+      another order; N, the max |logit difference|, is that formulation
+      noise after it has travelled through the model;
+    * the same 5 decode steps at 40 slots (slots 8-39 idle): decode
+      with the window's GEMM rows, M = 40. The window must be these
+      steps bitwise, logits and written entries: so N is the distance
+      between decode at M = 40 and at M = 8 (printed), the GEMMs'
+      dependence on M that the model's depth amplifies.
+
+    Fails unless: the control is bitwise; the window is the M = 40
+    decode steps bitwise; the window's argmax is equal
+    at every position, or differs only at a near-tie, printed (a decode
+    row whose top-2 gap is within 4x the median row deviation; a
+    differing argmax always has a gap within 2x its own row's deviation,
+    so the median keeps the rule from holding by construction); layer
+    0's written entries, whose inputs are the same tokens, are within
+    one storage step of the decode steps' (bf16 2^-7, int8 1/127, fp8
+    1/8 of the row's largest value: the CPU test's bound; the deeper
+    layers' are printed); ``len`` is exact before and after
+    ``set_lens``; each window launched the model's attention kernel once
+    per layer and nothing else. MoE tokens routed to other experts in
+    the window than in decode (capacity and router near-ties depend on
+    which tokens share a call) are printed and left out from there on in
+    their slot. Returns N."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.models import api
-    from repro_torch.serving.engine import DecodeEngine
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = api.init_params(cfg, device=dev, seed=SEED)
-    engine = DecodeEngine(cfg, params, max_slots=8, max_context=1024,
-                          block_size=16, prefill_chunk=256, device=dev)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    reqs = make_requests(cfg)
+    from repro_torch.models import api, paged
+    from repro_torch.quant import core as qcore
+    w = VERIFY_K + 1
+    lens = [100, 37, 250, 480, 17, 300, 64, 129]
+    b = len(lens)
+    kv = api.KVCache.build(cfg, max_context=1024, block_size=16, max_slots=b)
+    base = kv.init(b, device=dev)
+    table = paged.identity_table(b, kv.layout, device=dev)
+    g = torch.Generator().manual_seed(SEED + 2)
+    for s, n in enumerate(lens):
+        paged.reset_slot(base, s, table[s])
+        prompt = torch.randint(0, cfg.vocab_size, (1, n), generator=g,
+                               dtype=torch.int32).to(dev)
+        for p0 in range(0, n, 256):
+            api.prefill_chunk_fn(cfg)(params, prompt[:, p0:p0 + 256], base,
+                                      s, p0)
+    first = torch.randint(0, cfg.vocab_size, (b,), generator=g,
+                          dtype=torch.int32).to(dev)
+    slots = torch.arange(b, dtype=torch.int32, device=dev)
+    pos0s = torch.tensor(lens, dtype=torch.int32, device=dev)
+    bs = kv.layout.block_size
+    names = ("c_kv", "k_rope") if cfg.mla is not None else ("kpool", "vpool")
+    attn = "paged_latent_attention" if cfg.mla is not None \
+        else "paged_attention"
+
+    def copy(c):
+        return {k: v.clone() for k, v in c.items()}
+
+    def entries(c, name, width):
+        """[L, b, width, ...] f32: the entries at pos0..pos0+width-1."""
+        pos = pos0s[:, None].long() + torch.arange(width, device=dev)[None]
+        blk = torch.gather(c["block_table"][0, :b].long(), 1, pos // bs)
+        v = qcore.cast_f32(c[name][:, blk, pos % bs])
+        if SCALE_OF[name] in c:
+            v = v * c[SCALE_OF[name]][:, blk, pos % bs][..., None]
+        return v
+
+    def verify(c, win):
+        ops.reset_launches()
+        out = api.verify_fn(cfg)(params, win, c, slots, pos0s)
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in ops.launches.items() if v}
+
+    # control: one token through both paths at M = 8
+    cv, cd = copy(base), copy(base)
+    one, one_launch = verify(cv, first[:, None].contiguous())
+    dec_one = api.decode_fn(cfg)(params, first[:, None], cd)
+    control = torch.equal(one[:, 0], dec_one) and all(
+        torch.equal(entries(cv, n, 1), entries(cd, n, 1)) for n in names)
+    # the window against 5 decode steps
+    caches, dec = copy(base), copy(base)
+    toks = [first]
+    rows = []
+    routes = _RouteLog() if cfg.moe is not None else None
+    for _ in range(w):
+        lg = api.decode_fn(cfg)(params, toks[-1][:, None], dec)
+        rows.append(lg)
+        toks.append(torch.argmax(lg, dim=-1).to(torch.int32))
+    want = torch.stack(rows, 1)                                 # [b, w, V]
+    win = torch.stack(toks[:w], 1).contiguous()
+    dec_routes = routes.take() if routes is not None else None
+    got, launches = verify(caches, win)
+    win_routes = routes.take() if routes is not None else None
+    # the same decode steps with the window's M = b * w GEMM rows: slots
+    # b.. idle on the null block
+    m = b * w
+    kvm = api.KVCache.build(cfg, max_context=1024, block_size=16,
+                            max_slots=m, num_blocks=kv.num_blocks)
+    dm = kvm.init(m, device=dev)
+    for k, v in base.items():
+        if k in ("block_table", "len"):
+            dm[k][:, :b] = v
+        else:
+            dm[k].copy_(v)
+    tm = torch.zeros((m, 1), dtype=torch.int32, device=dev)
+    rows_m = []
+    for j in range(w):
+        tm[:b, 0] = toks[j]
+        rows_m.append(api.decode_fn(cfg)(params, tm, dm)[:b])
+    rows_m = torch.stack(rows_m, 1)
+    keep = torch.ones((b, w), dtype=torch.bool, device=dev)
+    if routes is not None:
+        flipped = routes.compare(dec_routes, win_routes, b, w, cfg.moe) | \
+            routes.compare(routes.take(), win_routes, b, w, cfg.moe)
+        keep = torch.cumsum(flipped.to(torch.int32), dim=1) == 0
+        routes.close()
+        log(f"[verify] {label} {cfg.kv_dtype} pools: tokens routed to other "
+            f"experts in the window than in decode (M = {b} or {m}): "
+            f"{flipped.nonzero().tolist()}; positions left out from there "
+            f"on: {int((~keep).sum())} of {b * w}")
+    if not bool(keep.any()):
+        fail(f"verify {label} {cfg.kv_dtype}: every position was routed "
+             f"to other experts than in decode")
+    n_dec = float((rows_m - want).abs().amax(dim=-1)[keep].max())
+    same = torch.equal(rows_m[keep], got[keep]) and all(
+        torch.equal(entries(dm, n, w)[:, keep],
+                    entries(caches, n, w)[:, keep]) for n in names)
+    row_dev = (got - want).abs().amax(dim=-1)[keep]
+    noise = float(row_dev.max())
+    typical = float(row_dev.median())
+    top2 = torch.topk(want, 2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    differ = ((got.argmax(-1) != want.argmax(-1)) & keep).nonzero().tolist()
+    ties = [(i, j, float(gap[i, j])) for i, j in differ]
+    step = STORAGE_STEP[cfg.kv_dtype]
+    per_layer = torch.zeros(cfg.num_layers, device=dev)
+    for name in names:
+        a, e = entries(caches, name, w)[:, keep], entries(dec, name, w)[:, keep]
+        amax = e.abs().amax(dim=-1, keepdim=True)
+        dev_steps = ((a - e).abs() / (step * amax + 1e-6))
+        per_layer = torch.maximum(per_layer, dev_steps.flatten(1).amax(1))
+    per_layer = [round(float(x), 3) for x in per_layer]
+    lens_ok = torch.equal(caches["len"], dec["len"])
+    new = pos0s + 2                         # as if one draft was accepted
+    paged.set_lens(caches, slots, new)
+    paged.set_lens(dec, slots, new)
+    lens_ok = lens_ok and torch.equal(caches["len"], dec["len"]) and \
+        bool((caches["len"] == new[None, :]).all())
+    log(f"[verify] {label} {cfg.kv_dtype} pools, 8 slots, contexts "
+        f"{min(lens)}-{max(lens)}: control (1-token window vs one decode "
+        f"step, M = 8 both) bitwise {control}, launches {one_launch}; "
+        f"{w}-token window vs {w} decode steps: N = max|logit diff| "
+        f"{noise:.4g} (median row {typical:.4g}); the decode steps at "
+        f"M = {m} against M = {b}: max|logit diff| {n_dec:.4g}; the window "
+        f"against the decode steps at M = {m}: bitwise (logits and "
+        f"entries) {same}; argmax differs "
+        f"at {len(ties)} of {int(keep.sum())} positions {ties} (accepted "
+        f"only at a decode top-2 gap <= 4x the median row deviation); "
+        f"written entries per layer, in storage steps ({step:.4g} x the "
+        f"row's max |value|; layer 0 must stay within 1): {per_layer}; "
+        f"len exact before and after set_lens {lens_ok}; launches "
+        f"{launches}")
+    if got.shape != (b, w, cfg.vocab_size) or \
+            not bool(torch.isfinite(got).all()):
+        fail(f"verify {label} {cfg.kv_dtype}: logits {tuple(got.shape)}, "
+             f"finite {bool(torch.isfinite(got).all())}")
+    if not control or one_launch != {attn: cfg.num_layers}:
+        fail(f"verify {label} {cfg.kv_dtype}: the 1-token window is not "
+             f"the decode step bitwise (or launched {one_launch})")
+    if not same:
+        fail(f"verify {label} {cfg.kv_dtype}: the window is not the decode "
+             f"steps at the same M = {m} bitwise")
+    if any(t[2] > 4 * typical for t in ties):
+        fail(f"verify {label} {cfg.kv_dtype}: an argmax differs past a "
+             f"near-tie")
+    if per_layer[0] > 1.0 or not lens_ok or \
+            launches != {attn: cfg.num_layers}:
+        fail(f"verify {label} {cfg.kv_dtype}: layer 0 entries "
+             f"{per_layer[0]} steps, len exact {lens_ok}, launches "
+             f"{launches}")
+    return noise
+
+
+class _RouteLog:
+    """Records the experts ``moe._top_k`` picks, call by call, while it is
+    open: the MoE layers of one decode step, or of one verify window."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self._moe, self._top_k = moe, moe._top_k
+        self._calls = []
+
+        def recording(probs, k):
+            vals, idx = self._top_k(probs, k)
+            self._calls.append(idx)
+            return vals, idx
+
+        moe._top_k = recording
+
+    def take(self) -> list:
+        calls, self._calls = self._calls, []
+        return calls
+
+    def close(self) -> None:
+        self._moe._top_k = self._top_k
+
+    def kept(self, idx, cfg):
+        """[T, k] picks -> the experts each token keeps after capacity
+        (``moe.moe_forward``'s stable sort by expert: earlier tokens
+        win), dropped picks as -1, sorted."""
+        import torch
+        t, k = idx.shape
+        flat = idx.reshape(-1)
+        order = torch.sort(flat, stable=True).indices
+        counts = torch.bincount(flat, minlength=cfg.num_experts)
+        offsets = torch.cumsum(counts, 0) - counts
+        ranks = torch.empty_like(flat)
+        ranks[order] = (torch.arange(t * k, device=flat.device)
+                        - offsets[flat[order]])
+        cap = self._moe.capacity(t, cfg)
+        return torch.where(ranks < cap, flat, -1).reshape(t, k) \
+            .sort(dim=-1).values
+
+    def compare(self, dec: list, win: list, b: int, w: int, cfg):
+        """[b, w] bool: token (slot, position) kept other experts in a MoE
+        layer of the window than in its decode step. ``dec`` holds w steps
+        x m layers of picks whose first b rows are the slots (idle rows
+        after them), ``win`` m layers of [b * w, k]."""
+        import torch
+        m = len(win)
+        flipped = torch.zeros((b, w), dtype=torch.bool,
+                              device=win[0].device)
+        for layer in range(m):
+            v = self.kept(win[layer], cfg).reshape(b, w, -1)
+            for j in range(w):
+                flipped[:, j] |= (self.kept(dec[j * m + layer], cfg)[:b]
+                                  != v[:, j]).any(dim=-1)
+        return flipped
+
+
+def serve_run(engine, reqs) -> tuple[float, list, dict]:
+    """Submit ``reqs``, zero the launch counters, run ``engine`` until
+    every request finishes and read the counters. Returns the wall time
+    (s), the host-clock time of each decode (or verify) step (ms; a step
+    ends in its one host transfer) and the counters."""
+    import torch
+    from repro_torch.kernels import ops
     step_ms = []
     decode_step = engine._decode_step
 
     def timed_decode_step():
         t = time.perf_counter()
-        decode_step()                 # ends in the step's host transfer
+        decode_step()
         step_ms.append(1e3 * (time.perf_counter() - t))
 
     engine._decode_step = timed_decode_step
@@ -1592,55 +1941,250 @@ def phase_serve(dev, kind: str, cfg, what: str):
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
     engine._decode_step = decode_step   # the profile window is not timed
+    return wall, step_ms, launches
+
+
+def check_served(what: str, engine, reqs, launches: dict, want: dict,
+                 new_tokens: int = 32) -> None:
+    """Every request done with its full output, no guard trip, finite
+    statistics, and the launch counters equal to the calls the path
+    makes."""
+    import torch
+    if not all(r.done and len(r.output) == new_tokens for r in reqs):
+        fail(f"{what}: a request did not finish with its full output")
+    if engine.kv_stats["guard_trips"] or engine.quarantined:
+        fail(f"{what}: the numerics guard tripped (non-finite or round-off "
+             f"logits)")
+    if not all(bool(torch.isfinite(torch.as_tensor(v)).all())
+               for v in engine.last_logit_stats.values()):
+        fail(f"{what}: non-finite logit statistics")
+    full = dict.fromkeys(launches, 0)
+    full.update(want)
+    if launches != full:
+        fail(f"{what}: launch counters {launches} != {full}")
+
+
+def phase_serve(dev, kind: str, cfg, what: str, params) -> dict:
+    """One main path: ``cfg`` behind ``DecodeEngine`` on the card. The
+    launch counters are zeroed just before the 16 requests run and read
+    just after; each decode step must have launched the model's attention
+    kernel once per layer and the reduction twice, plus twice per
+    request's first token."""
+    import torch
+    from repro_torch.serving.engine import DecodeEngine
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = DecodeEngine(cfg, params, max_slots=8, max_context=1024,
+                          block_size=16, prefill_chunk=256, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    reqs = make_requests(cfg)
+    wall, step_ms, launches = serve_run(engine, reqs)
     step_med = statistics.median(step_ms)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     st = engine.kv_stats
     emitted = sum(len(r.output) for r in reqs)
-    log(f"[serve] {what} on {kind}: 16 requests, prompts "
-        f"{min(len(r.prompt) for r in reqs)}-"
+    log(f"[serve] {what} {cfg.kv_dtype} pools on {kind}: 16 requests, "
+        f"prompts {min(len(r.prompt) for r in reqs)}-"
         f"{max(len(r.prompt) for r in reqs)} tokens, {emitted} tokens "
         f"emitted in {wall:.3f} s = {emitted / wall:.2f} tok/s; "
         f"{st['decode_steps']} decode steps, median step "
         f"{step_med:.3f} ms; {st['prefill_chunks']} prefill chunks; "
-        f"set-up {setup_s:.2f} s; peak device memory {peak_gib:.2f} GiB")
+        f"engine set-up {setup_s:.2f} s; peak device memory {peak_gib:.2f} "
+        f"GiB")
     log(f"[serve] launching wrapper calls {launches} (each fused_reduce "
         f"call is one kernel launch); guard trips {st['guard_trips']}")
-    if not all(r.done and len(r.output) == 32 for r in reqs):
-        fail("a request did not finish with its full output")
-    if st["guard_trips"] or engine.quarantined:
-        fail("the numerics guard tripped (non-finite or round-off logits)")
-    stats = engine.last_logit_stats
-    if not all(bool(torch.isfinite(torch.as_tensor(v)).all())
-               for v in stats.values()):
-        fail("non-finite logit statistics")
     attn = "paged_latent_attention" if cfg.mla is not None \
         else "paged_attention"
-    want = dict.fromkeys(launches, 0)
-    want[attn] = cfg.num_layers * st["decode_steps"]
-    want["fused_reduce"] = 2 * (st["decode_steps"] + len(reqs))
-    if launches != want:
-        fail(f"launch counters {launches} != {want}")
+    check_served(f"{cfg.name} {cfg.kv_dtype} serve", engine, reqs, launches,
+                 {attn: cfg.num_layers * st["decode_steps"],
+                  "fused_reduce": 2 * (st["decode_steps"] + len(reqs))})
     profile_decode(engine, cfg)
     log(f"[serve] peak device memory with the profiled window "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    return launches, emitted / wall, step_med
+    return dict(launches=launches, tok_s=emitted / wall, step_ms=step_med,
+                streams={r.rid: list(r.output) for r in reqs})
 
 
-def profile_decode(engine, cfg, n_steps: int = 4) -> None:
-    """A steady decode window under ``torch.profiler``: 8 fresh requests
-    (256-token prompts) are prefilled, then ``n_steps`` engine steps (pure
-    decode, all 8 slots busy) are traced. Prints the device busy time per
-    step, the device idle share of the window's wall time, kernels
-    launched per step, and the kernels that take the most device time.
+class SpecProbe:
+    """Beside a ``SpecDecodeEngine`` run, per verify step: the top-2 gap of
+    every window row, and the gap between the top logit and the logit of
+    the draft each row judged, mapped to (request, output index). Costs a
+    top-2 and a gather over the [S, C, V] logits and one small transfer
+    per step (torch ops, no counted launch)."""
+
+    def __init__(self, engine):
+        import numpy as np
+        import torch
+        from repro_torch.spec import greedy_verify
+        self.engine = engine
+        self.gaps: dict = {}            # rid -> {output index: top-2 gap}
+        self.rejections: list = []      # (rid, index, draft, target, gap)
+        verify = engine._verify
+        verify_fused = engine._verify_fused
+        held = {}
+
+        def probed_verify(*args):
+            held["logits"] = verify(*args)
+            return held["logits"]
+
+        def probed_verify_fused(tokens, slots, pos0s, ks):
+            decoding = [engine.scheduler.decoding[s]
+                        for s in sorted(engine.scheduler.decoding)]
+            packed = verify_fused(tokens, slots, pos0s, ks)
+            lg = held.pop("logits")
+            top2 = torch.topk(lg, 2, dim=-1).values
+            tok = torch.from_numpy(tokens).to(lg.device).long()
+            drafted = torch.gather(lg[:, :-1], 2, tok[:, 1:, None])[..., 0]
+            gap = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+            dgap = (top2[:, :-1, 0] - drafted).cpu().numpy()
+            argmax = packed[0].astype(np.int32).reshape(tokens.shape)
+            for i, req in enumerate(decoding):
+                acc, emitted = greedy_verify(argmax[i],
+                                             tokens[i, 1:1 + ks[i]].tolist())
+                base = len(req.output)
+                for j in range(len(emitted)):
+                    self.gaps.setdefault(req.rid, {})[base + j] = \
+                        float(gap[i, j])
+                if acc < ks[i]:
+                    self.rejections.append(
+                        (req.rid, base + acc, int(tokens[i, 1 + acc]),
+                         int(argmax[i, acc]), float(dgap[i, acc])))
+            return packed
+
+        self._verify = verify
+        engine._verify = probed_verify
+        engine._verify_fused = probed_verify_fused
+
+    def detach(self) -> None:
+        self.engine._verify = self._verify
+        del self.engine._verify_fused
+
+
+def check_streams(what: str, reqs, base: dict, probe: SpecProbe,
+                  noise: float) -> int:
+    """Each stream equals the non-spec stream, or first differs at a token
+    whose verify row's top-2 gap is within 4 N (a near-tie that the
+    formulation noise N may order either way; printed). Returns the
+    number of such near-ties."""
+    ties = 0
+    for r in reqs:
+        want = base[r.rid]
+        p = next((i for i, (a, b) in enumerate(zip(r.output, want))
+                  if a != b), None)
+        if p is None:
+            if len(r.output) != len(want):
+                fail(f"{what}: request {r.rid} emitted {len(r.output)} "
+                     f"tokens, the non-spec run {len(want)}")
+            continue
+        gap = probe.gaps.get(r.rid, {}).get(p)
+        log(f"[spec] {what}: request {r.rid} first differs from the non-spec "
+            f"stream at token {p} ({r.output[p]} vs {want[p]}); the verify "
+            f"row's top-2 gap there {gap} (near-tie limit 4 N = "
+            f"{4 * noise:.4g})")
+        if gap is None or gap > 4 * noise:
+            fail(f"{what}: request {r.rid}'s stream differs from the non-spec "
+                 f"stream past a near-tie")
+        ties += 1
+    return ties
+
+
+def phase_spec(dev, kind: str, cfg, what: str, params, proposer: str,
+               spec_k: int, base: dict | None = None,
+               noise: float | None = None, profile: bool = False) -> dict:
+    """A speculative main path: ``cfg`` behind ``SpecDecodeEngine`` with
+    an n-gram proposer or a self-draft (``DraftModelProposer`` on the
+    same weights), on the 16 requests of the serve phases, counters
+    zeroed just before and read just after: the attention kernel once
+    per layer per verify step and per draft decode step, the reduction
+    twice per verify step and per first token. With ``base`` (the
+    non-spec phase's streams) the streams must equal it under the
+    near-tie rule of ``check_streams``; a self-draft rejection whose
+    draft logit sits more than 4 N below the row's top fails."""
+    import torch
+    from repro_torch.serving.engine import SpecDecodeEngine
+    from repro_torch.spec import DraftModelProposer, NGramProposer
+    torch.cuda.reset_peak_memory_stats()
+    prop = NGramProposer() if proposer == "ngram" else \
+        DraftModelProposer(cfg, params)
+    engine = SpecDecodeEngine(cfg, params, proposer=prop, spec_k=spec_k,
+                              max_slots=8, max_context=1024, block_size=16,
+                              prefill_chunk=256, device=dev)
+    draft_calls = [0]
+    if proposer == "draft":
+        draft_decode = prop._decode
+
+        def counted_decode(*args):
+            draft_calls[0] += 1
+            return draft_decode(*args)
+
+        prop._decode = counted_decode
+    probe = SpecProbe(engine) if base is not None else None
+    reqs = make_requests(cfg)
+    wall, step_ms, launches = serve_run(engine, reqs)
+    if probe is not None:
+        probe.detach()
+    step_med = statistics.median(step_ms)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    st = engine.kv_stats
+    emitted = sum(len(r.output) for r in reqs)
+    label = f"{cfg.name} spec {proposer} k={spec_k}"
+    log(f"[spec] {what} on {kind}, {proposer} proposer, spec_k {spec_k}: 16 "
+        f"requests, {emitted} tokens emitted in {wall:.3f} s = "
+        f"{emitted / wall:.2f} tok/s; {st['spec_steps']} verify steps, "
+        f"median verify step {step_med:.3f} ms (proposer included); "
+        f"{draft_calls[0]} draft decode steps; acceptance rate "
+        f"{engine.acceptance_rate:.4f} ({st['spec_accepted']} of "
+        f"{st['spec_drafted']} drafts), mean accepted length "
+        f"{engine.mean_accepted_length:.4f} tokens per walk "
+        f"({st['spec_emitted']} over {st['spec_slot_steps']} walks); peak "
+        f"device memory {peak_gib:.2f} GiB")
+    log(f"[spec] launching wrapper calls {launches}; guard trips "
+        f"{st['guard_trips']}")
+    attn = "paged_latent_attention" if cfg.mla is not None \
+        else "paged_attention"
+    check_served(label, engine, reqs, launches,
+                 {attn: cfg.num_layers * (st["spec_steps"] + draft_calls[0]),
+                  "fused_reduce": 2 * (st["spec_steps"] + len(reqs))})
+    ties = 0
+    if probe is not None:
+        if proposer == "draft":
+            for rid, idx, d, t, gap in probe.rejections:
+                log(f"[spec] {label}: request {rid} token {idx}: draft {d} "
+                    f"rejected for {t}, the draft's logit {gap:.4g} below "
+                    f"the row's top (near-tie limit 4 N = {4 * noise:.4g})")
+            if any(gap > 4 * noise for *_, gap in probe.rejections):
+                fail(f"{label}: a self-draft rejection past a near-tie")
+        ties = check_streams(label, reqs, base, probe, noise)
+        log(f"[spec] {label}: streams equal the non-spec phase's but for "
+            f"{ties} near-tie divergences; {len(probe.rejections)} "
+            f"rejections")
+    if profile:
+        profile_decode(engine, cfg, what="verify")
+    return dict(launches=launches, tok_s=emitted / wall, step_ms=step_med,
+                acceptance=engine.acceptance_rate,
+                accepted_len=engine.mean_accepted_length,
+                draft_calls=draft_calls[0], ties=ties)
+
+
+def profile_decode(engine, cfg, n_steps: int = 4, what: str = "decode"
+                   ) -> None:
+    """A steady decode (or verify) window under ``torch.profiler``: 8 fresh
+    requests (256-token prompts) are prefilled, then ``n_steps`` engine
+    steps (pure decode or verify, all 8 slots busy) are traced. Prints the
+    device busy time per step, the device idle share of the window's wall
+    time, kernels launched per step, and the kernels that take the most
+    device time.
 
     The tracer now and then loses device events (``kernel_ms``), which
     would read low here. So a window counts only when it holds exactly
     ``n_steps`` x the layers' launches of the paged-attention kernels (one
     split and one merge per layer and step: B1's for a GQA model, B3's for
     MLA, whose split and merge run once per chunk of the table's
-    partitions); otherwise the window is traced again with fresh requests
-    after 0.5 s, ``PROFILE_TRIES`` times at most, and then the phase
-    fails."""
+    partitions) and 2 x ``n_steps`` of ``fused_reduce_kernel``; otherwise
+    the window is traced again with fresh requests after 0.5 s,
+    ``PROFILE_TRIES`` times at most, and then the phase fails. A verify
+    window's engine has an n-gram proposer, which launches nothing."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import paged_attention as pa
@@ -1652,6 +2196,9 @@ def profile_decode(engine, cfg, n_steps: int = 4) -> None:
         want *= -(-engine.layout.max_blocks
                   // (lib.repro_paged_latent_attention_slots()
                       * lib.repro_paged_latent_attention_chunk()))
+    # a request emits up to spec_k + 1 tokens per step; none may finish
+    # inside the window
+    per_step = getattr(engine, "spec_k", 0) + 1
     g = torch.Generator().manual_seed(SEED + 1)
     lost = 0
     for attempt in range(PROFILE_TRIES):
@@ -1659,7 +2206,7 @@ def profile_decode(engine, cfg, n_steps: int = 4) -> None:
             prompt = torch.randint(0, cfg.vocab_size, (256,), generator=g)
             engine.submit(Request(rid=100 + engine.max_slots * attempt + i,
                                   prompt=prompt.tolist(),
-                                  max_new_tokens=n_steps + 2))
+                                  max_new_tokens=n_steps * per_step + 2))
         while engine.scheduler.waiting or engine.scheduler.prefilling:
             engine.step()
         torch.cuda.synchronize()
@@ -1680,22 +2227,22 @@ def profile_decode(engine, cfg, n_steps: int = 4) -> None:
                 reduce_n == 2 * n_steps:
             break
         lost += 1
-        log(f"[profile] {cfg.name} decode window, try {attempt + 1}: the "
+        log(f"[profile] {cfg.name} {what} window, try {attempt + 1}: the "
             f"profiler lost device events ({counts}, want {want} each; "
             f"fused_reduce_kernel {reduce_n}, want {2 * n_steps}); tracing "
             f"again")
         time.sleep(0.5)
     else:
-        fail(f"{cfg.name}: every decode window lost device events")
+        fail(f"{cfg.name}: every {what} window lost device events")
     busy_ms = sum(_device_us(ev) for ev in kern) / 1e3 / n_steps
-    per_step = sum(ev.count for ev in kern) / n_steps
-    log(f"[profile] {cfg.name} decode window, {n_steps} steps x 8 slots: wall "
-        f"{wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step, "
-        f"device idle share {1 - busy_ms / wall_ms:.3f}, "
-        f"{per_step:.0f} kernels/step; launches of {', '.join(names)}: "
-        f"{counts} (want {want} each), of fused_reduce_kernel {reduce_n} "
-        f"(two calls per step, one kernel each); windows lost to the "
-        f"profiler: {lost}")
+    per_step_k = sum(ev.count for ev in kern) / n_steps
+    log(f"[profile] {cfg.name} {cfg.kv_dtype} {what} window, {n_steps} "
+        f"steps x 8 slots: wall {wall_ms:.3f} ms/step, device busy "
+        f"{busy_ms:.3f} ms/step, device idle share "
+        f"{1 - busy_ms / wall_ms:.3f}, {per_step_k:.0f} kernels/step; "
+        f"launches of {', '.join(names)}: {counts} (want {want} each), of "
+        f"fused_reduce_kernel {reduce_n} (two calls per step, one kernel "
+        f"each); windows lost to the profiler: {lost}")
     label = "MLA latent attention" if cfg.mla is not None else \
         "GQA attention"
     mine = [ev for ev in kern if any(n in ev.key for n in names)]
@@ -1719,6 +2266,7 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails when run outside the repo)
     from repro_torch import device as _device
     from repro_torch.configs import get_config
+    from repro_torch.models import api
     dev = torch.device("cuda")
     _device.set_numerics()
     kind, _ = phase_device()
@@ -1741,38 +2289,96 @@ def main() -> int:
     torch.cuda.empty_cache()
     for arch in SMALL_ARCHS:
         phase_small(dev, arch)
-    q_launch, q_tok_s, q_step = phase_serve(
-        dev, kind, qwen, "qwen1.5-0.5b full width (24 L, d 1024, 16 H, "
-        f"vocab 151936, random weights seed {SEED})")
+    # qwen1.5-0.5b at full width and depth: the verify window against the
+    # decode steps over each pool format, the three non-spec serve paths,
+    # then the two speculative ones (their streams held to the bf16 one)
+    q_what = ("qwen1.5-0.5b full width (24 L, d 1024, 16 H, vocab 151936, "
+              f"random weights seed {SEED})")
+    q_params = api.init_params(qwen, device=dev, seed=SEED)
+    wall = {}                     # seconds each phase took, host clock
+    t0 = time.perf_counter()
+    noise = {kvd: phase_verify_parity(dev, qwen.with_(kv_dtype=kvd),
+                                      q_params, "qwen1.5-0.5b")
+             for kvd in ("bf16", "int8", "fp8")}
+    wall["qwen1.5-0.5b verify x3"] = time.perf_counter() - t0
+    q_paths = {}
+    for kvd in ("bf16", "int8", "fp8"):
+        t0 = time.perf_counter()
+        q_paths[f"qwen1.5-0.5b {kvd}"] = phase_serve(
+            dev, kind, qwen.with_(kv_dtype=kvd), q_what, q_params)
+        wall[f"qwen1.5-0.5b {kvd}"] = time.perf_counter() - t0
+    base = q_paths["qwen1.5-0.5b bf16"]["streams"]
+    t0 = time.perf_counter()
+    q_paths["qwen1.5-0.5b spec n-gram"] = phase_spec(
+        dev, kind, qwen, q_what, q_params, "ngram", VERIFY_K, base=base,
+        noise=noise["bf16"], profile=True)
+    wall["qwen1.5-0.5b spec n-gram"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q_paths["qwen1.5-0.5b spec self-draft"] = phase_spec(
+        dev, kind, qwen, q_what, q_params, "draft", DRAFT_K, base=base,
+        noise=noise["bf16"])
+    wall["qwen1.5-0.5b spec self-draft"] = time.perf_counter() - t0
+    del q_params
+    torch.cuda.empty_cache()
     # deepseek-v2 at full width, depth cut to 3 (1 dense + 2 MoE layers):
-    # 60 layers are 236 B parameters; 3 layers are ~9.3 B, 37 GB in f32
+    # 60 layers are 236 B parameters; 3 layers are ~9.3 B, 37 GB in f32.
+    # Its weights are built once for the serve path, the verify window and
+    # the speculative path (no stream equality: MoE capacity routing
+    # depends on which tokens share a call)
     ds = get_config("deepseek-v2-236b").with_(num_layers=3)
-    d_launch, d_tok_s, d_step = phase_serve(
-        dev, kind, ds, "deepseek-v2-236b full width, 3 L (1 dense + 2 MoE; "
-        "d 5120, MLA 128 H kv_lora 512 rope 64, 160 experts top-6 + 2 "
-        f"shared, vocab 102400; random weights seed {SEED})")
+    d_what = ("deepseek-v2-236b full width, 3 L (1 dense + 2 MoE; d 5120, "
+              "MLA 128 H kv_lora 512 rope 64, 160 experts top-6 + 2 shared, "
+              f"vocab 102400; random weights seed {SEED})")
+    d_params = api.init_params(ds, device=dev, seed=SEED)
+    t0 = time.perf_counter()
+    d_paths = {"deepseek-v2-236b": phase_serve(dev, kind, ds, d_what,
+                                               d_params)}
+    wall["deepseek-v2-236b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    noise["deepseek-v2-236b"] = phase_verify_parity(dev, ds, d_params,
+                                                    "deepseek-v2-236b 3 L")
+    wall["deepseek-v2-236b verify"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d_paths["deepseek-v2-236b spec n-gram"] = phase_spec(
+        dev, kind, ds, d_what, d_params, "ngram", VERIFY_K)
+    wall["deepseek-v2-236b spec n-gram"] = time.perf_counter() - t0
+    del d_params
+    torch.cuda.empty_cache()
+
+    def by_path(paths, name):
+        return {k: v["launches"][name] for k, v in paths.items()}
+
+    spec_paths = ("qwen1.5-0.5b spec n-gram", "qwen1.5-0.5b spec self-draft")
+    pa_by = by_path(q_paths, "paged_attention")
+    lat_by = by_path(d_paths, "paged_latent_attention")
+    red_by = {**by_path(q_paths, "fused_reduce"),
+              **by_path(d_paths, "fused_reduce"),
+              "flat entry points": k_launch["fused_reduce"]}
     kernels = [
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/csrc/paged_attention.cu",
              replaces="src/repro/kernels/paged_attention.py:307",
-             launches=q_launch["paged_attention"], max_abs_err=attn_err,
-             **times["paged_attention"]),
+             launches=sum(pa_by.values()), launches_by_path=pa_by,
+             max_abs_err=attn_err, **times["paged_attention"],
+             verify=dict(launches=sum(pa_by[p] for p in spec_paths),
+                         **times["paged_attention_verify"])),
         dict(name="fused_reduce", route="cuda",
              source="src/repro_torch/csrc/fused_reduce.cu",
              replaces="src/repro/kernels/engine.py:327",
-             launches=q_launch["fused_reduce"] + d_launch["fused_reduce"]
-             + k_launch["fused_reduce"],
-             launches_by_path={"qwen1.5-0.5b": q_launch["fused_reduce"],
-                               "deepseek-v2-236b": d_launch["fused_reduce"],
-                               "flat entry points": k_launch["fused_reduce"]},
+             launches=sum(red_by.values()), launches_by_path=red_by,
              max_abs_err=red_err, **times["fused_reduce"],
+             verify=dict(launches=sum(red_by[p] for p in spec_paths)
+                         + red_by["deepseek-v2-236b spec n-gram"],
+                         **times["fused_reduce_verify"]),
              flat=dict(replaces="src/repro/kernels/engine.py:282",
                        max_abs_err=flat_err, **times["fused_reduce_flat"])),
         dict(name="paged_latent_attention", route="cuda",
              source="src/repro_torch/csrc/paged_latent_attention.cu",
              replaces="src/repro/kernels/paged_attention.py:354",
-             launches=d_launch["paged_latent_attention"],
-             max_abs_err=lat_err, **times["paged_latent_attention"]),
+             launches=sum(lat_by.values()), launches_by_path=lat_by,
+             max_abs_err=lat_err, **times["paged_latent_attention"],
+             verify=dict(launches=lat_by["deepseek-v2-236b spec n-gram"],
+                         **times["paged_latent_attention_verify"])),
         *(dict(name=name, route="cuda",
                source="src/repro_torch/csrc/flash_attention_wgmma.cu",
                replaces="src/repro/kernels/flash_attention.py:144",
@@ -1793,9 +2399,16 @@ def main() -> int:
              launches=k_launch["kahan_acc"], max_abs_err=acc_err,
              **times["kahan_acc"]),
     ]
-    log(f"[serve] qwen1.5-0.5b: tok/s {q_tok_s:.3f}, median decode step "
-        f"{q_step:.3f} ms; deepseek-v2-236b (3 L): tok/s {d_tok_s:.3f}, "
-        f"median decode step {d_step:.3f} ms")
+    for name, r in {**q_paths, **d_paths}.items():
+        extra = "" if "acceptance" not in r else (
+            f", acceptance rate {r['acceptance']:.4f}, mean accepted length "
+            f"{r['accepted_len']:.4f}, near-tie divergences {r['ties']}")
+        log(f"[serve] {name}: tok/s {r['tok_s']:.3f}, median step "
+            f"{r['step_ms']:.3f} ms{extra}")
+    log(f"[verify] formulation noise N (max |verify - decode| logits): "
+        f"{noise}")
+    log(f"[serve] seconds per phase, profile windows included: "
+        f"{ {k: round(v, 1) for k, v in wall.items()} }")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -146,7 +146,9 @@ def paged_attention(q: torch.Tensor, kpool: torch.Tensor,
         fn = (_pa.paged_latent_attention_cuda if q.is_cuda
               else _pa.paged_latent_attention_plain)
         return fn(*args, ck_scale=kscale, kr_scale=rope_scale, scale=scale)
-    args = (q, kpool, vpool, table, lens.contiguous(), offs.contiguous())
+    # q arrives transposed in memory from rope when W > 1 (a verify window)
+    args = (q.contiguous(), kpool, vpool, table, lens.contiguous(),
+            offs.contiguous())
     if q.is_cuda:
         return _pa.paged_attention_cuda(*args, kscale=kscale, vscale=vscale,
                                         scale=scale)

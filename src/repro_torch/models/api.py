@@ -51,6 +51,23 @@ def prefill_chunk_fn(cfg: ModelConfig) -> Callable:
                                                           pos0, cfg)
 
 
+def verify_fn(cfg: ModelConfig) -> Callable:
+    """(params, tokens [S, C], caches, slots [S], pos0s [S]) -> logits
+    [S, C, V] f32; caches in place.
+
+    One pass appends and scores every slot's draft window against the
+    paged KV (quantized pools included); position j's logits score the
+    token after tokens[:, j]. The caller rolls rejected suffixes back
+    with ``paged.set_lens``. Paged-KV attention families only."""
+    if cfg.family in ("audio", "hybrid", "ssm"):
+        raise NotImplementedError(
+            f"speculative verify serves paged-KV attention families, "
+            f"not {cfg.family!r}")
+    cfg.check_supported()
+    return lambda p, t, c, slots, pos0s: lm.lm_verify_chunk(p, t, c, slots,
+                                                           pos0s, cfg)
+
+
 def to_device(tree, device):
     """A parameter tree (nested dicts and per-layer lists) on ``device``."""
     if isinstance(tree, dict):

@@ -10,6 +10,10 @@
   CUDA kernel for CUDA tensors. So on the card decode-written KV is not
   bitwise prefill-written KV (kernel vs flash formulation); this slice
   relies on no such parity.
+* The speculative verify window (``gqa_verify_chunk``) runs the same
+  superkernel at width C, the reference's TPU branch, on both devices:
+  row w of the window is bitwise the width-1 decode call at its
+  position on the same pools.
 
 Caches are updated IN PLACE: the K/V (and scale) pools through
 ``index_put_``, ``len`` by assignment into the per-layer view.
@@ -236,6 +240,40 @@ def gqa_prefill_chunk(p: dict, x: torch.Tensor, cfg: AttnConfig,
                           q_offset=pos0, kv_len=pos0 + c)
     cache["len"][slot] = pos0 + c
     return common.dense(out.reshape(1, c, -1), p["wo"])
+
+
+def gqa_verify_chunk(p: dict, x: torch.Tensor, cfg: AttnConfig,
+                     cache: dict, slots: torch.Tensor,
+                     pos0s: torch.Tensor) -> torch.Tensor:
+    """Speculative verify: append + attend a C-token window for each of S
+    slots in one pass.
+
+    x [S, C, d]; ``slots`` [S] index the batched cache, ``pos0s`` [S] are
+    their cached lengths (the window lands at pos0..pos0+C-1). The
+    window's (quantized) K/V go through ``_scatter_kv``, the decode
+    append's quantize-on-write, with rows repeating an earlier row's slot
+    (the frame's padding) sent to the null block; then the superkernel
+    runs at width C with ``lens = pos0s + C``, so row w sees the keys
+    below pos0 + w + 1 and is bitwise the width-1 decode call at that
+    position on the same pools. ``len[slots]`` becomes pos0s + C; the
+    caller rolls rejected suffixes back with ``paged.set_lens``."""
+    s_n, c, _ = x.shape
+    slots = slots.to(torch.int64)
+    pos0s = pos0s.to(torch.int32)
+    positions = pos0s[:, None] + torch.arange(c, dtype=torch.int32,
+                                              device=x.device)[None, :]
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions)
+    tables = cache["block_table"][slots]                       # [S, mb]
+    live = paged.first_occurrence(slots)
+    fmt = qcore.get_format(cfg.kv_dtype)
+    _scatter_kv(cache, k_new, v_new, fmt,
+                lambda pool, vals: paged.scatter_chunk_multi(
+                    pool, tables, pos0s, vals, live))
+    out = ops.paged_attention(q, cache["kpool"], cache["vpool"], tables,
+                              pos0s + c, kscale=cache.get("kscale"),
+                              vscale=cache.get("vscale")).to(x.dtype)
+    cache["len"][slots] = pos0s + c
+    return common.dense(out.reshape(s_n, c, -1), p["wo"])
 
 
 def gqa_cache_spec(batch: int, layout: PagedLayout, cfg: AttnConfig,

@@ -88,6 +88,26 @@ def block_decode(p: dict, h: torch.Tensor, cfg: ModelConfig, cache: dict,
     return _ffn_residual(p, h + y, cfg, dense_ffn)
 
 
+def block_verify_chunk(p: dict, h: torch.Tensor, cfg: ModelConfig,
+                       cache: dict, slots: torch.Tensor,
+                       pos0s: torch.Tensor, *,
+                       dense_ffn: bool = False) -> torch.Tensor:
+    """Speculative verify of one layer: a [S, C, d] window, each row
+    appended + attended at its own slot and offset in one pass."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            "speculative verify needs a rollback-able paged KV cache; "
+            f"the {cfg.family!r} family carries recurrent state")
+    x = common.rms_norm(h, p["ln_attn"]["scale"])
+    if cfg.mla is not None:
+        y = mla.mla_verify_chunk(p["attn"], x, _mla_cfg(cfg), cache, slots,
+                                 pos0s)
+    else:
+        y = attn.gqa_verify_chunk(p["attn"], x, cfg.attn(), cache, slots,
+                                  pos0s)
+    return _ffn_residual(p, h + y, cfg, dense_ffn)
+
+
 def block_cache_spec(cfg: ModelConfig, batch: int, layout: PagedLayout,
                      num_blocks: int | None = None) -> dict:
     if cfg.mla is not None:

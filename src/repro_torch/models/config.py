@@ -59,4 +59,4 @@ class ModelConfig:
                 f"{self.name}: repro_torch serves the dense and moe "
                 f"rmsnorm/swiglu families; {self.family}/{self.norm}/"
                 f"{self.act} (moe config: {self.moe is not None}) waits for "
-                "ROADMAP queue A step 15")
+                "ROADMAP queue A item 12")

@@ -21,6 +21,7 @@ import torch
 from repro_torch.models import common
 from repro_torch.models.blocks import (block_cache_spec, block_decode,
                                        block_prefill_chunk, block_schema,
+                                       block_verify_chunk,
                                        dense_block_schema, stack_schema)
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.config import ModelConfig
@@ -115,6 +116,21 @@ def lm_decode(params: dict, tokens: torch.Tensor, caches: dict,
                          dense_ffn=dense_ffn)
     h = common.rms_norm(h, params["final_norm"]["scale"])
     return _serving_logits(h[:, -1], params, cfg)
+
+
+def lm_verify_chunk(params: dict, tokens: torch.Tensor, caches: dict,
+                    slots: torch.Tensor, pos0s: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Speculative verify: score a C-token window for each of S slots
+    (tokens [S, C], row s landing at ``pos0s[s]``..) in one pass through
+    the layers; caches update in place. Returns EVERY position's f32
+    logits [S, C, V]: position j scores the token after tokens[s, j]."""
+    h = _embed(params, tokens)
+    for i, p, dense_ffn in _layers(params):
+        h = block_verify_chunk(p, h, cfg, layer_cache(caches, i), slots,
+                               pos0s, dense_ffn=dense_ffn)
+    h = common.rms_norm(h, params["final_norm"]["scale"])
+    return _serving_logits(h, params, cfg)
 
 
 def lm_cache_specs(cfg: ModelConfig, batch: int, layout: PagedLayout,

@@ -10,10 +10,11 @@ the context latents.
 * Chunked prefill (``mla_prefill_chunk``) runs the reference's plain
   masked-softmax ``_latent_attend`` over the gathered (dequantized)
   latents, on the CPU and on the card alike.
-* Decode (``mla_decode``) runs the latent paged-attention superkernel
-  through ``kernels.ops.paged_attention(..., q_rope=...)``: its plain
-  twin for CPU tensors, the CUDA kernel for CUDA tensors (the decision
-  the GQA decode follows, ROADMAP A6).
+* Decode (``mla_decode``) and the speculative verify window
+  (``mla_verify_chunk``, width C) run the latent paged-attention
+  superkernel through ``kernels.ops.paged_attention(..., q_rope=...)``:
+  its plain twin for CPU tensors, the CUDA kernel for CUDA tensors (the
+  decision the GQA decode follows).
 
 Caches are updated IN PLACE, as in ``models.attention``.
 """
@@ -206,6 +207,33 @@ def mla_prefill_chunk(p: dict, x: torch.Tensor, cfg: MLAConfig, cache: dict,
                          q_pos=positions)
     cache["len"][slot] = pos0 + c
     return common.dense(ctx.reshape(1, c, -1).to(x.dtype), p["wo"])
+
+
+def mla_verify_chunk(p: dict, x: torch.Tensor, cfg: MLAConfig, cache: dict,
+                     slots: torch.Tensor, pos0s: torch.Tensor
+                     ) -> torch.Tensor:
+    """Speculative verify for MLA: append + attend a C-token latent window
+    for each of S slots (x [S, C, d]) in one pass, as
+    ``attention.gqa_verify_chunk`` does for GQA: the latents (and their
+    per-token scales) through ``scatter_chunk_multi``, padding rows to
+    the null block, then the latent superkernel at width C with
+    ``lens = pos0s + C``. ``len[slots]`` becomes pos0s + C."""
+    s_n, c, _ = x.shape
+    slots = slots.to(torch.int64)
+    pos0s = pos0s.to(torch.int32)
+    positions = pos0s[:, None] + torch.arange(c, dtype=torch.int32,
+                                              device=x.device)[None, :]
+    q_nope, q_rope, c_kv_new, k_rope_new = _latents(p, x, cfg, positions)
+    tables = cache["block_table"][slots]                       # [S, mb]
+    live = paged.first_occurrence(slots)
+    fmt = qcore.get_format(cfg.kv_dtype)
+    _scatter_latents(cache, c_kv_new, k_rope_new, fmt,
+                     lambda pool, vals: paged.scatter_chunk_multi(
+                         pool, tables, pos0s, vals, live))
+    ctx = _kernel_latent_attend(p, cfg, q_nope, q_rope, cache, tables,
+                                pos0s + c)
+    cache["len"][slots] = pos0s + c
+    return common.dense(ctx.reshape(s_n, c, -1).to(x.dtype), p["wo"])
 
 
 def mla_cache_spec(batch: int, layout: PagedLayout, cfg: MLAConfig,

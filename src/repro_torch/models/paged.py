@@ -117,6 +117,44 @@ def scatter_chunk(pool: torch.Tensor, table_row: torch.Tensor, pos0: int,
     return pool
 
 
+def first_occurrence(slots: torch.Tensor) -> torch.Tensor:
+    """[S] bool: row s is the first row naming its slot."""
+    same = slots[:, None] == slots[None, :]
+    return ~torch.tril(same, diagonal=-1).any(dim=1)
+
+
+def scatter_chunk_multi(pool: torch.Tensor, tables: torch.Tensor,
+                        pos0s: torch.Tensor, vals: torch.Tensor,
+                        live: torch.Tensor | None = None) -> torch.Tensor:
+    """In place: write a C-token chunk for EACH of S sequences at once.
+
+    pool [nb, bs, ...]; tables [S, mb]; pos0s [S]; vals [S, C, ...]. The
+    speculative verify pass appends every slot's window in one call.
+    Positions past a table's span go to the null block EXPLICITLY: a slot
+    that owns every table entry (prompt + max_new == max_context) has no
+    null tail to clip into, and a clipped write would overwrite its own
+    history. Rows flagged False in ``live`` ([S] bool; the verify frame's
+    padding, ``first_occurrence``) also write to the null block:
+    ``index_put_`` leaves the winner of duplicate indices undefined on
+    CUDA, and a padded copy of a row need not compute that row's values
+    (MoE capacity can drop its experts)."""
+    s, c = vals.shape[:2]
+    bs, mb = pool.shape[1], tables.shape[1]
+    pos = (pos0s.to(torch.int64)[:, None]
+           + torch.arange(c, device=pool.device)[None, :])       # [S, C]
+    blk_idx = pos // bs
+    blk = torch.gather(tables.to(torch.int64), 1,
+                       torch.clamp(blk_idx, 0, mb - 1))
+    keep = blk_idx < mb
+    if live is not None:
+        keep = keep & live[:, None]
+    blk = torch.where(keep, blk, NULL_BLOCK)
+    pool.index_put_((blk.reshape(-1), (pos % bs).reshape(-1)),
+                    vals.reshape((s * c,) + tuple(vals.shape[2:]))
+                    .to(pool.dtype))
+    return pool
+
+
 # ------------------------------------------------------ cache-tree state ---
 # Cache trees are dicts of per-layer-stacked leaves: pools [L, nb, bs, ...],
 # block_table [L, B, mb], len [L, B].

@@ -1,4 +1,4 @@
-"""Paged-KV continuous-batching serving engine (the core of
+"""Paged-KV continuous-batching serving engines (the core of
 ``repro.serving.engine``).
 
 ``BlockAllocator``
@@ -15,13 +15,19 @@
     the greedy choice and the fused ``_logit_stats`` pass (two calls
     of the compensated row-reduction kernel on the card), packed into
     one [7, B] f32 tensor that crosses to the host once.
+``SpecDecodeEngine``
+    Replaces the decode step by draft -> verify -> accept: a proposer
+    (``repro_torch.spec``) drafts up to ``spec_k`` tokens per decoding
+    slot, ONE ``verify_fn`` pass scores every slot's window against the
+    paged KV, and the greedy accept rule emits 1 to k + 1 tokens per
+    slot, the non-speculative stream.
 
 Greedy decoding only: a request's chunk boundaries and decode math
 depend only on its own prompt and the cache geometry, so batched serving
 matches solo generation token for token. Prefix caching, session KV,
-preemption, sampling, speculative decoding, fault injection and
-telemetry are later slices of the port; their constructor knobs raise
-``NotImplementedError`` naming the ROADMAP item.
+preemption, sampling, fault injection and telemetry are later slices of
+the port; their constructor knobs raise ``NotImplementedError`` naming
+the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -38,14 +44,15 @@ from repro_torch.models import api, paged
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.paged import NULL_BLOCK, PagedLayout
 from repro_torch.serving.faults import (AdmissionError, AllocatorError,
-                                        NumericsGuard, StallError)
+                                        NumericsGuard, ProposerStallError,
+                                        StallError)
 
 DEFAULT_BLOCK_SIZE = paged.DEFAULT_BLOCK_SIZE
 
 
-def _later(what: str, item: str) -> NotImplementedError:
+def _later(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue A, {item})")
+        f"{what} is not ported yet (ROADMAP queue A item {item})")
 
 
 @dataclass
@@ -56,6 +63,9 @@ class Request:
     eos_id: int | None = None
     # only temperature == 0 (greedy) is served in this slice
     temperature: float = 0.0
+    # speculative decoding: None inherits the engine's spec_k; the engine
+    # also caps it by the window, the token budget and the slot's blocks
+    spec_k: int | None = None
     deadline_steps: int | None = None
     output: list = field(default_factory=list)
     logprobs: list = field(default_factory=list)   # per emitted token
@@ -273,13 +283,13 @@ class DecodeEngine:
                  fault_injector=None, telemetry=None, device=None):
         self.device = _device.resolve(device)
         if prefix_cache or spill_blocks:
-            raise _later("prefix caching / session KV / spill", "step 10")
+            raise _later("prefix caching / session KV / spill", 7)
         if preempt != "off":
-            raise _later("preemption to host", "step 10")
+            raise _later("preemption to host", 7)
         if fault_injector is not None:
-            raise _later("fault injection", "step 11")
+            raise _later("fault injection", 8)
         if telemetry is not None:
-            raise _later("telemetry", "step 12")
+            raise _later("telemetry", 9)
         if self.device.type == "cuda":
             _device.set_numerics()
         self.cfg = cfg
@@ -321,9 +331,9 @@ class DecodeEngine:
         """Enqueue a request; raises ``AdmissionError`` for requests that
         could never run (context or pool overflow)."""
         if req.temperature > 0.0:
-            raise _later("temperature sampling (keyed RNG)", "step 8")
+            raise _later("temperature sampling (keyed RNG)", 4)
         if req.deadline_steps is not None:
-            raise _later("request deadlines", "step 11")
+            raise _later("request deadlines", 8)
         req.submit_step = self._step_count
         req.last_progress_step = self._step_count
         self.scheduler.submit(req)
@@ -337,12 +347,14 @@ class DecodeEngine:
                              dtype=torch.int32)
             row[:len(req.blocks)] = torch.as_tensor(req.blocks)
             paged.reset_slot(self.caches, req.slot, row.to(self.device))
+            self._on_admit(req)
         nxt = self.scheduler.next_chunk()
         if nxt is not None:
             req, chunk, pos0 = nxt
             tok = torch.tensor([chunk], dtype=torch.int32, device=self.device)
             logits = self._prefill_chunk(self.params, tok, self.caches,
                                          req.slot, pos0)
+            self._on_prefill_chunk(req, chunk, pos0)
             req.last_progress_step = self._step_count
             self.kv_stats["prefill_tokens"] += len(chunk)
             self._account_prefill(pos0 + len(chunk), first=pos0 == 0)
@@ -350,6 +362,29 @@ class DecodeEngine:
                 self._emit_first_token(req, logits)
         if self.scheduler.decoding:
             self._decode_step()
+
+    # Subclass hooks (the speculative engine mirrors them into its
+    # proposer). Preemption is not ported, so nothing calls the preempt /
+    # restore pair yet.
+    def _on_admit(self, req: Request) -> None:
+        pass
+
+    def _on_prefill_chunk(self, req: Request, chunk: list,
+                          pos0: int) -> None:
+        pass
+
+    def _on_retire(self, req: Request) -> None:
+        pass
+
+    def _on_preempt(self, req: Request) -> None:
+        pass
+
+    def _on_restore(self, req: Request) -> None:
+        pass
+
+    def _on_drop(self, req: Request) -> None:
+        """A slot-holding request leaves abnormally (quarantine);
+        ``req.slot`` is still valid."""
 
     def run_until_done(self, max_steps: int = 10_000) -> None:
         """Drive steps until every request finishes; raises
@@ -458,6 +493,7 @@ class DecodeEngine:
         everything and park the request on ``self.quarantined``."""
         self.kv_stats["guard_trips"] += 1
         req.error = reason
+        self._on_drop(req)
         alloc = self.scheduler.allocator
         scrub = [b for b in req.blocks if alloc.refcount(b) == 1]
         if scrub:
@@ -474,6 +510,7 @@ class DecodeEngine:
 
     def _retire(self, req: Request) -> None:
         slot = req.slot
+        self._on_retire(req)
         self.scheduler.retire(req)
         # point the slot back at the null block so later batched steps'
         # stray writes cannot touch re-allocated blocks
@@ -499,3 +536,200 @@ class DecodeEngine:
             self.kv_stats["contiguous_bytes"] += (self.layout.max_context
                                                   * self._token_bytes)
         self.kv_stats["prefill_chunks"] += 1
+
+
+class SpecDecodeEngine(DecodeEngine):
+    """Speculative continuous-batching engine: draft -> verify -> accept.
+
+    Each engine step still admits and runs one prefill chunk (the
+    proposer mirrors both through the hooks), but the batched decode step
+    becomes a draft / verify cycle: the proposer guesses up to ``spec_k``
+    tokens per decoding slot, ONE fixed-shape ``verify_fn`` pass scores
+    every slot's window against the paged KV (quantized pools included),
+    and the greedy accept rule emits 1 to k + 1 tokens per slot. The
+    tokens emitted per KV-pool walk are the gain: the walk is the decode
+    step's dominant traffic.
+
+    The accept rule runs on the device too: the argmax of every window
+    position, the accepted prefix and the fused logit statistics of the
+    chosen tokens (the emitted ones; token 0 past them and on padding
+    rows) cross to the host as ONE packed [7, S * C] tensor.
+
+    Rolling back a rejected suffix is bookkeeping: the slot's ``len``
+    drops to the accepted prefix (``paged.set_lens``), blocks stay
+    allocated, and rows past ``len`` are masked by every reader and
+    overwritten by the next append. Paged-KV attention families only;
+    greedy requests only (``submit`` refuses temperature > 0).
+    """
+
+    def __init__(self, cfg: ModelConfig, params, *, proposer,
+                 spec_k: int = 4, **kw):
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(
+                f"speculative decoding needs a rollback-able paged KV "
+                f"cache; family {cfg.family!r} carries recurrent state")
+        if spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        super().__init__(cfg, params, **kw)
+        self.proposer = proposer
+        self.spec_k = int(spec_k)
+        self._verify = api.verify_fn(cfg)
+        self.kv_stats.update({"spec_steps": 0, "spec_slot_steps": 0,
+                              "spec_drafted": 0, "spec_accepted": 0,
+                              "spec_emitted": 0, "proposer_stalls": 0})
+        proposer.attach(self)
+
+    # the proposer mirrors admission, prompt caching and retirement -------
+    def _on_admit(self, req: Request) -> None:
+        self.proposer.on_admit(req)
+
+    def _on_prefill_chunk(self, req: Request, chunk: list,
+                          pos0: int) -> None:
+        self.proposer.on_prefill_chunk(req, chunk, pos0)
+
+    def _on_retire(self, req: Request) -> None:
+        self.proposer.on_retire(req)
+
+    def _on_preempt(self, req: Request) -> None:
+        self.proposer.on_preempt(req)
+
+    def _on_restore(self, req: Request) -> None:
+        self.proposer.on_restore(req)
+
+    def _on_drop(self, req: Request) -> None:
+        self.proposer.on_retire(req)
+
+    # ------------------------------------------------------- spec step ----
+
+    def _effective_k(self, req: Request) -> int:
+        """Drafts worth proposing for ``req`` now: the engine's window,
+        the request's ``spec_k``, the remaining token budget and the
+        slot's allocated blocks all cap it. k = 0 is a plain decode step
+        on the verify path."""
+        k = self.spec_k if req.spec_k is None else min(req.spec_k,
+                                                       self.spec_k)
+        k = min(k, req.max_new_tokens - len(req.output) - 1)
+        cached = req.prefill_pos + len(req.output) - 1
+        capacity = len(req.blocks) * self.layout.block_size
+        return max(0, min(k, capacity - cached - 1))
+
+    def _verify_fused(self, tokens: np.ndarray, slots: np.ndarray,
+                      pos0s: np.ndarray, ks: list[int]) -> np.ndarray:
+        """Verify pass + the greedy accept rule + fused logit stats on the
+        device -> packed [7, S * C] on the host: row 0 the argmax of every
+        position, rows 1.. the stats of the chosen tokens."""
+        dev = self.device
+        tok = torch.from_numpy(tokens).to(dev)
+        logits = self._verify(self.params, tok, self.caches,
+                              torch.from_numpy(slots).to(dev),
+                              torch.from_numpy(pos0s).to(dev))
+        s, c, v = logits.shape
+        rows = logits.reshape(s * c, v)
+        am = _greedy_tokens(rows).reshape(s, c)
+        k_row = torch.zeros(s, dtype=torch.int32)
+        k_row[:len(ks)] = torch.tensor(ks, dtype=torch.int32)
+        k_row = k_row.to(dev)
+        col = torch.arange(c, device=dev)
+        match = (am[:, :-1] == tok[:, 1:]) & (col[None, :-1] < k_row[:, None])
+        acc = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+        real = torch.arange(s, device=dev) < len(ks)
+        chosen = torch.where((col[None, :] <= acc[:, None]) & real[:, None],
+                             am, torch.zeros_like(am))
+        stats = _logit_stats(rows, chosen.reshape(-1))
+        return _pack(am.reshape(-1), stats).cpu().numpy()
+
+    def _decode_step(self) -> None:
+        from repro_torch.spec.sampler import greedy_verify
+        from repro_torch.spec.verify import pack_windows
+
+        decoding = [self.scheduler.decoding[s]
+                    for s in sorted(self.scheduler.decoding)]
+        ks = [self._effective_k(r) for r in decoding]
+        try:
+            drafts, _ = self.proposer.propose(decoding, ks)
+        except ProposerStallError:
+            # degrade, don't crash: no drafts make this step the plain
+            # verify-path decode, one exact token per slot
+            drafts = [[] for _ in decoding]
+            ks = [0] * len(decoding)
+            self.kv_stats["proposer_stalls"] += 1
+        window = self.spec_k + 1
+        tokens, slots, pos0s = pack_windows(decoding, ks, drafts,
+                                            self.max_slots, window)
+        packed = self._verify_fused(tokens, slots, pos0s, ks)
+        argmax = packed[0].astype(np.int32).reshape(tokens.shape)
+        self.last_logit_stats = {k: packed[i + 1].reshape(tokens.shape)
+                                 for i, k in enumerate(_STAT_KEYS)}
+        logprobs = self.last_logit_stats["logprob"]
+
+        emitted_all, accepted, new_lens = [], [], []
+        for i, req in enumerate(decoding):
+            acc, emitted = greedy_verify(argmax[i], drafts[i][:ks[i]])
+            emitted_all.append(emitted)
+            accepted.append(acc)
+            new_lens.append(int(pos0s[i]) + 1 + acc)
+
+        # rollback: rejected suffixes disappear by length bookkeeping
+        lens_pad = np.full((self.max_slots,), new_lens[0], np.int32)
+        lens_pad[:len(decoding)] = new_lens
+        paged.set_lens(self.caches, torch.from_numpy(slots).to(self.device),
+                       torch.from_numpy(lens_pad).to(self.device))
+        self._account_spec(pos0s[:len(decoding)], ks, emitted_all, accepted)
+
+        tripped = self._guard_tripped(self.last_logit_stats,
+                                      list(enumerate(decoding)))
+        skip = {req.rid for req, _ in tripped}
+        retired, alive, alive_lens = [], [], []
+        for i, req in enumerate(decoding):
+            if req.rid in skip:
+                continue
+            done = False
+            for j, tok in enumerate(emitted_all[i]):
+                req.output.append(int(tok))
+                req.logprobs.append(float(logprobs[i, j]))
+                if self._finished(req, int(tok)):
+                    done = True
+                    break
+            req.last_progress_step = self._step_count
+            self._next_tokens[req.slot, 0] = req.output[-1]
+            if done:
+                retired.append(req)
+            else:
+                alive.append(req)
+                alive_lens.append(new_lens[i])
+        self.proposer.sync(alive, alive_lens)
+        for req, reason in tripped:
+            self._quarantine(req, reason)
+        for req in retired:
+            self._retire(req)
+
+    def _account_spec(self, pos0s, ks, emitted_all, accepted) -> None:
+        bs = self.layout.block_size
+        window = self.spec_k + 1
+        # one KV-pool walk per slot covers the whole window; the
+        # contiguous baseline still pays a max_context row per token
+        touched = sum(paged.cdiv(int(p) + window, bs) * bs for p in pos0s)
+        n_emitted = sum(len(e) for e in emitted_all)
+        self.kv_stats["paged_bytes"] += touched * self._token_bytes
+        self.kv_stats["paged_bytes_bf16"] += touched * self._token_bytes_bf16
+        self.kv_stats["contiguous_bytes"] += (n_emitted
+                                              * self.layout.max_context
+                                              * self._token_bytes)
+        self.kv_stats["decode_steps"] += 1
+        self.kv_stats["spec_steps"] += 1
+        self.kv_stats["spec_slot_steps"] += len(pos0s)
+        self.kv_stats["spec_drafted"] += sum(ks)
+        self.kv_stats["spec_accepted"] += sum(accepted)
+        self.kv_stats["spec_emitted"] += n_emitted
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of drafted tokens the target accepted so far."""
+        drafted = self.kv_stats["spec_drafted"]
+        return self.kv_stats["spec_accepted"] / drafted if drafted else 0.0
+
+    @property
+    def mean_accepted_length(self) -> float:
+        """Tokens emitted per per-slot verify walk."""
+        walks = self.kv_stats["spec_slot_steps"]
+        return self.kv_stats["spec_emitted"] / walks if walks else 0.0

@@ -1,6 +1,6 @@
 """Typed serving failures and the logit numerics guard (the first half of
 ``repro.serving.faults``; fault injection and failover wait for ROADMAP
-queue A step 11).
+queue A item 8).
 
 ``NumericsGuard`` checks the fused ``_logit_stats`` rows every step: a
 NaN/Inf sentinel on the row statistics, and a round-off detector — the
@@ -30,6 +30,12 @@ class AllocatorError(ServingError):
 class AdmissionError(ServingError, ValueError):
     """A request that can NEVER be admitted (context overflow, pool
     oversubmit, bad deadline), rejected at submission."""
+
+
+class ProposerStallError(ServingError):
+    """A speculative-decoding proposer failed to produce drafts this
+    step. The spec engine degrades the step to the plain verify-path
+    decode (k == 0 for every slot) instead of crashing."""
 
 
 class StallError(ServingError):
