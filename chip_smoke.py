@@ -78,7 +78,30 @@ Phases (each prints its own lines; any failure exits non-zero):
              every non-spec path and the n-gram qwen path end in a
              profiled window of 4 steps, used only when it holds every
              paged-attention launch it should and one fused_reduce kernel
-             per reduction call.
+             per reduction call;
+9. rng     — ``core/prng.py`` on the card against the CPU, bitwise (bits
+             over 2^20 counters for 64 keys, ``fold_in`` chains,
+             ``uniform``, ``randint``), jax 0.9.0's known answers on both,
+             and gumbel noise card vs CPU (max distance printed);
+10. sample — ``_sample_rows`` on 8 logit rows of width 151936, card vs
+             CPU at top_k 0, 50 and 1 (equal tokens but printed
+             near-ties), and a Monte-Carlo check of 2^16 keyed draws
+             against ``target_dist`` (total variation < 0.02);
+11. sampled serve — qwen1.5-0.5b behind ``DecodeEngine`` with 8
+             requests at temperature 0.8 / top_k 50, 4 at 1.0, 2 at
+             top_k 1 and 2 greedy: greedy and top_k 1 streams bitwise the
+             bf16 phase's, a reverse-order run bitwise, counters equal
+             to the calls, a profiled window of sampled decode steps;
+             then behind ``SpecDecodeEngine`` (n-gram spec_k 4,
+             self-draft spec_k 3) with every request sampled, each run
+             twice and bitwise the same, with the host time of
+             ``rejection_sample`` and of drafting per step;
+12. faults — a ``FailoverServer`` over a bf16 ``DecodeEngine`` with
+             ``alloc_fail``, ``kv_corrupt`` and ``logit_nan`` at fixed
+             steps, a deadline and a cancellation, run twice with one
+             seed (the same firings; guard-tripped requests finish on the
+             degraded engine with the bf16 streams; nothing held at the
+             end), and a ``SpecDecodeEngine`` with ``proposer_stall``.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``. Imports nothing of ``jax`` or of the
@@ -1999,19 +2022,20 @@ def phase_serve(dev, kind: str, cfg, what: str, params) -> dict:
     check_served(f"{cfg.name} {cfg.kv_dtype} serve", engine, reqs, launches,
                  {attn: cfg.num_layers * st["decode_steps"],
                   "fused_reduce": 2 * (st["decode_steps"] + len(reqs))})
-    profile_decode(engine, cfg)
+    prof = profile_decode(engine, cfg)
     log(f"[serve] peak device memory with the profiled window "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     return dict(launches=launches, tok_s=emitted / wall, step_ms=step_med,
-                streams={r.rid: list(r.output) for r in reqs})
+                streams={r.rid: list(r.output) for r in reqs}, profile=prof)
 
 
 class SpecProbe:
-    """Beside a ``SpecDecodeEngine`` run, per verify step: the top-2 gap of
-    every window row, and the gap between the top logit and the logit of
-    the draft each row judged, mapped to (request, output index). Costs a
-    top-2 and a gather over the [S, C, V] logits and one small transfer
-    per step (torch ops, no counted launch)."""
+    """Beside a ``SpecDecodeEngine`` run, per verify step with greedy
+    slots only: the top-2 gap of every window row, and the gap between
+    the top logit and the logit of the draft each row judged, mapped to
+    (request, output index). Costs a top-2 and a gather over the
+    [S, C, V] logits and one small transfer per step (torch ops, no
+    counted launch)."""
 
     def __init__(self, engine):
         import numpy as np
@@ -2020,22 +2044,16 @@ class SpecProbe:
         self.engine = engine
         self.gaps: dict = {}            # rid -> {output index: top-2 gap}
         self.rejections: list = []      # (rid, index, draft, target, gap)
-        verify = engine._verify
-        verify_fused = engine._verify_fused
-        held = {}
+        accept = engine._accept_greedy
 
-        def probed_verify(*args):
-            held["logits"] = verify(*args)
-            return held["logits"]
-
-        def probed_verify_fused(tokens, slots, pos0s, ks):
+        def probed_accept(lg, tok, ks):
             decoding = [engine.scheduler.decoding[s]
                         for s in sorted(engine.scheduler.decoding)]
-            packed = verify_fused(tokens, slots, pos0s, ks)
-            lg = held.pop("logits")
+            packed = accept(lg, tok, ks)
+            tokens = tok.cpu().numpy()
             top2 = torch.topk(lg, 2, dim=-1).values
-            tok = torch.from_numpy(tokens).to(lg.device).long()
-            drafted = torch.gather(lg[:, :-1], 2, tok[:, 1:, None])[..., 0]
+            drafted = torch.gather(lg[:, :-1], 2,
+                                   tok.long()[:, 1:, None])[..., 0]
             gap = (top2[..., 0] - top2[..., 1]).cpu().numpy()
             dgap = (top2[:, :-1, 0] - drafted).cpu().numpy()
             argmax = packed[0].astype(np.int32).reshape(tokens.shape)
@@ -2052,13 +2070,10 @@ class SpecProbe:
                          int(argmax[i, acc]), float(dgap[i, acc])))
             return packed
 
-        self._verify = verify
-        engine._verify = probed_verify
-        engine._verify_fused = probed_verify_fused
+        engine._accept_greedy = probed_accept
 
     def detach(self) -> None:
-        self.engine._verify = self._verify
-        del self.engine._verify_fused
+        del self.engine._accept_greedy
 
 
 def check_streams(what: str, reqs, base: dict, probe: SpecProbe,
@@ -2167,11 +2182,12 @@ def phase_spec(dev, kind: str, cfg, what: str, params, proposer: str,
                 draft_calls=draft_calls[0], ties=ties)
 
 
-def profile_decode(engine, cfg, n_steps: int = 4, what: str = "decode"
-                   ) -> None:
+def profile_decode(engine, cfg, n_steps: int = 4, what: str = "decode",
+                   knobs: dict | None = None) -> dict:
     """A steady decode (or verify) window under ``torch.profiler``: 8 fresh
     requests (256-token prompts) are prefilled, then ``n_steps`` engine
-    steps (pure decode or verify, all 8 slots busy) are traced. Prints the
+    steps (pure decode or verify, all 8 slots busy) are traced, and the
+    requests are cancelled. Prints the
     device busy time per step, the device idle share of the window's wall
     time, kernels launched per step, and the kernels that take the most
     device time.
@@ -2184,7 +2200,11 @@ def profile_decode(engine, cfg, n_steps: int = 4, what: str = "decode"
     partitions) and 2 x ``n_steps`` of ``fused_reduce_kernel``; otherwise
     the window is traced again with fresh requests after 0.5 s,
     ``PROFILE_TRIES`` times at most, and then the phase fails. A verify
-    window's engine has an n-gram proposer, which launches nothing."""
+    window's engine has an n-gram proposer, which launches nothing.
+    ``knobs`` (temperature, top_k) make the window's requests sampled,
+    each with its own seed; a list gives slot i its own ``knobs[i]``.
+    Returns the window's wall and device-busy ms
+    per step and its kernels per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import paged_attention as pa
@@ -2196,17 +2216,23 @@ def profile_decode(engine, cfg, n_steps: int = 4, what: str = "decode"
         want *= -(-engine.layout.max_blocks
                   // (lib.repro_paged_latent_attention_slots()
                       * lib.repro_paged_latent_attention_chunk()))
-    # a request emits up to spec_k + 1 tokens per step; none may finish
-    # inside the window
+    # a request emits up to spec_k + 1 tokens per step, from the step that
+    # prefills it on (one prompt chunk per step: the last request starts
+    # max_slots steps after the first); none may finish before the
+    # window ends
     per_step = getattr(engine, "spec_k", 0) + 1
+    new_tokens = (engine.max_slots + n_steps) * per_step + 2
     g = torch.Generator().manual_seed(SEED + 1)
     lost = 0
     for attempt in range(PROFILE_TRIES):
         for i in range(engine.max_slots):
             prompt = torch.randint(0, cfg.vocab_size, (256,), generator=g)
-            engine.submit(Request(rid=100 + engine.max_slots * attempt + i,
-                                  prompt=prompt.tolist(),
-                                  max_new_tokens=n_steps * per_step + 2))
+            rid = 100 + engine.max_slots * attempt + i
+            engine.submit(Request(rid=rid, prompt=prompt.tolist(),
+                                  max_new_tokens=new_tokens,
+                                  seed=rid,
+                                  **(knobs[i] if isinstance(knobs, list)
+                                     else knobs or {})))
         while engine.scheduler.waiting or engine.scheduler.prefilling:
             engine.step()
         torch.cuda.synchronize()
@@ -2217,7 +2243,11 @@ def profile_decode(engine, cfg, n_steps: int = 4, what: str = "decode"
                 engine.step()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0) / n_steps
-        engine.run_until_done()
+        busy = len(engine.scheduler.decoding)
+        engine.cancel_all()
+        if busy != engine.max_slots:
+            fail(f"{cfg.name} {what} window: {busy} of {engine.max_slots} "
+                 f"slots still decoding at its end")
         kern = _device_kernels(prof)
         counts = {n: sum(ev.count for ev in kern if n in ev.key)
                   for n in names}
@@ -2254,6 +2284,552 @@ def profile_decode(engine, cfg, n_steps: int = 4, what: str = "decode"
     for ev in sorted(kern, key=_device_us, reverse=True)[:10]:
         log(f"[profile]   {_device_us(ev) / 1e3 / n_steps:8.3f} ms/step "
             f"{ev.count / n_steps:6.1f}/step  {ev.key[:90]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=per_step_k)
+
+
+# ------------------------------------------------ keyed RNG and sampling --
+
+F32_EPS = 2.0 ** -23
+# jax 0.9.0 (threefry2x32, partitionable bits) on these keys
+RNG_KNOWN = {"fold_in(key(3), 5)": [2464363587, 131619366],
+             "fold_in(key(123), 7)": [4195957486, 134989543],
+             "uniform bits": 1025456736, "uniform": 0.038874030113220215,
+             "randint(fold_in(., 1), 0, 10)": 7,
+             "categorical(., zeros(151936))": 14761}
+
+
+def rng_known_answers(dev) -> dict:
+    import torch
+    from repro_torch.core import prng
+    k = prng.fold_in(prng.key(123, device=dev), 7)
+    u = prng.uniform(k)
+    return {"fold_in(key(3), 5)":
+            prng.fold_in(prng.key(3, device=dev), 5).tolist(),
+            "fold_in(key(123), 7)": k.tolist(),
+            "uniform bits": u.view(torch.int32).item(), "uniform": u.item(),
+            "randint(fold_in(., 1), 0, 10)":
+            int(prng.randint(prng.fold_in(k, 1), (), 0, 10)),
+            "categorical(., zeros(151936))":
+            int(prng.categorical(k, torch.zeros(151936, device=dev)))}
+
+
+def phase_rng(dev) -> float:
+    """``core/prng.py`` on the card against the same functions on the CPU,
+    bitwise: ``random_bits`` over 2^20 counters for 64 keys, ``fold_in``
+    chains, ``uniform`` and ``randint``; the known answers of jax 0.9.0
+    on both; gumbel noise (through ``log``) card vs CPU, whose largest
+    distance is printed in ulps and in f32 epsilons of max(1, |g|).
+    Returns the latter, the near-tie bound of the sample phase."""
+    import torch
+    from repro_torch.core import prng
+    t0 = time.perf_counter()
+    for where in ("cpu", dev):
+        got = rng_known_answers(where)
+        if got != RNG_KNOWN:
+            fail(f"prng known answers on {where}: {got} != {RNG_KNOWN}")
+    keys = torch.stack([prng.fold_in(prng.key(s, device="cpu"), 7 * s + 1)
+                        for s in range(64)])
+    kd = keys.to(dev)
+    n = 2 ** 20
+    for c in range(0, 64, 16):
+        if not torch.equal(prng.random_bits(kd[c:c + 16], (n,)).cpu(),
+                           prng.random_bits(keys[c:c + 16], (n,))):
+            fail(f"random_bits of keys {c}-{c + 15}: card != CPU")
+    g = torch.Generator().manual_seed(SEED + 3)
+    data = torch.randint(0, 2 ** 32, (64, 12), generator=g)
+    ck, dk = keys, kd
+    for j in range(12):
+        ck = prng.fold_in(ck, data[:, j])
+        dk = prng.fold_in(dk, data[:, j].to(dev))
+    if not torch.equal(dk.cpu(), ck):
+        fail("fold_in chains: card != CPU")
+    for lo, hi in ((0.0, 1.0), (-3.0, 2.5)):
+        if not torch.equal(
+                prng.uniform(kd, (2 ** 16,), lo, hi).cpu().view(torch.int32),
+                prng.uniform(keys, (2 ** 16,), lo, hi).view(torch.int32)):
+            fail(f"uniform [{lo}, {hi}): card != CPU")
+    for i in range(8):
+        if not torch.equal(prng.randint(kd[i], (4096,), -7, 151936).cpu(),
+                           prng.randint(keys[i], (4096,), -7, 151936)):
+            fail(f"randint of key {i}: card != CPU")
+    gc = prng.gumbel(keys[:16], (151936,))
+    gd = prng.gumbel(kd[:16], (151936,)).cpu()
+    ulps = int((gd.view(torch.int32).long()
+                - gc.view(torch.int32).long()).abs().max())
+    eps = float(((gd.double() - gc.double()).abs()
+                 / (F32_EPS * gc.double().abs().clamp_min(1.0))).max())
+    # the host rules draw one scalar at a time: a single CPU key runs the
+    # rounds on Python ints; the same draws through the tensor ops (a
+    # batch of one key) must be bitwise equal, each timed on the host
+    def host_draws(batched: bool) -> tuple[list, float]:
+        t = time.perf_counter()
+        out = []
+        for i in range(200):
+            k = keys[i % 64]
+            if batched:
+                u = prng.uniform(prng.fold_in(k[None], torch.tensor(i)))[0]
+            else:
+                u = prng.uniform(prng.fold_in(k, i))
+            out.append(u.view(torch.int32).item())
+        return out, 1e6 * (time.perf_counter() - t) / 200
+    host_draws(True)
+    scalar, scalar_us = host_draws(False)
+    tensor, tensor_us = host_draws(True)
+    if scalar != tensor:
+        fail("host scalar draws: Python-int rounds != tensor ops")
+    log(f"[rng] core/prng.py card == CPU bitwise: random_bits 64 keys x 2^20 "
+        f"counters, fold_in chains of 12, uniform 64 x 2^16 (two ranges), "
+        f"randint 8 x 4096; known answers of jax 0.9.0 on both {RNG_KNOWN}; "
+        f"gumbel 16 x 151936 card vs CPU: max distance {ulps} ulps, "
+        f"{eps:.3f} f32 eps of max(1, |g|); a host fold_in + uniform draw "
+        f"{scalar_us:.1f} us on Python ints, {tensor_us:.1f} us through "
+        f"tensor ops (200 draws, bitwise equal); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return eps
+
+
+def _perturbed_gap(row, temp, key, top_k) -> tuple[float, float]:
+    """The top two of gumbel + scaled (and truncated) logits, on the CPU:
+    (gap, |top|)."""
+    import torch
+    from repro_torch.core import prng
+    z = row / max(temp, 1e-6)
+    if top_k:
+        kth = torch.topk(z, top_k).values[-1]
+        z = torch.where(z < kth, float("-inf"), z)
+    top2 = torch.topk(prng.gumbel(key, (row.shape[-1],)) + z, 2).values
+    return float(top2[0] - top2[1]), float(top2[0].abs())
+
+
+def phase_sample(dev, gumbel_eps: float) -> None:
+    """``_sample_rows`` on 8 f32 logit rows of width 151936, card against
+    the CPU at top_k 0, 50 and 1: tokens equal, except where the two
+    largest perturbed logits lie within twice the gumbel distance of the
+    rng phase (printed). Then a Monte-Carlo check of the card's draws: a
+    64-wide row, 2^16 keyed draws, total-variation distance to
+    ``target_dist`` under 0.02."""
+    import numpy as np
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.serving.engine import _sample_rows
+    from repro_torch.spec.sampler import target_dist
+    g = torch.Generator().manual_seed(SEED + 2)
+    rows = torch.randn(8, 151936, generator=g) * 3
+    temps = torch.full((8,), 0.8)
+    keys = torch.stack([prng.fold_in(prng.key(100 + i, device="cpu"), i)
+                        for i in range(8)])
+    ties = 0
+    for top_k in (0, 50, 1):
+        cpu = _sample_rows(rows, temps, keys, top_k)
+        card = _sample_rows(rows.to(dev), temps.to(dev), keys.to(dev),
+                            top_k).cpu()
+        for i in torch.nonzero(cpu != card)[:, 0].tolist():
+            gap, top = _perturbed_gap(rows[i], 0.8, keys[i], top_k)
+            limit = 2 * gumbel_eps * F32_EPS * max(1.0, top)
+            log(f"[sample] top_k {top_k} row {i}: card {int(card[i])} vs CPU "
+                f"{int(cpu[i])}; perturbed top-2 gap {gap:.3g}, near-tie "
+                f"limit {limit:.3g}")
+            if gap > limit:
+                fail(f"_sample_rows top_k {top_k} row {i}: card and CPU "
+                     f"draw differently past a near-tie")
+            ties += 1
+    row = torch.randn(64, generator=g) * 2
+    n = 2 ** 16
+    mc_keys = prng.fold_in(prng.key(SEED, device=dev),
+                           torch.arange(n, device=dev))
+    tvs = {}
+    for top_k, temp in ((0, 1.0), (10, 0.8)):
+        draws = _sample_rows(row.to(dev).expand(n, 64),
+                             torch.full((n,), temp, device=dev), mc_keys,
+                             top_k)
+        freq = torch.bincount(draws, minlength=64).cpu().double().numpy() / n
+        tv = 0.5 * float(np.abs(freq - target_dist(row.numpy(), temp,
+                                                   top_k)).sum())
+        tvs[f"top_k {top_k} t {temp}"] = round(tv, 5)
+        if not tv < 0.02:
+            fail(f"Monte-Carlo draws (top_k {top_k}): total variation {tv}")
+    log(f"[sample] _sample_rows 8 x 151936 f32, card vs CPU at top_k 0, 50, "
+        f"1: tokens equal but {ties} near-ties; Monte-Carlo 2^16 keyed "
+        f"draws on the card from a 64-wide row, total variation to "
+        f"target_dist {tvs} (limit 0.02)")
+
+
+# the sampled serve phase's mix, by rid: 8 at temperature 0.8 / top_k 50,
+# 4 at 1.0 / full vocabulary, 2 at top_k 1, 2 greedy (rid i takes entry
+# 5 i mod 16, spreading each kind over the prompt lengths)
+SAMPLED_MIX = ([dict(temperature=0.8, top_k=50)] * 8
+               + [dict(temperature=1.0, top_k=0)] * 4
+               + [dict(temperature=0.7, top_k=1)] * 2 + [dict()] * 2)
+
+
+def sampled_requests(cfg, knobs=None, n: int = 16, new_tokens: int = 32):
+    """``make_requests`` with sampling knobs: ``knobs`` for every request,
+    or the ``SAMPLED_MIX`` by rid; seed 1000 + rid."""
+    reqs = make_requests(cfg, n, new_tokens)
+    for r in reqs:
+        k = knobs if knobs is not None else SAMPLED_MIX[(5 * r.rid) % 16]
+        r.temperature = k.get("temperature", 0.0)
+        r.top_k = k.get("top_k", 0)
+        r.seed = 1000 + r.rid
+    return reqs
+
+
+def phase_serve_sampled(dev, kind: str, cfg, what: str, params, base: dict,
+                        greedy_prof: dict) -> dict:
+    """qwen1.5-0.5b behind ``DecodeEngine`` over bf16 pools with the
+    ``SAMPLED_MIX``, counters zeroed just before and read just after:
+    every request finishes; the greedy and top_k 1 streams equal the bf16
+    phase's (the same slots and shapes, so bitwise); a second engine fed
+    the requests in reverse order gives every stream bitwise (a draw is
+    keyed on (seed, emit index) only); the attention kernel launched once
+    per layer per decode step and the reduction twice per step and per
+    first token. Ends in a profiled window of sampled decode steps."""
+    import torch
+    from repro_torch.serving.engine import DecodeEngine
+
+    def engine():
+        return DecodeEngine(cfg, params, max_slots=8, max_context=1024,
+                            block_size=16, prefill_chunk=256, device=dev)
+
+    eng = engine()
+    reqs = sampled_requests(cfg)
+    wall, step_ms, launches = serve_run(eng, reqs)
+    st = eng.kv_stats
+    check_served(f"{cfg.name} sampled serve", eng, reqs, launches,
+                 {"paged_attention": cfg.num_layers * st["decode_steps"],
+                  "fused_reduce": 2 * (st["decode_steps"] + len(reqs))})
+    greedy = [r.rid for r in reqs if r.temperature <= 0.0 or r.top_k == 1]
+    bad = [rid for rid in greedy if reqs[rid].output != base[rid]]
+    if bad:
+        fail(f"sampled serve: greedy / top_k 1 requests {bad} differ from "
+             f"the bf16 phase's streams")
+    again = sampled_requests(cfg)
+    serve_run(engine(), list(reversed(again)))
+    moved = [r.rid for r in again if r.output != reqs[r.rid].output]
+    if moved:
+        fail(f"sampled serve: requests {moved} changed when submitted in "
+             f"reverse order")
+    emitted = sum(len(r.output) for r in reqs)
+    step_med = statistics.median(step_ms)
+    log(f"[serve] {what} sampled (8 at t 0.8 / top_k 50, 4 at t 1.0, 2 at "
+        f"top_k 1, 2 greedy) bf16 pools on {kind}: {emitted} tokens in "
+        f"{wall:.3f} s = {emitted / wall:.2f} tok/s; {st['decode_steps']} "
+        f"decode steps, median step {step_med:.3f} ms; greedy and top_k 1 "
+        f"streams {sorted(greedy)} equal the bf16 phase's; reverse-order "
+        f"run bitwise equal in all 16 streams; launching wrapper calls "
+        f"{launches}")
+    prof = profile_decode(eng, cfg, what="sampled decode",
+                          knobs=dict(temperature=0.8, top_k=50))
+    mix = ([dict(temperature=0.8, top_k=50)] * 3
+           + [dict(temperature=1.0, top_k=0)] * 3
+           + [dict(temperature=0.7, top_k=1)] * 2)
+    prof3 = profile_decode(eng, cfg, what="sampled decode, 3 top_k groups",
+                           knobs=mix)
+    log(f"[serve] per decode step of 8 slots: sampled, one top_k group "
+        f"{prof['kernels']:.0f} kernels, device busy {prof['busy_ms']:.3f} "
+        f"ms, wall {prof['wall_ms']:.3f} ms; sampled, three top_k groups "
+        f"(50, 0, 1) {prof3['kernels']:.0f} kernels, busy "
+        f"{prof3['busy_ms']:.3f} ms, wall {prof3['wall_ms']:.3f} ms; greedy "
+        f"{greedy_prof['kernels']:.0f} kernels, busy "
+        f"{greedy_prof['busy_ms']:.3f} ms, wall "
+        f"{greedy_prof['wall_ms']:.3f} ms")
+    return dict(launches=launches, tok_s=emitted / wall, step_ms=step_med,
+                profile=prof)
+
+
+def phase_spec_sampled(dev, kind: str, cfg, what: str, params, proposer: str,
+                       spec_k: int) -> dict:
+    """qwen1.5-0.5b behind ``SpecDecodeEngine`` (n-gram or self-draft) with
+    every request at temperature 0.8 / top_k 50, run twice on fresh
+    engines: streams, acceptance, ``kv_stats`` and launch counters must be
+    the same, every request must finish, and the counters must equal the
+    calls (the attention kernel once per layer per verify step and per
+    draft decode step, the reduction twice per verify step and per first
+    token). Prints the host time per step spent in ``rejection_sample``
+    and in the proposer's call (draft decodes included). The n-gram path
+    ends in a profiled window of sampled verify steps."""
+    import torch
+    from repro_torch.serving.engine import SpecDecodeEngine
+    from repro_torch.spec import DraftModelProposer, NGramProposer, sampler
+    knobs = dict(temperature=0.8, top_k=50)
+    reject = sampler.rejection_sample
+
+    def run():
+        prop = NGramProposer() if proposer == "ngram" else \
+            DraftModelProposer(cfg, params)
+        engine = SpecDecodeEngine(cfg, params, proposer=prop, spec_k=spec_k,
+                                  max_slots=8, max_context=1024,
+                                  block_size=16, prefill_chunk=256,
+                                  device=dev)
+        cost = {"reject": 0.0, "propose": 0.0, "draft_calls": 0}
+        propose = prop.propose
+
+        def timed_reject(*a):
+            t = time.perf_counter()
+            out = reject(*a)
+            cost["reject"] += time.perf_counter() - t
+            return out
+
+        def timed_propose(*a):
+            t = time.perf_counter()
+            out = propose(*a)
+            cost["propose"] += time.perf_counter() - t
+            return out
+
+        prop.propose = timed_propose
+        if proposer == "draft":
+            draft_decode = prop._decode
+
+            def counted_decode(*a):
+                cost["draft_calls"] += 1
+                return draft_decode(*a)
+
+            prop._decode = counted_decode
+        sampler.rejection_sample = timed_reject
+        try:
+            reqs = sampled_requests(cfg, knobs)
+            wall, step_ms, launches = serve_run(engine, reqs)
+        finally:
+            sampler.rejection_sample = reject
+        return engine, reqs, wall, step_ms, launches, cost
+
+    eng, reqs, wall, step_ms, launches, cost = run()
+    st = dict(eng.kv_stats)
+    label = f"{cfg.name} sampled spec {proposer} k={spec_k}"
+    check_served(label, eng, reqs, launches,
+                 {"paged_attention": cfg.num_layers
+                  * (st["spec_steps"] + cost["draft_calls"]),
+                  "fused_reduce": 2 * (st["spec_steps"] + len(reqs))})
+    eng2, reqs2, _, _, launches2, _ = run()
+    if [r.output for r in reqs2] != [r.output for r in reqs] or \
+            dict(eng2.kv_stats) != st or launches2 != launches or \
+            eng2.acceptance_rate != eng.acceptance_rate:
+        fail(f"{label}: a second run differs in streams, counters or "
+             f"acceptance")
+    del eng2
+    emitted = sum(len(r.output) for r in reqs)
+    step_med = statistics.median(step_ms)
+    steps = st["spec_steps"]
+    log(f"[spec] {what} sampled (t 0.8 / top_k 50) on {kind}, {proposer} "
+        f"proposer, spec_k {spec_k}: {emitted} tokens in {wall:.3f} s = "
+        f"{emitted / wall:.2f} tok/s; {steps} verify steps, median step "
+        f"{step_med:.3f} ms; acceptance rate {eng.acceptance_rate:.4f} "
+        f"({st['spec_accepted']} of {st['spec_drafted']}), "
+        f"{eng.mean_accepted_length:.4f} tokens per walk; host ms per step: "
+        f"rejection_sample {1e3 * cost['reject'] / steps:.3f}, drafting "
+        f"{1e3 * cost['propose'] / steps:.3f} (the proposer's call, its "
+        f"{cost['draft_calls']} draft decode steps included); a second run "
+        f"bitwise the same; launching wrapper "
+        f"calls {launches}")
+    prof = None
+    if proposer == "ngram":
+        prof = profile_decode(eng, cfg, what="sampled verify", knobs=knobs)
+    return dict(launches=launches, tok_s=emitted / wall, step_ms=step_med,
+                acceptance=eng.acceptance_rate,
+                accepted_len=eng.mean_accepted_length, ties=0, profile=prof)
+
+
+# the fault phase: 8 requests of 16 new tokens; faults at fixed steps
+FAULTS = (dict(site="alloc_fail", step=1), dict(site="kv_corrupt", step=14),
+          dict(site="logit_nan", step=18))
+STALLS = (dict(site="proposer_stall", step=12),
+          dict(site="proposer_stall", step=15),
+          dict(site="proposer_stall", step=20))
+EXPIRES, CANCELS, CANCEL_AT = 6, 7, 12
+
+
+class _CallCount:
+    """Counts the model steps and ``_logit_stats`` calls of the engines it
+    wraps (the degraded tier's too), to hold the launch counters to."""
+
+    def __init__(self):
+        from repro_torch.serving import engine as engine_mod
+        self.mod, self.stats_fn = engine_mod, engine_mod._logit_stats
+        self.model_steps = 0
+        self.stats = 0
+
+        def counted_stats(*a):
+            self.stats += 1
+            return self.stats_fn(*a)
+
+        engine_mod._logit_stats = counted_stats
+
+    def wrap(self, engine):
+        for name in ("_decode", "_verify"):
+            fn = getattr(engine, name, None)
+            if fn is not None:
+                setattr(engine, name, self._counted(fn))
+        return engine
+
+    def _counted(self, fn):
+        def counted(*a):
+            self.model_steps += 1
+            return fn(*a)
+        return counted
+
+    def close(self) -> None:
+        self.mod._logit_stats = self.stats_fn
+
+
+def fault_run(dev, cfg, params, calls: _CallCount):
+    """One ``FailoverServer`` run over a bf16 ``DecodeEngine`` with the
+    ``FAULTS`` armed, request ``EXPIRES`` on a deadline of 6 steps and
+    request ``CANCELS`` cancelled at step ``CANCEL_AT``. Returns the
+    server, the injector, the requests, the wall time (s), the host time
+    of each server step (ms) and the launch counters."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (DecodeEngine, FailoverServer,
+                                     FaultInjector, FaultSpec,
+                                     degraded_engine)
+    inj = FaultInjector(SEED, [FaultSpec(**f) for f in FAULTS])
+    primary = calls.wrap(DecodeEngine(cfg, params, max_slots=8,
+                                      max_context=1024, block_size=16,
+                                      prefill_chunk=256, device=dev,
+                                      fault_injector=inj))
+    server = FailoverServer(primary, lambda: calls.wrap(
+        degraded_engine(primary)))
+    reqs = make_requests(cfg, n=8, new_tokens=16)
+    reqs[EXPIRES].deadline_steps = 6
+    for r in reqs:
+        server.submit(r)
+    ops.reset_launches()
+    step_ms = []
+    t0 = time.perf_counter()
+    for step in range(1, 500):
+        if not server.num_unfinished:
+            break
+        if step == CANCEL_AT and not primary.cancel(CANCELS):
+            fail(f"faults: request {CANCELS} was not in flight at step "
+                 f"{CANCEL_AT}")
+        t = time.perf_counter()
+        server.step()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if server.num_unfinished:
+        fail("faults: the failover server did not finish in 500 steps")
+    return server, inj, reqs, wall, step_ms, dict(ops.launches)
+
+
+def phase_faults(dev, kind: str, cfg, params, base: dict,
+                 noise: float) -> tuple[dict, dict]:
+    """Deterministic fault injection with failover at full width, twice
+    with one seed: a ``FailoverServer`` over a bf16 ``DecodeEngine`` with
+    ``alloc_fail``, ``kv_corrupt`` and ``logit_nan`` at fixed steps, one
+    request on a deadline and one cancelled. Every guard-tripped request
+    is retried on the degraded engine and finishes there (or is reported
+    failed); every other request but the cancelled and the expired one
+    finishes; the streams that finish equal the bf16 phase's (first 16
+    tokens); the cancelled and the expired request hold no slot or block;
+    no allocator holds a block at the end; both runs fire the same (step,
+    site, victim) list; the launch counters equal the model steps (one
+    attention kernel per layer) and the ``_logit_stats`` calls (two
+    reductions each). Then a ``SpecDecodeEngine`` (n-gram, spec_k 4) with
+    ``proposer_stall`` at fixed steps: the stalls are counted and its
+    streams equal the bf16 phase's but past a near-tie. Returns the two
+    paths apart, the failover server's and the stalled verify path's."""
+    from repro_torch.serving import FaultInjector, FaultSpec, SpecDecodeEngine
+    from repro_torch.spec import NGramProposer
+    t0 = time.perf_counter()
+    logs, outs, rates = [], [], []
+    total: dict = {}
+    for attempt in range(2):
+        calls = _CallCount()
+        try:
+            server, inj, reqs, wall, step_ms, launches = fault_run(
+                dev, cfg, params, calls)
+        finally:
+            calls.close()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        full = dict.fromkeys(launches, 0)
+        full.update(paged_attention=cfg.num_layers * calls.model_steps,
+                    fused_reduce=2 * calls.stats)
+        if launches != full:
+            fail(f"faults: launch counters {launches} != {full}")
+        primary, degraded = server.primary, server.degraded
+        gone = {EXPIRES: "expired", CANCELS: "cancelled"}
+        for rid, state in gone.items():
+            r = reqs[rid]
+            if r.state != state or r.blocks or r.slot is not None:
+                fail(f"faults: request {rid} is {r.state} holding "
+                     f"{len(r.blocks)} blocks, slot {r.slot} (want "
+                     f"{state}, nothing held)")
+        if primary.kv_stats["expired"] != 1 or \
+                primary.kv_stats["cancelled"] != 1:
+            fail(f"faults: expired / cancelled counters "
+                 f"{primary.kv_stats['expired']}, "
+                 f"{primary.kv_stats['cancelled']}")
+        retried = [r.rid for r in server.retried]
+        failed = [r.rid for r in server.failed]
+        sites = [s for _, s, _ in inj.log]
+        if sorted(sites) != sorted(f["site"] for f in FAULTS) or \
+                primary.kv_stats["alloc_faults"] != 1:
+            fail(f"faults: fired {inj.log}, alloc faults "
+                 f"{primary.kv_stats['alloc_faults']}")
+        if primary.kv_stats["guard_trips"] != len(retried) or \
+                not retried or degraded is None:
+            fail(f"faults: {primary.kv_stats['guard_trips']} guard trips, "
+                 f"retried {retried}")
+        for r in reqs:
+            if r.rid in gone or r.rid in failed:
+                continue
+            if not r.done or r.output != base[r.rid][:16]:
+                fail(f"faults: request {r.rid} ({r.state}, retried "
+                     f"{r.rid in retried}) did not finish with the bf16 "
+                     f"phase's stream")
+        held = [e.scheduler.allocator.num_held for e in (primary, degraded)]
+        if any(held):
+            fail(f"faults: allocators still hold {held} blocks")
+        logs.append(inj.log)
+        outs.append([r.output for r in reqs])
+        rates.append((sum(len(r.output) for r in reqs) / wall,
+                      statistics.median(step_ms)))
+        if attempt == 0:
+            log(f"[faults] qwen1.5-0.5b bf16 FailoverServer on {kind}, 8 "
+                f"requests of 16 tokens: fired (step, site, detail) "
+                f"{inj.log}; guard trips {primary.kv_stats['guard_trips']}, "
+                f"retried on the degraded bf16 engine {retried} (finished "
+                f"there, streams equal the bf16 phase's), failed {failed}; "
+                f"request {EXPIRES} expired and {CANCELS} cancelled, "
+                f"nothing held; allocators empty; {wall:.3f} s; launching "
+                f"wrapper calls {launches} = {calls.model_steps} model "
+                f"steps, {calls.stats} logit-stats calls")
+    if logs[0] != logs[1] or outs[0] != outs[1]:
+        fail(f"faults: two runs with one seed differ: {logs}")
+    inj = FaultInjector(SEED, [FaultSpec(**f) for f in STALLS])
+    engine = SpecDecodeEngine(cfg, params, proposer=NGramProposer(),
+                              spec_k=VERIFY_K, max_slots=8,
+                              max_context=1024, block_size=16,
+                              prefill_chunk=256, device=dev,
+                              fault_injector=inj)
+    probe = SpecProbe(engine)
+    reqs = make_requests(cfg, n=8, new_tokens=16)
+    stall_wall, stall_ms, launches = serve_run(engine, reqs)
+    probe.detach()
+    st = engine.kv_stats
+    check_served(f"{cfg.name} spec with proposer stalls", engine, reqs,
+                 launches,
+                 {"paged_attention": cfg.num_layers * st["spec_steps"],
+                  "fused_reduce": 2 * (st["spec_steps"] + len(reqs))},
+                 new_tokens=16)
+    if st["proposer_stalls"] != len(STALLS) or len(inj.log) != len(STALLS):
+        fail(f"faults: {st['proposer_stalls']} proposer stalls, fired "
+             f"{inj.log}")
+    ties = check_streams("spec with proposer stalls", reqs,
+                         {rid: s[:16] for rid, s in base.items()}, probe,
+                         noise)
+    log(f"[faults] qwen1.5-0.5b SpecDecodeEngine n-gram k={VERIFY_K} with "
+        f"proposer_stall at steps {[f['step'] for f in STALLS]}: "
+        f"{st['proposer_stalls']} stalls degraded to plain verify steps, "
+        f"all 8 requests finished, streams equal the bf16 phase's but for "
+        f"{ties} near-ties; two fault runs fired the same list; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return (dict(launches=total, tok_s=rates[0][0], step_ms=rates[0][1]),
+            dict(launches=launches,
+                 tok_s=sum(len(r.output) for r in reqs) / stall_wall,
+                 step_ms=statistics.median(stall_ms)))
 
 
 def main() -> int:
@@ -2318,6 +2894,30 @@ def main() -> int:
         dev, kind, qwen, q_what, q_params, "draft", DRAFT_K, base=base,
         noise=noise["bf16"])
     wall["qwen1.5-0.5b spec self-draft"] = time.perf_counter() - t0
+    # keyed RNG, sampled serving and speculation, fault injection with
+    # failover, on the same weights
+    t0 = time.perf_counter()
+    gumbel_eps = phase_rng(dev)
+    phase_sample(dev, gumbel_eps)
+    wall["rng + sample"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q_paths["qwen1.5-0.5b sampled"] = phase_serve_sampled(
+        dev, kind, qwen, q_what, q_params, base,
+        q_paths["qwen1.5-0.5b bf16"]["profile"])
+    wall["qwen1.5-0.5b sampled"] = time.perf_counter() - t0
+    for proposer, k in (("n-gram", VERIFY_K), ("self-draft", DRAFT_K)):
+        t0 = time.perf_counter()
+        q_paths[f"qwen1.5-0.5b sampled spec {proposer}"] = \
+            phase_spec_sampled(dev, kind, qwen, q_what, q_params,
+                               "ngram" if proposer == "n-gram" else "draft",
+                               k)
+        wall[f"qwen1.5-0.5b sampled spec {proposer}"] = \
+            time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (q_paths["qwen1.5-0.5b faults"],
+     q_paths["qwen1.5-0.5b spec proposer stalls"]) = phase_faults(
+        dev, kind, qwen, q_params, base, noise["bf16"])
+    wall["qwen1.5-0.5b faults"] = time.perf_counter() - t0
     del q_params
     torch.cuda.empty_cache()
     # deepseek-v2 at full width, depth cut to 3 (1 dense + 2 MoE layers):
@@ -2348,7 +2948,10 @@ def main() -> int:
     def by_path(paths, name):
         return {k: v["launches"][name] for k, v in paths.items()}
 
-    spec_paths = ("qwen1.5-0.5b spec n-gram", "qwen1.5-0.5b spec self-draft")
+    spec_paths = ("qwen1.5-0.5b spec n-gram", "qwen1.5-0.5b spec self-draft",
+                  "qwen1.5-0.5b sampled spec n-gram",
+                  "qwen1.5-0.5b sampled spec self-draft",
+                  "qwen1.5-0.5b spec proposer stalls")
     pa_by = by_path(q_paths, "paged_attention")
     lat_by = by_path(d_paths, "paged_latent_attention")
     red_by = {**by_path(q_paths, "fused_reduce"),

@@ -188,6 +188,19 @@ def zero_blocks(caches: dict, blocks: list[int]) -> None:
             caches[name][:, idx] = 0
 
 
+def poison_blocks(caches: dict, blocks: list[int]) -> None:
+    """In place: NaN-fill the listed blocks of every float pool leaf
+    (fault injection's silent KV corruption, which the numerics guard
+    must catch). Integer payloads (int8, and fp8 stored as e4m3 bytes)
+    keep their bits; their f32 scale tiles take the NaN, which
+    dequantizes to NaN all the same."""
+    idx = torch.as_tensor(blocks, dtype=torch.int64,
+                          device=caches["len"].device)
+    for name in POOL_KEYS:
+        if name in caches and caches[name].is_floating_point():
+            caches[name][:, idx] = float("nan")
+
+
 def reset_slot(caches: dict, slot: int, table_row: torch.Tensor) -> None:
     """In place: point slot ``slot`` at ``table_row`` in every layer and
     zero its length; pools are untouched."""

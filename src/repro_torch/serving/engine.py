@@ -22,12 +22,24 @@
     paged KV, and the greedy accept rule emits 1 to k + 1 tokens per
     slot, the non-speculative stream.
 
-Greedy decoding only: a request's chunk boundaries and decode math
-depend only on its own prompt and the cache geometry, so batched serving
-matches solo generation token for token. Prefix caching, session KV,
-preemption, sampling, fault injection and telemetry are later slices of
-the port; their constructor knobs raise ``NotImplementedError`` naming
-the ROADMAP item.
+Determinism: greedy argmax by default; a request's chunk boundaries and
+decode math depend only on its own prompt and the cache geometry, so
+batched serving matches solo generation token for token. Requests can
+opt into temperature + top-k sampling with a per-request ``seed``: the
+draw is keyed on (seed, tokens emitted) only (``repro_torch.core.prng``,
+bitwise jax's threefry), so it too is independent of batch composition
+and admission timing.
+
+Lifecycle and faults: requests carry ``deadline_steps`` and can be
+cancelled anywhere with slot, blocks and proposer mirror state released;
+a ``NumericsGuard`` quarantines a slot whose logits go non-finite or
+whose round-off explodes; a keyed ``FaultInjector``
+(``repro_torch.serving.faults``) NaNs logit rows, poisons KV blocks,
+fails allocations and stalls proposers at replayable steps, and
+``FailoverServer`` retries quarantined requests on a degraded engine.
+Prefix caching, session KV, preemption and telemetry are later slices
+of the port; their constructor knobs raise ``NotImplementedError``
+naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch.core import prng
 from repro_torch.kernels import ops
 from repro_torch.models import api, paged
 from repro_torch.models.config import ModelConfig
@@ -61,12 +74,21 @@ class Request:
     prompt: list
     max_new_tokens: int
     eos_id: int | None = None
-    # only temperature == 0 (greedy) is served in this slice
+    # sampling: temperature == 0 is greedy; top_k == 0 means the whole
+    # vocabulary; ``seed`` keys the request's private stream (folded with
+    # the emit index, so a draw does not depend on the batch)
     temperature: float = 0.0
+    top_k: int = 0
+    seed: int = 0
     # speculative decoding: None inherits the engine's spec_k; the engine
     # also caps it by the window, the token budget and the slot's blocks
     spec_k: int | None = None
+    # lifecycle: a deadline in engine steps from submission (None: none);
+    # ``priority`` feeds the "priority" preemption policy, which is not
+    # ported: ``submit`` refuses any other value than 0. ``state`` walks queued -> prefilling -> decoding -> done |
+    # cancelled | expired | quarantined | failed
     deadline_steps: int | None = None
+    priority: int = 0
     output: list = field(default_factory=list)
     logprobs: list = field(default_factory=list)   # per emitted token
     slot: int | None = None
@@ -77,16 +99,32 @@ class Request:
     error: str | None = None
     submit_step: int = 0
     last_progress_step: int = 0
+    retries: int = 0
 
     @property
     def num_cached(self) -> int:
         """Tokens currently occupying KV positions (prompt + emitted)."""
         return self.prefill_pos + len(self.output)
 
+    def reset_for_retry(self) -> None:
+        """Scrub per-run state so the request can be resubmitted (the
+        ``FailoverServer``'s degraded-tier retry)."""
+        if self.slot is not None or self.blocks:
+            raise RuntimeError(f"request {self.rid} still holds engine "
+                               f"resources")
+        self.output = []
+        self.logprobs = []
+        self.done = False
+        self.prefill_pos = 0
+        self.state = "queued"
+        self.retries += 1
+
 
 class BlockAllocator:
     """Reference-counted LIFO free list over a ``num_blocks`` pool; block
-    0 stays reserved. Misuse raises ``AllocatorError``."""
+    0 stays reserved. Misuse raises ``AllocatorError``. ``fail_next``
+    (armed by a ``FaultInjector``) makes the next ``alloc`` raise once:
+    a transient failure the admission path absorbs."""
 
     def __init__(self, num_blocks: int):
         if num_blocks < 2:
@@ -94,6 +132,8 @@ class BlockAllocator:
         self.num_blocks = num_blocks
         self._free = list(range(num_blocks - 1, NULL_BLOCK, -1))
         self._ref: dict[int, int] = {}
+        self.fail_next = False
+        self.faults = 0
 
     @property
     def num_free(self) -> int:
@@ -107,6 +147,10 @@ class BlockAllocator:
         return self._ref.get(block, 0)
 
     def alloc(self, n: int) -> list[int]:
+        if self.fail_next:
+            self.fail_next = False
+            self.faults += 1
+            raise AllocatorError("injected allocation failure")
         if n > len(self._free):
             raise AllocatorError(f"block pool exhausted: want {n}, "
                                  f"have {len(self._free)}")
@@ -155,6 +199,10 @@ class Scheduler:
             raise AdmissionError(
                 f"request {req.rid}: needs {self.blocks_needed(req)} blocks "
                 f"but the pool only has {usable}")
+        if req.deadline_steps is not None and req.deadline_steps < 1:
+            raise AdmissionError(
+                f"request {req.rid}: deadline_steps must be >= 1, "
+                f"got {req.deadline_steps}")
         req.state = "queued"
         self.waiting.append(req)
 
@@ -170,7 +218,11 @@ class Scheduler:
             need = self.blocks_needed(req)
             if need > self.allocator.num_free:
                 break
-            req.blocks = self.allocator.alloc(need)
+            try:
+                req.blocks = self.allocator.alloc(need)
+            except AllocatorError:
+                break          # a transient failure: the head waits
+
             req.prefill_pos = 0
             self.waiting.popleft()
             req.slot = self._free_slots.pop()
@@ -204,13 +256,22 @@ class Scheduler:
         req.blocks = []
         self._free_slots.append(req.slot)
 
-    def drop(self, req: Request, state: str) -> None:
-        """Remove an admitted request abnormally (quarantine)."""
-        if req in self.prefilling:
-            self.prefilling.remove(req)
-        self.decoding.pop(req.slot, None)
-        self._release(req)
+    def drop(self, req: Request, state: str) -> bool:
+        """Remove ``req`` from whichever queue holds it (cancellation,
+        expiry, quarantine), releasing its slot and blocks. False if the
+        request is not in flight. The engine resets the slot's table."""
+        if req in self.waiting:
+            self.waiting.remove(req)
+        elif req.slot is not None and (req in self.prefilling
+                                       or self.decoding.get(req.slot) is req):
+            if req in self.prefilling:
+                self.prefilling.remove(req)
+            self.decoding.pop(req.slot, None)
+            self._release(req)
+        else:
+            return False
         req.state = state
+        return True
 
     def retire(self, req: Request) -> None:
         req.done = True
@@ -262,6 +323,25 @@ def _pack(tokens: torch.Tensor, stats: dict) -> torch.Tensor:
                        + [stats[k] for k in _STAT_KEYS])
 
 
+def _sample_rows(rows: torch.Tensor, temperatures: torch.Tensor,
+                 keys: torch.Tensor, top_k: int) -> torch.Tensor:
+    """Temperature + top-k draws for rows that share a ``top_k`` (the
+    reference's ``_sample_row`` mapped over the rows): rows [S, V],
+    temperatures [S] f32, keys [S, 2] -> tokens [S] (int64), on the
+    rows' device. Each row is ``jax.random.categorical`` of its own
+    key over ``row / max(t, 1e-6)``; with ``top_k`` the logits below the
+    k-th largest become -inf, so values tied with it are kept (as
+    ``jax.lax.top_k`` + ``where(logits < kth)``). A ``top_k`` past the
+    vocabulary means no truncation."""
+    logits = rows.to(torch.float32) / torch.clamp_min(temperatures,
+                                                      1e-6)[:, None]
+    if top_k:
+        kth = torch.topk(logits, min(top_k, logits.shape[-1]),
+                         dim=-1).values[:, -1:]
+        logits = torch.where(logits < kth, float("-inf"), logits)
+    return prng.categorical(keys, logits)
+
+
 class DecodeEngine:
     """Paged continuous-batching engine over a fixed slot pool.
 
@@ -286,8 +366,6 @@ class DecodeEngine:
             raise _later("prefix caching / session KV / spill", 7)
         if preempt != "off":
             raise _later("preemption to host", 7)
-        if fault_injector is not None:
-            raise _later("fault injection", 8)
         if telemetry is not None:
             raise _later("telemetry", 9)
         if self.device.type == "cuda":
@@ -303,6 +381,7 @@ class DecodeEngine:
         self.scheduler = Scheduler(BlockAllocator(self.kv.num_blocks),
                                    max_slots, self.layout, prefill_chunk)
         self.guard = guard
+        self.injector = fault_injector
         self.quarantined: list[Request] = []
         self._step_count = 0
         self._prefill_chunk = api.prefill_chunk_fn(cfg)   # raises for a
@@ -322,26 +401,29 @@ class DecodeEngine:
         self.kv_stats = {"paged_bytes": 0, "paged_bytes_bf16": 0,
                          "contiguous_bytes": 0, "decode_steps": 0,
                          "prefill_chunks": 0, "prefill_tokens": 0,
-                         "guard_trips": 0, "stalled_requests": 0}
+                         "guard_trips": 0, "cancelled": 0, "expired": 0,
+                         "alloc_faults": 0, "stalled_requests": 0}
         self.last_logit_stats: dict | None = None
 
     # ------------------------------------------------------------ API -----
 
     def submit(self, req: Request) -> None:
         """Enqueue a request; raises ``AdmissionError`` for requests that
-        could never run (context or pool overflow)."""
-        if req.temperature > 0.0:
-            raise _later("temperature sampling (keyed RNG)", 4)
-        if req.deadline_steps is not None:
-            raise _later("request deadlines", 8)
+        could never run (context or pool overflow, bad deadline)."""
+        if req.priority != 0:
+            raise _later("Request.priority (preemption)", 7)
         req.submit_step = self._step_count
         req.last_progress_step = self._step_count
         self.scheduler.submit(req)
 
     def step(self) -> None:
-        """One engine step: admit, run at most one prefill chunk, then one
-        batched decode step for every decoding slot."""
+        """One engine step: expire deadlines, inject the step's faults,
+        admit, run at most one prefill chunk, then one batched decode step
+        for every decoding slot."""
         self._step_count += 1
+        self._expire_deadlines()
+        if self.injector is not None:
+            self._inject_step_faults()
         for req in self.scheduler.admit():
             row = torch.full((self.layout.max_blocks,), NULL_BLOCK,
                              dtype=torch.int32)
@@ -362,6 +444,7 @@ class DecodeEngine:
                 self._emit_first_token(req, logits)
         if self.scheduler.decoding:
             self._decode_step()
+        self.kv_stats["alloc_faults"] = self.scheduler.allocator.faults
 
     # Subclass hooks (the speculative engine mirrors them into its
     # proposer). Preemption is not ported, so nothing calls the preempt /
@@ -383,8 +466,8 @@ class DecodeEngine:
         pass
 
     def _on_drop(self, req: Request) -> None:
-        """A slot-holding request leaves abnormally (quarantine);
-        ``req.slot`` is still valid."""
+        """A slot-holding request leaves abnormally (cancelled, expired,
+        quarantined); ``req.slot`` is still valid."""
 
     def run_until_done(self, max_steps: int = 10_000) -> None:
         """Drive steps until every request finishes; raises
@@ -419,19 +502,132 @@ class DecodeEngine:
     def num_unfinished(self) -> int:
         return self.scheduler.num_unfinished
 
+    # ----------------------------------------------- lifecycle control ----
+
+    def _in_flight(self) -> list[Request]:
+        sched = self.scheduler
+        return (list(sched.waiting) + list(sched.prefilling)
+                + list(sched.decoding.values()))
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel an in-flight request wherever it is (waiting,
+        prefilling, decoding), releasing its slot, blocks and proposer
+        mirror state. False if no such request is in flight."""
+        for req in self._in_flight():
+            if req.rid == rid:
+                return self._terminate(req, "cancelled")
+        return False
+
+    def cancel_all(self) -> int:
+        """Cancel everything in flight; returns how many were cancelled."""
+        return sum(self._terminate(r, "cancelled")
+                   for r in self._in_flight())
+
+    def _expire_deadlines(self) -> None:
+        for req in self._in_flight():
+            if (req.deadline_steps is not None
+                    and self._step_count - req.submit_step
+                    > req.deadline_steps):
+                self._terminate(req, "expired")
+
+    def _terminate(self, req: Request, state: str) -> bool:
+        sched = self.scheduler
+        slot = req.slot
+        active = slot is not None and (req in sched.prefilling
+                                       or sched.decoding.get(slot) is req)
+        if active:
+            self._on_drop(req)         # the mirror needs the slot still
+        if not sched.drop(req, state):
+            return False
+        if active:
+            paged.reset_slot(self.caches, slot, self._null_row)
+            req.slot = None
+        self.kv_stats[state] += 1
+        return True
+
+    # -------------------------------------------- faults & quarantine -----
+
+    def _inject_step_faults(self) -> None:
+        """Step sites: poison a decoding victim's KV block (NaN in the
+        float pool leaves or scale tiles; the guard must catch what
+        follows) and arm a one-shot allocator failure (admission must
+        absorb it)."""
+        step = self._step_count
+        if (self.scheduler.decoding
+                and self.injector.fire("kv_corrupt", step)):
+            reqs = [self.scheduler.decoding[s]
+                    for s in sorted(self.scheduler.decoding)]
+            victim = reqs[self.injector.choose("kv_corrupt", step,
+                                               len(reqs))]
+            alloc = self.scheduler.allocator
+            bs = self.layout.block_size
+            # a private block that already holds cached tokens: its NaNs
+            # enter the victim's next attention read (a shared block
+            # would poison innocent readers)
+            priv = [b for b in victim.blocks if alloc.refcount(b) == 1]
+            cached = [b for i, b in enumerate(victim.blocks)
+                      if alloc.refcount(b) == 1
+                      and i * bs < victim.num_cached - 1]
+            target = (cached or priv)[:1]
+            if target:
+                paged.poison_blocks(self.caches, target)
+        if self.injector.fire("alloc_fail", step):
+            self.scheduler.allocator.fail_next = True
+
+    def _nan_victim(self, n: int) -> int | None:
+        """The ``logit_nan`` site: the index (among the step's ``n``
+        decoding slots in slot order) whose logit row is NaN-filled this
+        step, or None."""
+        if self.injector is None or not self.injector.fire(
+                "logit_nan", self._step_count):
+            return None
+        return self.injector.choose("logit_nan", self._step_count, n)
+
     # ------------------------------------------------------- internals ----
 
-    def _decode_fused(self, tokens: torch.Tensor):
-        """Model step + greedy choice + fused logit stats, packed."""
-        logits = self._decode(self.params, tokens, self.caches)
-        rows = logits.reshape(logits.shape[0], -1)
+    @staticmethod
+    def _sample_key(req: Request) -> torch.Tensor:
+        """The request's private stream, keyed on (seed, emit index)
+        only: independent of batch composition and admission timing.
+        A host key ([2] int64 on the CPU)."""
+        return prng.fold_in(prng.key(req.seed, device="cpu"),
+                            len(req.output))
+
+    def _sample_override(self, rows: torch.Tensor, toks: torch.Tensor,
+                         sampled: list) -> torch.Tensor:
+        """Replace the greedy choice of each sampled (row, request) pair
+        by its keyed draw: one ``_sample_rows`` per distinct ``top_k``
+        (usually one), on the device; only the keys and temperatures
+        cross, as one upload each."""
+        by_k: dict[int, list] = {}
+        for idx, req in sampled:
+            by_k.setdefault(req.top_k, []).append((idx, req))
+        for top_k, items in by_k.items():
+            # [S, 3] int64: the row index, then the row's key
+            meta = torch.cat([torch.tensor([[i] for i, _ in items]),
+                              torch.stack([self._sample_key(r)
+                                           for _, r in items])], dim=1)
+            meta = meta.to(self.device)
+            temps = torch.tensor([r.temperature for _, r in items],
+                                 dtype=torch.float32).to(self.device)
+            toks[meta[:, 0]] = _sample_rows(rows[meta[:, 0]], temps,
+                                            meta[:, 1:], top_k
+                                            ).to(toks.dtype)
+        return toks
+
+    def _choose(self, rows: torch.Tensor, row_reqs: list) -> torch.Tensor:
+        """The step's tokens [B] (int32, on the device): the greedy
+        argmax, overridden for the sampled (row, request) pairs."""
         toks = _greedy_tokens(rows)
-        return rows, _pack(toks, _logit_stats(rows, toks))
+        sampled = [(i, r) for i, r in row_reqs if r.temperature > 0.0]
+        if sampled:
+            toks = self._sample_override(rows, toks, sampled)
+        return toks
 
     def _emit_first_token(self, req: Request, logits: torch.Tensor) -> None:
         """The final prefill chunk's logits yield the first token."""
         row = logits.reshape(1, -1)
-        toks = _greedy_tokens(row)
+        toks = self._choose(row, [(0, req)])
         packed = _pack(toks, _logit_stats(row, toks)).cpu().numpy()
         tok = int(packed[0, 0])
         stats = {k: packed[i + 1] for i, k in enumerate(_STAT_KEYS)}
@@ -450,14 +646,23 @@ class DecodeEngine:
         prefilling = [r.slot for r in self.scheduler.prefilling]
         old_len = self.caches["len"].clone() if prefilling else None
         tok_in = torch.from_numpy(self._next_tokens).to(self.device)
-        _, packed_dev = self._decode_fused(tok_in)
+        logits = self._decode(self.params, tok_in, self.caches)
+        rows = logits.reshape(logits.shape[0], -1)
         if prefilling:
             # the batched step also advanced mid-prefill slots' lengths
             mask = torch.zeros(self.max_slots, dtype=torch.bool,
                                device=self.device)
             mask[prefilling] = True
             paged.keep_slots(self.caches, old_len, mask)
-        packed = packed_dev.cpu().numpy()          # the step's one transfer
+        slots_sorted = sorted(self.scheduler.decoding)
+        victim = self._nan_victim(len(slots_sorted))
+        if victim is not None:
+            # the guard's nonfinite sentinel must quarantine this row
+            rows[slots_sorted[victim]] = float("nan")
+        # greedy argmax, the sampled override, then the fused logit stats
+        # of the final choices: one [7, B] transfer covers the step
+        toks = self._choose(rows, list(self.scheduler.decoding.items()))
+        packed = _pack(toks, _logit_stats(rows, toks)).cpu().numpy()
         tokens = packed[0].astype(np.int32)
         self.last_logit_stats = {k: packed[i + 1]
                                  for i, k in enumerate(_STAT_KEYS)}
@@ -550,16 +755,22 @@ class SpecDecodeEngine(DecodeEngine):
     tokens emitted per KV-pool walk are the gain: the walk is the decode
     step's dominant traffic.
 
-    The accept rule runs on the device too: the argmax of every window
-    position, the accepted prefix and the fused logit statistics of the
-    chosen tokens (the emitted ones; token 0 past them and on padding
-    rows) cross to the host as ONE packed [7, S * C] tensor.
+    For greedy slots the accept rule runs on the device too: the argmax
+    of every window position, the accepted prefix and the fused logit
+    statistics of the chosen tokens (the emitted ones; token 0 past them
+    and on padding rows) cross to the host as ONE packed [7, S * C]
+    tensor.
 
     Rolling back a rejected suffix is bookkeeping: the slot's ``len``
     drops to the accepted prefix (``paged.set_lens``), blocks stay
     allocated, and rows past ``len`` are masked by every reader and
-    overwritten by the next append. Paged-KV attention families only;
-    greedy requests only (``submit`` refuses temperature > 0).
+    overwritten by the next append. Paged-KV attention families only.
+
+    Sampled requests take the exact accept / residual rule
+    (``repro_torch.spec.sampler.rejection_sample``), keyed on (seed,
+    emit index): reproducible and batch-invariant, with the emitted
+    marginal exactly the target distribution. A step with a sampled slot
+    pulls those slots' [C, V] rows to the host, as the reference does.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, proposer,
@@ -613,16 +824,13 @@ class SpecDecodeEngine(DecodeEngine):
         capacity = len(req.blocks) * self.layout.block_size
         return max(0, min(k, capacity - cached - 1))
 
-    def _verify_fused(self, tokens: np.ndarray, slots: np.ndarray,
-                      pos0s: np.ndarray, ks: list[int]) -> np.ndarray:
-        """Verify pass + the greedy accept rule + fused logit stats on the
-        device -> packed [7, S * C] on the host: row 0 the argmax of every
-        position, rows 1.. the stats of the chosen tokens."""
+    def _accept_greedy(self, logits: torch.Tensor, tok: torch.Tensor,
+                       ks: list[int]) -> np.ndarray:
+        """The greedy accept rule and the fused logit stats on the device
+        -> packed [7, S * C] on the host: row 0 the argmax of every
+        position, rows 1.. the stats of the chosen tokens (the emitted
+        ones; token 0 past them and on padding rows)."""
         dev = self.device
-        tok = torch.from_numpy(tokens).to(dev)
-        logits = self._verify(self.params, tok, self.caches,
-                              torch.from_numpy(slots).to(dev),
-                              torch.from_numpy(pos0s).to(dev))
         s, c, v = logits.shape
         rows = logits.reshape(s * c, v)
         am = _greedy_tokens(rows).reshape(s, c)
@@ -638,6 +846,43 @@ class SpecDecodeEngine(DecodeEngine):
         stats = _logit_stats(rows, chosen.reshape(-1))
         return _pack(am.reshape(-1), stats).cpu().numpy()
 
+    def _accept_sampled(self, logits: torch.Tensor, tokens: np.ndarray,
+                        decoding: list, ks: list[int], drafts: list,
+                        qdists: list) -> tuple[list, list, dict]:
+        """A step with sampled slots: the argmax of every position and the
+        sampled slots' [C, V] rows cross to the host, greedy slots take
+        the argmax-prefix rule and sampled slots ``rejection_sample``;
+        then ONE ``_logit_stats`` prices every emitted token. Returns
+        (accepted counts, emitted tokens, host stats [S, C] each)."""
+        from repro_torch.spec import sampler
+
+        s, c, v = logits.shape
+        rows = logits.reshape(s * c, v)
+        argmax = _greedy_tokens(rows).reshape(s, c).cpu().numpy()
+        drawn = [i for i, r in enumerate(decoding) if r.temperature > 0.0]
+        host = logits[torch.tensor(drawn, device=self.device)] \
+            .to(torch.float32).cpu().numpy()
+        accepted, emitted_all = [], []
+        for i, req in enumerate(decoding):
+            if req.temperature <= 0.0:
+                acc, emitted = sampler.greedy_verify(argmax[i],
+                                                     drafts[i][:ks[i]])
+            else:
+                acc, emitted = sampler.rejection_sample(
+                    host[drawn.index(i)], drafts[i][:ks[i]], qdists[i],
+                    req.temperature, req.top_k, req.seed, len(req.output))
+            accepted.append(acc)
+            emitted_all.append(emitted)
+        chosen = np.zeros(tokens.shape, np.int32)
+        for i, emitted in enumerate(emitted_all):
+            chosen[i, :len(emitted)] = emitted
+        stats = _logit_stats(rows, torch.from_numpy(chosen.reshape(-1))
+                             .to(self.device))
+        packed = torch.stack([stats[k] for k in _STAT_KEYS]).cpu().numpy()
+        return accepted, emitted_all, {
+            k: packed[i].reshape(tokens.shape)
+            for i, k in enumerate(_STAT_KEYS)}
+
     def _decode_step(self) -> None:
         from repro_torch.spec.sampler import greedy_verify
         from repro_torch.spec.verify import pack_windows
@@ -645,35 +890,56 @@ class SpecDecodeEngine(DecodeEngine):
         decoding = [self.scheduler.decoding[s]
                     for s in sorted(self.scheduler.decoding)]
         ks = [self._effective_k(r) for r in decoding]
-        try:
-            drafts, _ = self.proposer.propose(decoding, ks)
-        except ProposerStallError:
+        stalled = (self.injector is not None
+                   and self.injector.fire("proposer_stall",
+                                          self._step_count))
+        if not stalled:
+            try:
+                drafts, qdists = self.proposer.propose(decoding, ks)
+            except ProposerStallError:
+                stalled = True
+        if stalled:
             # degrade, don't crash: no drafts make this step the plain
             # verify-path decode, one exact token per slot
             drafts = [[] for _ in decoding]
+            qdists = [None] * len(decoding)
             ks = [0] * len(decoding)
             self.kv_stats["proposer_stalls"] += 1
         window = self.spec_k + 1
         tokens, slots, pos0s = pack_windows(decoding, ks, drafts,
                                             self.max_slots, window)
-        packed = self._verify_fused(tokens, slots, pos0s, ks)
-        argmax = packed[0].astype(np.int32).reshape(tokens.shape)
-        self.last_logit_stats = {k: packed[i + 1].reshape(tokens.shape)
-                                 for i, k in enumerate(_STAT_KEYS)}
+        dev = self.device
+        tok = torch.from_numpy(tokens).to(dev)
+        logits = self._verify(self.params, tok, self.caches,
+                              torch.from_numpy(slots).to(dev),
+                              torch.from_numpy(pos0s).to(dev))
+        victim = self._nan_victim(len(decoding))
+        if victim is not None:
+            logits[victim] = float("nan")
+        if any(r.temperature > 0.0 for r in decoding):
+            accepted, emitted_all, self.last_logit_stats = \
+                self._accept_sampled(logits, tokens, decoding, ks, drafts,
+                                     qdists)
+        else:
+            # greedy slots only: the accept rule runs on the device and
+            # ONE packed transfer covers the step
+            packed = self._accept_greedy(logits, tok, ks)
+            argmax = packed[0].astype(np.int32).reshape(tokens.shape)
+            self.last_logit_stats = {k: packed[i + 1].reshape(tokens.shape)
+                                     for i, k in enumerate(_STAT_KEYS)}
+            accepted, emitted_all = [], []
+            for i in range(len(decoding)):
+                acc, emitted = greedy_verify(argmax[i], drafts[i][:ks[i]])
+                accepted.append(acc)
+                emitted_all.append(emitted)
         logprobs = self.last_logit_stats["logprob"]
-
-        emitted_all, accepted, new_lens = [], [], []
-        for i, req in enumerate(decoding):
-            acc, emitted = greedy_verify(argmax[i], drafts[i][:ks[i]])
-            emitted_all.append(emitted)
-            accepted.append(acc)
-            new_lens.append(int(pos0s[i]) + 1 + acc)
+        new_lens = [int(pos0s[i]) + 1 + acc for i, acc in enumerate(accepted)]
 
         # rollback: rejected suffixes disappear by length bookkeeping
         lens_pad = np.full((self.max_slots,), new_lens[0], np.int32)
         lens_pad[:len(decoding)] = new_lens
-        paged.set_lens(self.caches, torch.from_numpy(slots).to(self.device),
-                       torch.from_numpy(lens_pad).to(self.device))
+        paged.set_lens(self.caches, torch.from_numpy(slots).to(dev),
+                       torch.from_numpy(lens_pad).to(dev))
         self._account_spec(pos0s[:len(decoding)], ks, emitted_all, accepted)
 
         tripped = self._guard_tripped(self.last_logit_stats,
@@ -684,10 +950,10 @@ class SpecDecodeEngine(DecodeEngine):
             if req.rid in skip:
                 continue
             done = False
-            for j, tok in enumerate(emitted_all[i]):
-                req.output.append(int(tok))
+            for j, tok_j in enumerate(emitted_all[i]):
+                req.output.append(int(tok_j))
                 req.logprobs.append(float(logprobs[i, j]))
-                if self._finished(req, int(tok)):
+                if self._finished(req, int(tok_j)):
                     done = True
                     break
             req.last_progress_step = self._step_count

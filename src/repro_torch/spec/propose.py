@@ -1,5 +1,5 @@
 """Draft proposers: who guesses the k candidate tokens (twin of
-``repro.spec.propose``, greedy drafting).
+``repro.spec.propose``).
 
 ``NGramProposer``
     Prompt-lookup decoding: no extra parameters, no extra launches. The
@@ -13,26 +13,25 @@
     batched draft decode steps per engine step (the last one appends the
     final draft's KV, so a fully accepted window leaves the mirror
     aligned); rollback is the same ``paged.set_lens`` bookkeeping the
-    target uses.
+    target uses. Greedy requests draft the device argmax; sampled ones
+    draw from the draft's own distribution with the request's keyed
+    stream (salted by ``sampler.DRAFT_SALT``) and hand the distributions
+    to the exact accept rule.
 
 Proposers see the engine through ``attach`` / ``on_admit`` /
 ``on_prefill_chunk`` / ``on_retire`` / ``on_preempt`` / ``on_restore`` /
 ``propose`` / ``sync``; the engine calls ``propose`` only for slots
-that finished prefill. Sampled requests (temperature > 0) need the keyed
-RNG of ROADMAP queue A item 4.
+that finished prefill.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.models import api, paged
-
-
-def _sampled(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} drafts greedy requests only; sampled drafting waits for "
-        "the keyed RNG (ROADMAP queue A item 4)")
+from repro_torch.spec import sampler
 
 
 class Proposer:
@@ -63,7 +62,8 @@ class Proposer:
                 ) -> tuple[list[list[int]], list]:
         """Draft ``ks[i]`` tokens for each decoding request. Returns
         (drafts, qdists): drafts[i] holds exactly ks[i] token ids;
-        qdists[i] is None (a point-mass proposal: greedy drafting)."""
+        qdists[i] is the [ks[i], V] proposal distributions, or None for
+        a point mass on each draft (greedy drafting, n-gram lookup)."""
         raise NotImplementedError
 
     def sync(self, reqs: list, new_lens: list[int]) -> None:
@@ -110,9 +110,12 @@ class DraftModelProposer(Proposer):
     to accepted prefixes by the target's length rollback, and its
     (k_max + 1)-th decode step appends the final draft's KV. Slot s owns
     row s of an identity table, so the draft pool needs no allocator.
-    Drafts are the device argmax of each draft step (ties to the lower
-    token id, as ``np.argmax``); one [k_max, B] tensor of token ids
-    reaches the host per engine step."""
+    Greedy drafts are the device argmax of each draft step (ties to the
+    lower token id, as ``np.argmax``); a batch of greedy requests moves
+    one [k_max, B] tensor of token ids to the host per engine step. A
+    step with sampled requests pulls their draft rows to the host at
+    each draft step, as the reference does: the draw is a host rule over
+    float64 (``sampler.target_dist`` and its inverse CDF)."""
 
     name = "draft"
 
@@ -182,21 +185,39 @@ class DraftModelProposer(Proposer):
                      + [int(t) for t in req.output[:-1]])
 
     def propose(self, reqs, ks):
-        for r in reqs:
-            if r.temperature > 0.0:
-                raise _sampled("DraftModelProposer")
+        """Draft steps: the device argmax for every slot; a sampled
+        request's token is then replaced by a keyed draw from the draft's
+        distribution at emit index ``len(output) + j``, on its row pulled
+        to the host. An all-greedy batch makes one [k_max, B] transfer."""
         k_max = max(ks) if ks else 0
         old_len = self.caches["len"].clone()
         toks = torch.zeros((self.max_slots, 1), dtype=torch.int32)
         for r in reqs:
             toks[r.slot, 0] = int(r.output[-1])
         toks = toks.to(self.device)
+        drawn = [(i, r) for i, r in enumerate(reqs) if r.temperature > 0.0]
+        rows_idx = torch.tensor([r.slot for _, r in drawn],
+                                dtype=torch.long, device=self.device)
+        qrows = [[] for _ in reqs]
         picks = []
         for j in range(k_max + 1):
             logits = self._decode(self.params, toks, self.caches)
             if j == k_max:
                 break          # this step only appended the last draft's KV
             toks = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            if drawn:
+                rows = logits[rows_idx].to(torch.float32).cpu().numpy()
+                draws = []
+                for n, (i, r) in enumerate(drawn):
+                    q = sampler.target_dist(rows[n], r.temperature, r.top_k)
+                    key = prng.fold_in(
+                        sampler.emit_key(r.seed, len(r.output) + j),
+                        sampler.DRAFT_SALT)
+                    draws.append(sampler._inverse_cdf(q, sampler._uniform(key)))
+                    if j < ks[i]:
+                        qrows[i].append(q)
+                toks[rows_idx, 0] = torch.tensor(draws, dtype=torch.int32,
+                                                 device=self.device)
             picks.append(toks[:, 0])
         # the full-batch draft decode also stepped slots not drafted for
         # (mid-prefill or idle): give them back their lengths
@@ -207,7 +228,7 @@ class DraftModelProposer(Proposer):
                 else [])                                     # [k_max][B]
         drafts = [[host[j][r.slot] for j in range(k)]
                   for r, k in zip(reqs, ks)]
-        return drafts, [None] * len(reqs)
+        return drafts, [np.stack(q) if q else None for q in qrows]
 
     def sync(self, reqs, new_lens) -> None:
         if not reqs:

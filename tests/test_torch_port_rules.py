@@ -17,7 +17,12 @@ import repro_torch.kernels as tker  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.models import api  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
 from repro_torch.serving.engine import DecodeEngine  # noqa: E402
+from repro_torch.serving.engine import SpecDecodeEngine  # noqa: E402
+from repro_torch.serving.faults import (FailoverServer,  # noqa: E402
+                                        degraded_engine)
+from repro_torch.spec import NGramProposer  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -43,6 +48,7 @@ def test_no_jax_or_reference_imports(path):
 
 def test_scan_sees_the_package():
     assert len(FILES) > 20
+    assert ROOT / "src" / "repro_torch" / "core" / "prng.py" in FILES
     assert {"repro_torch"} <= {m.split(".")[0] for f in FILES
                                for m in _imports(f)}
 
@@ -75,6 +81,32 @@ def test_entry_points_default_to_the_gpu():
     assert bridge.from_numpy(arr, device="cpu").device.type == "cpu"
     cpu = bridge.caches_from_reference(({"len": arr},), device="cpu")
     assert cpu["len"].device.type == "cpu"
+
+
+def test_serving_entry_points_default_to_the_gpu():
+    """The sampling, speculative and failover entry points: the card
+    unless the caller asks for the CPU; the degraded tier follows its
+    primary's device."""
+    cfg = reduced(get_config("qwen1.5-0.5b"))
+    params = api.init_params(cfg, device="cpu")
+    builds = [lambda: SpecDecodeEngine(cfg, params,
+                                       proposer=NGramProposer()),
+              lambda: FailoverServer(DecodeEngine(cfg, params)),
+              lambda: prng.key(0)]
+    for build in builds:
+        if torch.cuda.is_available():
+            build()
+            continue
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    if torch.cuda.is_available():
+        tier = degraded_engine(DecodeEngine(cfg, params))
+        assert tier.device.type == "cuda"
+        assert prng.key(0).device.type == "cuda"
+    primary = DecodeEngine(cfg, params, device="cpu")
+    assert degraded_engine(primary).device.type == "cpu"
+    assert FailoverServer(primary).primary.device.type == "cpu"
+    assert prng.key(0, device="cpu").device.type == "cpu"
 
 
 def test_kernel_entry_points_launch_nothing_on_the_cpu():

@@ -30,7 +30,8 @@ from repro_torch.models import api as tapi  # noqa: E402
 from repro_torch.serving.engine import (DecodeEngine, Request,  # noqa: E402
                                         _logit_stats)
 from repro_torch.serving.faults import (AdmissionError,  # noqa: E402
-                                        NumericsGuard, StallError)
+                                        FaultInjector, NumericsGuard,
+                                        StallError)
 
 MAX_CONTEXT, BLOCK, CHUNK = 64, 16, 32
 
@@ -266,14 +267,18 @@ def test_traffic_accounting_and_stall(port):
 def test_later_slices_raise(port):
     cfg, params = port
     for kw in (dict(prefix_cache=True), dict(preempt="lru"),
-               dict(spill_blocks=4), dict(fault_injector=object()),
-               dict(telemetry=object())):
+               dict(spill_blocks=4), dict(telemetry=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _engine(cfg, params, **kw)
-    engine = _engine(cfg, params)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.submit(Request(rid=0, prompt=[1], max_new_tokens=2,
-                              temperature=1.0))
+        _engine(cfg, params).submit(
+            Request(rid=0, prompt=[1], max_new_tokens=2, priority=10))
+    # sampling, deadlines and fault injection are served now
+    engine = _engine(cfg, params, fault_injector=FaultInjector(0))
+    engine.submit(Request(rid=0, prompt=[1], max_new_tokens=2,
+                          temperature=1.0, top_k=5, seed=3,
+                          deadline_steps=50))
+    engine.run_until_done()
     with pytest.raises(NotImplementedError):
         _engine(_tcfg(family="moe"), params)
 

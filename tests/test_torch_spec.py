@@ -389,9 +389,10 @@ def test_refusals(port):
     cfg, params = port
     engine = SpecDecodeEngine(cfg, params, proposer=NGramProposer(),
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.submit(Request(rid=0, prompt=[1], max_new_tokens=2,
-                              temperature=1.0))
+    # sampled requests are served (exact rejection sampling)
+    engine.submit(Request(rid=0, prompt=[1], max_new_tokens=2,
+                          temperature=1.0))
+    engine.run_until_done()
     with pytest.raises(ValueError, match="recurrent"):
         SpecDecodeEngine(cfg.with_(family="ssm"), params,
                          proposer=NGramProposer(), device="cpu")
@@ -402,8 +403,8 @@ def test_refusals(port):
     SpecDecodeEngine(cfg, params, proposer=draft, device="cpu")
     sampled = Request(rid=1, prompt=[1], max_new_tokens=2, temperature=0.7)
     sampled.slot, sampled.output = 0, [3]
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        draft.propose([sampled], [2])
+    drafts, qdists = draft.propose([sampled], [2])
+    assert len(drafts[0]) == 2 and qdists[0].shape == (2, cfg.vocab_size)
     with pytest.raises(ValueError, match="vocab"):
         SpecDecodeEngine(cfg, params, device="cpu", proposer=DraftModelProposer(
             cfg.with_(vocab_size=cfg.vocab_size + 1), params))
