@@ -101,7 +101,22 @@ Phases (each prints its own lines; any failure exits non-zero):
              steps, a deadline and a cancellation, run twice with one
              seed (the same firings; guard-tripped requests finish on the
              degraded engine with the bf16 streams; nothing held at the
-             end), and a ``SpecDecodeEngine`` with ``proposer_stall``.
+             end), and a ``SpecDecodeEngine`` with ``proposer_stall``;
+13. prefix — a warm-up request with a 256-token system prompt, then 16
+             requests of it + 32-224 tokens on a prefix-caching engine
+             and on a cold one: every request hits 256 tokens (a chunk
+             boundary), tokens and logprobs bitwise; a copy-on-write hit
+             under the near-tie rule; int8 / fp8 hit pairs, bitwise;
+14. session — 8 conversations x 3 turns, warm, then replayed cold: hits
+             per turn, streams under the near-tie rule, decode-written vs
+             prefill-written entries in storage steps;
+15. preempt — the serve phases' 16 requests on half the blocks with
+             ``preempt="lru"`` over bf16, int8 and fp8: streams bitwise
+             the serve phases'; snapshot and pinned host-link copy rates;
+16. spill  — prefix cache + session KV + ``spill_blocks`` under pool
+             pressure, ``promote="auto"`` with the H100 gate (ratio
+             printed): promoted blocks bitwise their snapshots, nothing
+             held at the end. Counters on every run of 13-16.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``. Imports nothing of ``jax`` or of the
@@ -111,6 +126,7 @@ reference package ``repro``.
 from __future__ import annotations
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -2026,7 +2042,9 @@ def phase_serve(dev, kind: str, cfg, what: str, params) -> dict:
     log(f"[serve] peak device memory with the profiled window "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     return dict(launches=launches, tok_s=emitted / wall, step_ms=step_med,
-                streams={r.rid: list(r.output) for r in reqs}, profile=prof)
+                streams={r.rid: list(r.output) for r in reqs},
+                logprobs={r.rid: list(r.logprobs) for r in reqs},
+                profile=prof)
 
 
 class SpecProbe:
@@ -2076,12 +2094,14 @@ class SpecProbe:
         del self.engine._accept_greedy
 
 
-def check_streams(what: str, reqs, base: dict, probe: SpecProbe,
-                  noise: float) -> int:
-    """Each stream equals the non-spec stream, or first differs at a token
-    whose verify row's top-2 gap is within 4 N (a near-tie that the
-    formulation noise N may order either way; printed). Returns the
-    number of such near-ties."""
+def check_streams(what: str, reqs, base: dict, probe,
+                  noise: float, tag: str = "spec",
+                  ref: str = "the non-spec stream") -> int:
+    """Each stream equals ``base`` (the non-spec stream by default), or
+    first differs at a token whose logit row (a verify row, or with a
+    ``GapProbe`` a decode or prefill row) has a top-2 gap within 4 N (a
+    near-tie that the formulation noise N may order either way; printed).
+    Returns the number of such near-ties."""
     ties = 0
     for r in reqs:
         want = base[r.rid]
@@ -2090,16 +2110,15 @@ def check_streams(what: str, reqs, base: dict, probe: SpecProbe,
         if p is None:
             if len(r.output) != len(want):
                 fail(f"{what}: request {r.rid} emitted {len(r.output)} "
-                     f"tokens, the non-spec run {len(want)}")
+                     f"tokens, {ref} {len(want)}")
             continue
         gap = probe.gaps.get(r.rid, {}).get(p)
-        log(f"[spec] {what}: request {r.rid} first differs from the non-spec "
-            f"stream at token {p} ({r.output[p]} vs {want[p]}); the verify "
-            f"row's top-2 gap there {gap} (near-tie limit 4 N = "
-            f"{4 * noise:.4g})")
+        log(f"[{tag}] {what}: request {r.rid} first differs from {ref} at "
+            f"token {p} ({r.output[p]} vs {want[p]}); its row's top-2 gap "
+            f"there {gap} (near-tie limit 4 N = {4 * noise:.4g})")
         if gap is None or gap > 4 * noise:
-            fail(f"{what}: request {r.rid}'s stream differs from the non-spec "
-                 f"stream past a near-tie")
+            fail(f"{what}: request {r.rid}'s stream differs from {ref} past "
+                 f"a near-tie")
         ties += 1
     return ties
 
@@ -2832,6 +2851,539 @@ def phase_faults(dev, kind: str, cfg, params, base: dict,
                  step_ms=statistics.median(stall_ms)))
 
 
+# ----------------------- prefix caching, session KV, preemption, spill ----
+
+SYS_TOKENS = 256                    # one prefill chunk: 16 blocks
+SERVE_KW = dict(max_slots=8, max_context=1024, block_size=16,
+                prefill_chunk=256)
+
+
+class GapProbe:
+    """Beside a ``DecodeEngine`` run: the top-2 gap of the logit row each
+    token was chosen from, by request and output index (the near-tie rule
+    of ``check_streams``). Wraps ``engine._choose``: a top-2 over the
+    step's rows and one small transfer per call (torch ops, no counted
+    launch)."""
+
+    def __init__(self, engine):
+        import torch
+        self.engine = engine
+        self.gaps: dict = {}
+        choose = engine._choose
+
+        def probed(rows, row_reqs):
+            top2 = torch.topk(rows.to(torch.float32), 2, dim=-1).values
+            gap = (top2[:, 0] - top2[:, 1]).cpu().tolist()
+            for idx, req in row_reqs:
+                self.gaps.setdefault(req.rid, {})[len(req.output)] = gap[idx]
+            return choose(rows, row_reqs)
+
+        engine._choose = probed
+
+    def detach(self) -> None:
+        del self.engine._choose
+
+
+def counted_run(what: str, engine, reqs, cfg, new_tokens: int = 32) -> dict:
+    """``serve_run`` with the counters held to the calls: the attention
+    kernel once per layer per decode step, the reduction twice per decode
+    step and per first token."""
+    steps0 = engine.kv_stats["decode_steps"]
+    wall, step_ms, launches = serve_run(engine, reqs)
+    steps = engine.kv_stats["decode_steps"] - steps0
+    check_served(what, engine, reqs, launches,
+                 {"paged_attention": cfg.num_layers * steps,
+                  "fused_reduce": 2 * (steps + len(reqs))}, new_tokens)
+    return dict(launches=launches, wall=wall, step_ms=step_ms,
+                emitted=sum(len(r.output) for r in reqs))
+
+
+def merge_runs(runs: list) -> dict:
+    """One path's record from several counted runs."""
+    launches: dict = {}
+    for r in runs:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return dict(launches=launches,
+                tok_s=sum(r["emitted"] for r in runs)
+                / sum(r["wall"] for r in runs),
+                step_ms=statistics.median(
+                    [t for r in runs for t in r["step_ms"]]))
+
+
+def random_tokens(g, cfg, lo: int, hi: int) -> list:
+    """A seeded run of lo..hi random token ids."""
+    import torch
+    k = int(torch.randint(lo, hi + 1, (1,), generator=g))
+    return torch.randint(0, cfg.vocab_size, (k,), generator=g).tolist()
+
+
+def system_prompt(cfg) -> list:
+    import torch
+    return random_tokens(torch.Generator().manual_seed(SEED + 1), cfg,
+                         SYS_TOKENS, SYS_TOKENS)
+
+
+def hit_requests(cfg, n: int, seed: int, lo: int = 32, hi: int = 224):
+    """A factory of ``n`` fresh requests: the system prompt + lo..hi
+    unique tokens, 32 new tokens each (the same prompts every call). The
+    unique parts start with distinct tokens (1, 2, ...; the warm-up's
+    with 0), so no request shares a partial block past the system
+    prompt with another: every hit is the 256 tokens."""
+    import torch
+    from repro_torch.serving.engine import Request
+    g = torch.Generator().manual_seed(seed)
+    sys_p = system_prompt(cfg)
+    prompts = [sys_p + [i + 1] + random_tokens(g, cfg, lo, hi)[1:]
+               for i in range(n)]
+    return lambda: [Request(rid=i, prompt=list(p), max_new_tokens=32)
+                    for i, p in enumerate(prompts)]
+
+
+def check_bitwise(what: str, got, want) -> None:
+    for a, b in zip(got, want):
+        if a.output != b.output or a.logprobs != b.logprobs:
+            fail(f"{what}: request {a.rid}'s tokens or logprobs are not "
+                 f"bitwise the cold run's")
+
+
+def warm_up(engine, cfg) -> None:
+    """One request carrying the system prompt; its history is cached."""
+    import torch
+    from repro_torch.serving.engine import Request
+    w = Request(rid=1000, prompt=system_prompt(cfg) + [0] + random_tokens(
+        torch.Generator().manual_seed(SEED + 2), cfg, 31, 31),
+        max_new_tokens=32)
+    engine.submit(w)
+    engine.run_until_done()
+
+
+def prefix_pair(dev, cfg, params, n: int) -> tuple:
+    """A warm-up, then ``n`` hit requests on a prefix-caching engine, and
+    the same ``n`` on a cold engine; both runs counted."""
+    from repro_torch.serving.engine import DecodeEngine
+    make = hit_requests(cfg, n, SEED + 3)
+    warm = DecodeEngine(cfg, params, prefix_cache=True, device=dev,
+                        **SERVE_KW)
+    warm_up(warm, cfg)
+    hits0 = warm.kv_stats["prefix_hit_tokens"]
+    tok0 = warm.kv_stats["prefill_tokens"]
+    wreqs = make()
+    wrun = counted_run(f"prefix {cfg.kv_dtype} warm", warm, wreqs, cfg)
+    cold = DecodeEngine(cfg, params, device=dev, **SERVE_KW)
+    creqs = make()
+    crun = counted_run(f"prefix {cfg.kv_dtype} cold", cold, creqs, cfg)
+    check_bitwise(f"prefix {cfg.kv_dtype}", wreqs, creqs)
+    hits = warm.kv_stats["prefix_hit_tokens"] - hits0
+    if hits != n * SYS_TOKENS or any(r.prefix_hit != SYS_TOKENS
+                                     for r in wreqs):
+        fail(f"prefix {cfg.kv_dtype}: hit tokens {hits}, hits "
+             f"{[r.prefix_hit for r in wreqs]} (want {SYS_TOKENS} each)")
+    saved = cold.kv_stats["prefill_tokens"] - \
+        (warm.kv_stats["prefill_tokens"] - tok0)
+    return warm, cold, wrun, crun, saved
+
+
+def phase_prefix(dev, kind: str, cfg, params, noise: float) -> dict:
+    """Prefix caching at full width: a warm-up request carries a
+    256-token system prompt (one prefill chunk, 16 blocks); then 16
+    requests of that prompt + 32-224 unique tokens (32 new each, 8
+    slots) on the prefix-caching engine and on a cold one. Each hit
+    starts its prefill at a chunk boundary of its cold run, so tokens
+    and logprobs must be bitwise equal, and every request must hit the
+    256 tokens. A request diverging mid-block (a copy-on-write hit) is
+    held to its cold run under the near-tie rule; int8 and fp8 pools run
+    the hit pair at 4 requests, bitwise. Counters on every run."""
+    import torch
+    from repro_torch.serving.engine import Request
+    t0 = time.perf_counter()
+    warm, cold, wrun, crun, saved = prefix_pair(dev, cfg, params, 16)
+    runs = [wrun, crun]
+    w, c = merge_runs([wrun]), merge_runs([crun])
+    log(f"[prefix] qwen1.5-0.5b bf16 on {kind}: 16 requests of the "
+        f"{SYS_TOKENS}-token system prompt + 32-224 tokens, 32 new each: "
+        f"every request hit {SYS_TOKENS} tokens "
+        f"(prefix_hit_tokens {16 * SYS_TOKENS}), tokens and logprobs "
+        f"bitwise the cold engine's; prefill tokens "
+        f"{cold.kv_stats['prefill_tokens']} cold vs "
+        f"{cold.kv_stats['prefill_tokens'] - saved} warm ({saved} saved); "
+        f"warm {w['tok_s']:.3f} tok/s, median step {w['step_ms']:.3f} ms; "
+        f"cold {c['tok_s']:.3f} tok/s, median step {c['step_ms']:.3f} ms; "
+        f"prefill chunks {warm.kv_stats['prefill_chunks']} warm (warm-up "
+        f"included) vs {cold.kv_stats['prefill_chunks']} cold")
+    # a copy-on-write hit: diverges inside block 12
+    g = torch.Generator().manual_seed(SEED + 4)
+    cow_p = system_prompt(cfg)[:200] + random_tokens(g, cfg, 40, 40)
+    wq = Request(rid=50, prompt=list(cow_p), max_new_tokens=32)
+    cq = Request(rid=50, prompt=list(cow_p), max_new_tokens=32)
+    cow0 = warm.kv_stats["prefix_cow_blocks"]
+    probe = GapProbe(warm)
+    runs.append(counted_run("prefix copy-on-write warm", warm, [wq], cfg))
+    probe.detach()
+    runs.append(counted_run("prefix copy-on-write cold", cold, [cq], cfg))
+    if wq.prefix_hit != 200 or warm.kv_stats["prefix_cow_blocks"] != cow0 + 1:
+        fail(f"prefix copy-on-write: hit {wq.prefix_hit}, copies "
+             f"{warm.kv_stats['prefix_cow_blocks'] - cow0}")
+    ties = check_streams("prefix copy-on-write", [wq],
+                         {50: cq.output}, probe, noise, tag="prefix",
+                         ref="the cold run")
+    lp = [abs(a - b) for a, b, x, y in zip(wq.logprobs, cq.logprobs,
+                                          wq.output, cq.output) if x == y]
+    log(f"[prefix] copy-on-write request: {len(cow_p)} tokens diverging "
+        f"from the system prompt at 200 (inside block 12): hit 200, one "
+        f"block copied, remainder prefilled at M = 40 (cold M = 240); "
+        f"stream vs cold: {ties} near-tie divergences, max |logprob diff| "
+        f"{max(lp) if lp else 0.0:.4g} before any")
+    for kvd in ("int8", "fp8"):
+        qcfg = cfg.with_(kv_dtype=kvd)
+        qw, qc, a, b, qsaved = prefix_pair(dev, qcfg, params, 4)
+        runs += [a, b]
+        log(f"[prefix] {kvd} pools: 4 hit requests bitwise the cold "
+            f"engine's, {4 * SYS_TOKENS} hit tokens, {qsaved} prefill "
+            f"tokens saved")
+    log(f"[prefix] {time.perf_counter() - t0:.1f} s")
+    return merge_runs(runs)
+
+
+def kv_entries(engine, req, lo: int, hi: int):
+    """[L, hi - lo, H, D] f32 K and V entries (dequantized) at positions
+    lo..hi-1 of ``req``'s blocks."""
+    import torch
+    from repro_torch.quant import core as qcore
+    bs = engine.layout.block_size
+    pos = torch.arange(lo, hi)
+    blk = torch.tensor(req.blocks, dtype=torch.long)[pos // bs]
+    blk, off = blk.to(engine.device), (pos % bs).to(engine.device)
+    out = []
+    for name in ("kpool", "vpool"):
+        v = qcore.cast_f32(engine.caches[name][:, blk, off])
+        if SCALE_OF[name] in engine.caches:
+            v = v * engine.caches[SCALE_OF[name]][:, blk, off][..., None]
+        out.append(v)
+    return out
+
+
+def storage_steps(a: list, e: list, kv_dtype: str):
+    """Per layer, the largest |a - e| entry in storage steps (the format's
+    step times the row's max |value|)."""
+    import torch
+    step = STORAGE_STEP[kv_dtype]
+    worst = None
+    for x, y in zip(a, e):
+        amax = y.abs().amax(dim=-1, keepdim=True)
+        d = ((x - y).abs() / (step * amax + 1e-6)).flatten(1).amax(1)
+        worst = d if worst is None else torch.maximum(worst, d)
+    return worst
+
+
+def capture_retired(engine, spans: dict, store: dict,
+                    cut_at_hit: bool = False) -> None:
+    """At retirement, keep the K/V entries of ``spans[rid]`` = (lo, hi)
+    (with ``cut_at_hit``, only below the request's prefix hit, and the
+    span kept is written back to ``spans``)."""
+    retire = engine._on_retire
+
+    def on_retire(req):
+        retire(req)
+        lo, hi = spans.get(req.rid, (0, 0))
+        if cut_at_hit:
+            hi = min(hi, req.prefix_hit)
+            spans[req.rid] = (lo, hi)
+        if hi > lo:
+            store[req.rid] = kv_entries(engine, req, lo, hi)
+
+    engine._on_retire = on_retire
+
+
+def conversation_turns(cfg, n_conv: int = 8, turns: int = 3):
+    """Turn 1 of each conversation: the system prompt + 32-96 tokens; each
+    later turn adds 16-48 user tokens to the history. Returns the seeded
+    first prompts and the user tokens of each later turn."""
+    import torch
+    g = torch.Generator().manual_seed(SEED + 5)
+    sys_p = system_prompt(cfg)
+    first = [sys_p + random_tokens(g, cfg, 32, 96) for _ in range(n_conv)]
+    later = [[random_tokens(g, cfg, 16, 48) for _ in range(n_conv)]
+             for _ in range(turns - 1)]
+    return first, later
+
+
+def phase_session(dev, kind: str, cfg, params, noise: float) -> dict:
+    """Session KV at full width: 8 conversations of 3 turns (turn 1 the
+    system prompt + 32-96 tokens, later turns + 16-48 user tokens, 32 new
+    tokens each), the 8 turns of a round served together; then every
+    turn's prompt replayed on a cold engine. A later turn's hit spans the
+    previous turn's decode-written blocks, which its prefill reads: that
+    is bitwise on neither device (the decode kernel and the prefill's
+    flash attention round differently), so the streams are held to the
+    cold ones under the near-tie rule, and the largest decode-written vs
+    prefill-written entry is printed in storage steps. Counters on every
+    run."""
+    import torch
+    from repro_torch.serving.engine import DecodeEngine, Request
+    t0 = time.perf_counter()
+    warm = DecodeEngine(cfg, params, prefix_cache=True, device=dev,
+                        **SERVE_KW)
+    cold = DecodeEngine(cfg, params, device=dev, **SERVE_KW)
+    first, later = conversation_turns(cfg)
+    spans: dict = {}
+    wkv: dict = {}
+    ckv: dict = {}
+    capture_retired(warm, spans, wkv, cut_at_hit=True)
+    capture_retired(cold, spans, ckv)
+    probe = GapProbe(warm)
+    hist = [list(p) for p in first]
+    runs, hits, all_w, all_c = [], [], [], []
+    prev_len = [0] * len(first)
+    for t in range(1 + len(later)):
+        prompts = hist if t == 0 else [h + u for h, u in zip(hist,
+                                                            later[t - 1])]
+        wreqs = [Request(rid=10 * t + i, prompt=list(p), max_new_tokens=32)
+                 for i, p in enumerate(prompts)]
+        for i, r in enumerate(wreqs):
+            # the previous turn's decode-written span (its output but
+            # the pending last token), cut at the hit at retirement
+            spans[r.rid] = (prev_len[i], prev_len[i] + 31) if t else (0, 0)
+        runs.append(counted_run(f"session turn {t + 1} warm", warm, wreqs,
+                                cfg))
+        creqs = [Request(rid=r.rid, prompt=list(r.prompt), max_new_tokens=32)
+                 for r in wreqs]
+        runs.append(counted_run(f"session turn {t + 1} cold", cold, creqs,
+                                cfg))
+        hits.append([r.prefix_hit for r in wreqs])
+        all_w += wreqs
+        all_c += creqs
+        prev_len = [len(r.prompt) for r in wreqs]
+        hist = [r.prompt + r.output for r in wreqs]
+    probe.detach()
+    ties = check_streams("session", all_w, {c.rid: c.output for c in all_c},
+                         probe, noise, tag="session", ref="the cold run")
+    lp = max(abs(a - b) for w, c in zip(all_w, all_c)
+             for a, b, x, y in zip(w.logprobs, c.logprobs, w.output,
+                                   c.output) if x == y)
+    worst = None
+    for rid, entries in wkv.items():
+        d = storage_steps(entries, ckv[rid], cfg.kv_dtype)
+        worst = d if worst is None else torch.maximum(worst, d)
+    per_layer = [round(float(x), 3) for x in worst]
+    if not all(map(math.isfinite, per_layer)):
+        fail(f"session: non-finite entry distance {per_layer}")
+    for t, h in enumerate(hits[1:], start=2):
+        if min(h) < SYS_TOKENS:
+            fail(f"session: turn {t} hit {h}, not the whole history")
+    out = merge_runs(runs)
+    log(f"[session] qwen1.5-0.5b bf16 on {kind}: 8 conversations x 3 "
+        f"turns; hit tokens per turn {[sum(h) for h in hits]} (per "
+        f"request {hits[1:]}); streams vs the cold replay: {ties} near-tie "
+        f"divergences; max |warm - cold| logprob before any "
+        f"{lp:.4g}; decode-written (warm) vs prefill-written (cold) K/V "
+        f"entries of the previous turns' outputs, per layer in storage "
+        f"steps ({STORAGE_STEP[cfg.kv_dtype]:.4g} x the row's max "
+        f"|value|): max {max(per_layer)}, layer 0 {per_layer[0]}, "
+        f"{per_layer}; warm {out['tok_s']:.3f} tok/s over warm and cold "
+        f"runs; {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def link_rates(dev, mib: int = 256, reps: int = 10) -> tuple[float, float]:
+    """Pinned host <-> device copy rates (bytes/s, CUDA-event medians) of
+    one contiguous ``mib`` MiB buffer: (device -> host, host -> device)."""
+    import torch
+    host = torch.empty(mib << 20, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(mib << 20, dtype=torch.uint8, device=dev)
+    rates = []
+    for dst, src in ((host, card), (card, host)):
+        times = []
+        for _ in range(reps + 1):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            dst.copy_(src, non_blocking=True)
+            e.record()
+            torch.cuda.synchronize()
+            times.append(s.elapsed_time(e))
+        rates.append((mib << 20) / (statistics.median(times[1:]) / 1e3))
+    return rates[0], rates[1]
+
+
+class SwapTimer:
+    """CUDA events around each ``KVSwap.swap_out`` / ``swap_in`` of an
+    engine: (bytes, ms) per direction, read after the run."""
+
+    def __init__(self, swap):
+        import torch
+        self.swap = swap
+        self.events = {"out": [], "in": []}
+        for name, d, key in (("swap_out", "out", "host_bytes_total"),
+                             ("swap_in", "in", "restored_bytes_total")):
+            fn = getattr(swap, name)
+
+            def timed(*a, fn=fn, d=d, key=key):
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                before = swap.stats[key]
+                s.record()
+                fn(*a)
+                e.record()
+                self.events[d].append((s, e, swap.stats[key] - before))
+            setattr(swap, name, timed)
+
+    def rate(self, d: str) -> tuple[int, float]:
+        import torch
+        torch.cuda.synchronize()
+        nbytes = sum(n for *_, n in self.events[d])
+        ms = sum(s.elapsed_time(e) for s, e, _ in self.events[d])
+        return nbytes, (nbytes / (ms / 1e3) if ms else 0.0)
+
+
+def phase_preempt(dev, kind: str, cfg, params, paths: dict) -> tuple:
+    """Preemption to host at full width: the serve phases' 16 requests on
+    a pool of about half the blocks their 8 largest need at once, with
+    ``preempt="lru"``, over bf16, int8 and fp8 pools. Every request must
+    finish and its tokens and logprobs must be bitwise the serve phase's
+    (restores are copies, the decode step runs all 8 rows whichever are
+    live, and the attention kernel does not see block ids); nothing held
+    at the end. Prints the preemptions, the snapshot bytes and the
+    snapshot copy rates (CUDA events around each swap), and the pinned
+    copy rates of the host link (the ``host_link_bw`` of
+    ``repro_torch.ecm.machines``)."""
+    from repro_torch.serving.engine import DecodeEngine
+    t0 = time.perf_counter()
+    d2h, h2d = link_rates(dev)
+    log(f"[preempt] host link on {kind}: pinned copies of 256 MiB, CUDA "
+        f"events: device -> host {d2h / 1e9:.3f} GB/s, host -> device "
+        f"{h2d / 1e9:.3f} GB/s")
+    out = {}
+    for kvd in ("bf16", "int8", "fp8"):
+        qcfg = cfg.with_(kv_dtype=kvd)
+        reqs = make_requests(qcfg)
+        bs = SERVE_KW["block_size"]
+        needs = sorted(-(-(len(r.prompt) + 32) // bs) for r in reqs)
+        pool = 1 + max(sum(needs[-8:]) // 2, needs[-1])
+        engine = DecodeEngine(qcfg, params, num_blocks=pool, preempt="lru",
+                              device=dev, **SERVE_KW)
+        timer = SwapTimer(engine.swap)
+        run = counted_run(f"preempt {kvd}", engine, reqs, qcfg)
+        want = paths[f"qwen1.5-0.5b {kvd}"]
+        for r in reqs:
+            if r.output != want["streams"][r.rid] or \
+                    r.logprobs != want["logprobs"][r.rid]:
+                fail(f"preempt {kvd}: request {r.rid} is not bitwise its "
+                     f"serve-phase run")
+        st = engine.kv_stats
+        if not st["preempted"] or len(engine.swap) or \
+                engine.scheduler.allocator.num_held:
+            fail(f"preempt {kvd}: {st['preempted']} preemptions, "
+                 f"{len(engine.swap)} snapshots and "
+                 f"{engine.scheduler.allocator.num_held} blocks held at "
+                 f"the end")
+        out_b, out_r = timer.rate("out")
+        in_b, in_r = timer.rate("in")
+        log(f"[preempt] {kvd} pools, {pool - 1} usable blocks (8 slots' "
+            f"largest need {sum(needs[-8:])}): {st['preempted']} "
+            f"preemptions of {st['preempted_blocks']} blocks, "
+            f"{st['restored_blocks']} restored; every stream bitwise the "
+            f"{kvd} serve phase's; snapshots {out_b} B out ({out_r / 1e9:.3f}"
+            f" GB/s, gather + copy), {in_b} B in ({in_r / 1e9:.3f} GB/s, "
+            f"copy + scatter); {run['emitted'] / run['wall']:.3f} tok/s, "
+            f"median step {statistics.median(run['step_ms']):.3f} ms")
+        out[kvd] = merge_runs([run])
+    log(f"[preempt] {time.perf_counter() - t0:.1f} s")
+    return out, h2d
+
+
+def phase_spill(dev, kind: str, cfg, params, h2d: float) -> dict:
+    """The session spill tier at full width: prefix caching, session KV
+    and ``spill_blocks`` on a pool of 224 blocks, ``promote="auto"`` with
+    the H100 gate (its ratio printed, and the ratio the measured host
+    link gives). Turn 1 of 8 conversations, then 8 unrelated requests of
+    256-400 tokens whose admission evicts (spills) the conversations'
+    blocks, then turn 2, whose admission promotes them back. Every
+    promoted block must be bitwise its spilled snapshot; every request
+    finishes; at the end only the trie holds blocks and no preemption
+    snapshot is left. Counters on every run."""
+    import torch
+    from repro_torch.ecm.hopper import predicted_restore_vs_reprefill
+    from repro_torch.ecm.machines import H100_SXM
+    from repro_torch.models import api, paged
+    from repro_torch.serving.engine import DecodeEngine, Request
+    t0 = time.perf_counter()
+    engine = DecodeEngine(cfg, params, prefix_cache=True, spill_blocks=256,
+                          promote="auto", num_blocks=225, device=dev,
+                          **SERVE_KW)
+    pc = engine.prefix_cache
+    ratio = pc.promote_ratio
+    n_params = api.num_params(params)
+    measured = predicted_restore_vs_reprefill(
+        16, engine._token_bytes, 2 * n_params,
+        hw=dict(H100_SXM, host_link_bw=h2d))
+    taken: list = []
+    take = pc.spill.take
+
+    def recording_take(key):
+        snap = take(key)
+        taken.append(snap)
+        return snap
+
+    pc.spill.take = recording_take
+    promote_fn = pc.promote_fn
+    checked = [0]
+
+    def checked_promote(blocks, snaps):
+        promote_fn(blocks, snaps)
+        want = paged.concat_block_snapshots(snaps)
+        got = paged.extract_blocks(engine.caches, blocks)
+        if any(not torch.equal(got[k], want[k]) for k in want) or \
+                len(snaps) != len(taken):
+            fail("spill: a promoted block is not bitwise its snapshot")
+        taken.clear()
+        checked[0] += len(blocks)
+
+    pc.promote_fn = checked_promote
+    first, later = conversation_turns(cfg, turns=2)
+    runs = []
+    t1 = [Request(rid=i, prompt=list(p), max_new_tokens=32)
+          for i, p in enumerate(first)]
+    runs.append(counted_run("spill turn 1", engine, t1, cfg))
+    g = torch.Generator().manual_seed(SEED + 6)
+    filler = [Request(rid=100 + i, prompt=random_tokens(g, cfg, 256, 400),
+                      max_new_tokens=32) for i in range(8)]
+    runs.append(counted_run("spill filler", engine, filler, cfg))
+    spilled = engine.kv_stats["prefix_spilled_blocks"]
+    t2 = [Request(rid=10 + i, prompt=r.prompt + r.output + u,
+                  max_new_tokens=32)
+          for i, (r, u) in enumerate(zip(t1, later[0]))]
+    runs.append(counted_run("spill turn 2", engine, t2, cfg))
+    st = engine.kv_stats
+    held = engine.scheduler.allocator.num_held
+    if ratio > 1.0 and not (st["prefix_spilled_blocks"]
+                            and st["prefix_promoted_blocks"]
+                            and checked[0] == st["prefix_promoted_blocks"]):
+        fail(f"spill: spilled {st['prefix_spilled_blocks']}, promoted "
+             f"{st['prefix_promoted_blocks']}, checked {checked[0]}")
+    if held != pc.num_nodes or len(engine.swap) or engine.num_unfinished:
+        fail(f"spill: {held} blocks held by {pc.num_nodes} trie nodes, "
+             f"{len(engine.swap)} snapshots, {engine.num_unfinished} "
+             f"requests unfinished at the end")
+    sp = pc.spill.stats
+    out = merge_runs(runs)
+    log(f"[spill] qwen1.5-0.5b bf16 on {kind}, 224 usable blocks, "
+        f"spill_blocks 256, promote auto: gate ratio "
+        f"(re-prefill / restore, H100_SXM host_link_bw "
+        f"{H100_SXM['host_link_bw'] / 1e9:.3f} GB/s, f32 CUDA-core "
+        f"{H100_SXM['peak_flops'] / 1e12:.0f} TFLOP/s, "
+        f"{engine._token_bytes} B per token, {n_params} parameters) "
+        f"{ratio:.4f}; with this run's host link {h2d / 1e9:.3f} GB/s "
+        f"{measured:.4f}; {spilled} blocks spilled by the filler "
+        f"({st['prefix_spilled_bytes']} B), {st['prefix_promoted_blocks']} "
+        f"promoted ({sp['promoted_bytes_total']} B), each bitwise its "
+        f"snapshot; turn-2 hits {[r.prefix_hit for r in t2]}; "
+        f"{sp['dropped_blocks']} dropped by the tier's capacity; at the "
+        f"end {held} blocks held, all by the trie; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2918,6 +3470,24 @@ def main() -> int:
      q_paths["qwen1.5-0.5b spec proposer stalls"]) = phase_faults(
         dev, kind, qwen, q_params, base, noise["bf16"])
     wall["qwen1.5-0.5b faults"] = time.perf_counter() - t0
+    # prefix caching, session KV, preemption to host and the spill tier
+    t0 = time.perf_counter()
+    q_paths["qwen1.5-0.5b prefix"] = phase_prefix(dev, kind, qwen, q_params,
+                                                  noise["bf16"])
+    wall["qwen1.5-0.5b prefix"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q_paths["qwen1.5-0.5b session"] = phase_session(dev, kind, qwen,
+                                                    q_params, noise["bf16"])
+    wall["qwen1.5-0.5b session"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    preempted, h2d = phase_preempt(dev, kind, qwen, q_params, q_paths)
+    for kvd, r in preempted.items():
+        q_paths[f"qwen1.5-0.5b preempt {kvd}"] = r
+    wall["qwen1.5-0.5b preempt x3"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q_paths["qwen1.5-0.5b spill"] = phase_spill(dev, kind, qwen, q_params,
+                                                h2d)
+    wall["qwen1.5-0.5b spill"] = time.perf_counter() - t0
     del q_params
     torch.cuda.empty_cache()
     # deepseek-v2 at full width, depth cut to 3 (1 dense + 2 MoE layers):

@@ -77,6 +77,15 @@ def to_device(tree, device):
     return tree.to(device)
 
 
+def num_params(tree) -> int:
+    """Parameter count of a tree (nested dicts and per-layer lists)."""
+    if isinstance(tree, dict):
+        return sum(num_params(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(num_params(v) for v in tree)
+    return tree.numel()
+
+
 @dataclass(frozen=True)
 class KVCache:
     """A model's paged KV-cache geometry: config + layout + pool size."""

@@ -52,9 +52,22 @@ class PagedLayout(NamedTuple):
         return PagedLayout(block_size, cdiv(max_context, block_size))
 
 
+def as_layout(spec) -> PagedLayout:
+    """Accept an int max-context or a ``PagedLayout``."""
+    if isinstance(spec, PagedLayout):
+        return spec
+    return PagedLayout.for_context(int(spec))
+
+
 def default_num_blocks(layout: PagedLayout, batch: int) -> int:
     """Pool size that holds ``batch`` full-context sequences + null."""
     return 1 + batch * layout.max_blocks
+
+
+def padded_num_blocks(layout: PagedLayout, batch: int, multiple: int) -> int:
+    """``default_num_blocks`` rounded up to a multiple of ``multiple`` (a
+    pool whose block axis splits evenly over ``multiple`` devices)."""
+    return cdiv(default_num_blocks(layout, batch), multiple) * multiple
 
 
 def identity_table(batch: int, layout: PagedLayout,
@@ -177,12 +190,92 @@ def set_lens(caches: dict, slots: torch.Tensor, new_lens: torch.Tensor
     caches["len"][:, slots.to(torch.int64)] = new_lens.to(torch.int32)
 
 
+def _block_index(caches: dict, blocks) -> torch.Tensor:
+    return torch.as_tensor(list(blocks), dtype=torch.int64,
+                           device=caches["len"].device)
+
+
+def copy_block(caches: dict, src: int, dst: int) -> None:
+    """In place: copy pool block ``src`` to ``dst`` in every pool leaf and
+    layer (scale tiles and MLA latents included: they ride the same block
+    ids). The copy-on-write step of prefix caching: a request diverging
+    mid-block from a cached prefix gets a private copy of the divergence
+    block, and the shared original stays bit-identical for its other
+    readers."""
+    for name in POOL_KEYS:
+        if name in caches:
+            leaf = caches[name]
+            leaf[:, dst] = leaf[:, src]
+
+
+def extract_blocks(caches: dict, blocks) -> dict:
+    """Gather the listed blocks out of every pool leaf to host memory:
+    ``{leaf name: CPU tensor [L, len(blocks), block_size, ...]}``.
+
+    The device half of preemption to host and of the prefix spill tier.
+    The snapshot covers every pool leaf (quantized payloads and their
+    scale tiles alike), so a restore is bit-identical however the pool is
+    quantized. Block ids are not part of it: content is addressed through
+    the slot's table, so a snapshot restores bitwise into any other
+    blocks. From a CUDA pool the copies land in pinned host memory,
+    started without blocking and waited for once at the end, so the
+    snapshot is complete when this returns."""
+    idx = _block_index(caches, blocks)
+    on_cuda = caches["len"].is_cuda
+    out = {}
+    for name in POOL_KEYS:
+        if name not in caches:
+            continue
+        rows = caches[name][:, idx]
+        if on_cuda:
+            host = torch.empty(rows.shape, dtype=rows.dtype,
+                               pin_memory=True)
+            host.copy_(rows, non_blocking=True)
+        else:
+            host = rows
+        out[name] = host
+    if on_cuda:
+        torch.cuda.current_stream(caches["len"].device).synchronize()
+    return out
+
+
+def restore_blocks(caches: dict, blocks, snapshot: dict) -> None:
+    """In place: scatter an ``extract_blocks`` snapshot into the (possibly
+    different) ``blocks``; pool leaves absent from ``snapshot`` and all
+    per-slot state are left alone. A pinned snapshot is uploaded without
+    blocking the host."""
+    idx = _block_index(caches, blocks)
+    for name, snap in snapshot.items():
+        leaf = caches[name]
+        leaf[:, idx] = snap.to(leaf.device, non_blocking=True)
+
+
+def concat_block_snapshots(snaps: list) -> dict:
+    """Merge per-block ``extract_blocks`` snapshots along the block axis,
+    so a k-block promote is one upload and one scatter per leaf (into
+    pinned memory when the parts are pinned)."""
+    if len(snaps) == 1:
+        return snaps[0]
+    out = {}
+    for k in snaps[0]:
+        parts = [s[k] for s in snaps]
+        shape = list(parts[0].shape)
+        shape[1] = sum(p.shape[1] for p in parts)
+        out[k] = torch.cat(parts, dim=1, out=torch.empty(
+            shape, dtype=parts[0].dtype, pin_memory=parts[0].is_pinned()))
+    return out
+
+
+def snapshot_bytes(snapshot: dict) -> int:
+    """Host bytes an ``extract_blocks`` snapshot holds."""
+    return sum(t.nbytes for t in snapshot.values())
+
+
 def zero_blocks(caches: dict, blocks: list[int]) -> None:
     """In place: zero the listed blocks of every pool leaf (the quarantine
     scrub: a recycled block must not carry NaNs, since masked attention
     still multiplies them by an exact 0)."""
-    idx = torch.as_tensor(blocks, dtype=torch.int64,
-                          device=caches["len"].device)
+    idx = _block_index(caches, blocks)
     for name in POOL_KEYS:
         if name in caches:
             caches[name][:, idx] = 0
@@ -194,8 +287,7 @@ def poison_blocks(caches: dict, blocks: list[int]) -> None:
     must catch). Integer payloads (int8, and fp8 stored as e4m3 bytes)
     keep their bits; their f32 scale tiles take the NaN, which
     dequantizes to NaN all the same."""
-    idx = torch.as_tensor(blocks, dtype=torch.int64,
-                          device=caches["len"].device)
+    idx = _block_index(caches, blocks)
     for name in POOL_KEYS:
         if name in caches and caches[name].is_floating_point():
             caches[name][:, idx] = float("nan")

@@ -37,9 +37,18 @@ whose round-off explodes; a keyed ``FaultInjector``
 (``repro_torch.serving.faults``) NaNs logit rows, poisons KV blocks,
 fails allocations and stalls proposers at replayable steps, and
 ``FailoverServer`` retries quarantined requests on a degraded engine.
-Prefix caching, session KV, preemption and telemetry are later slices
-of the port; their constructor knobs raise ``NotImplementedError``
-naming the ROADMAP item.
+
+``prefix_cache=True`` adds the radix layer
+(``repro_torch.serving.prefix_cache``): admission walks a block-granular
+trie over the prompt, maps the hit's pool blocks into the slot's table
+(copy-on-write at a mid-block divergence) and starts chunked prefill at
+the first uncached token; retirement inserts the request's history for
+later requests, with LRU eviction of unreferenced trie leaves (spilled
+to host memory when ``spill_blocks`` arms the tier) when the free list
+runs short. ``preempt`` arms preemption to host under pool pressure:
+a decoding victim's blocks snapshot to host (``serving.swap.KVSwap``)
+and restore bitwise on re-admission. Telemetry is a later slice of the
+port; its knob raises ``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -59,6 +68,8 @@ from repro_torch.models.paged import NULL_BLOCK, PagedLayout
 from repro_torch.serving.faults import (AdmissionError, AllocatorError,
                                         NumericsGuard, ProposerStallError,
                                         StallError)
+from repro_torch.serving.prefix_cache import PrefixCache, PrefixMatch
+from repro_torch.serving.swap import KVSwap, PrefixSpill
 
 DEFAULT_BLOCK_SIZE = paged.DEFAULT_BLOCK_SIZE
 
@@ -83,22 +94,29 @@ class Request:
     # speculative decoding: None inherits the engine's spec_k; the engine
     # also caps it by the window, the token budget and the slot's blocks
     spec_k: int | None = None
-    # lifecycle: a deadline in engine steps from submission (None: none);
-    # ``priority`` feeds the "priority" preemption policy, which is not
-    # ported: ``submit`` refuses any other value than 0. ``state`` walks queued -> prefilling -> decoding -> done |
-    # cancelled | expired | quarantined | failed
-    deadline_steps: int | None = None
-    priority: int = 0
     output: list = field(default_factory=list)
     logprobs: list = field(default_factory=list)   # per emitted token
     slot: int | None = None
     done: bool = False
     prefill_pos: int = 0                           # prompt tokens cached
     blocks: list = field(default_factory=list)     # pool blocks referenced
+    # prefix caching: tokens served from the trie at admission (prefill
+    # starts at the first uncached token) and, until the engine copies
+    # it, the shared block awaiting its copy-on-write
+    prefix_hit: int = 0
+    cow_src: int | None = None
+    # lifecycle: a deadline in engine steps from submission (None: none);
+    # ``priority`` feeds the "priority" preemption policy (higher
+    # survives). ``state`` walks queued -> prefilling -> decoding
+    # (-> preempted -> decoding)* -> done | cancelled | expired |
+    # quarantined | failed
+    deadline_steps: int | None = None
+    priority: int = 0
     state: str = "queued"
     error: str | None = None
     submit_step: int = 0
     last_progress_step: int = 0
+    admit_seq: int = -1
     retries: int = 0
 
     @property
@@ -116,7 +134,10 @@ class Request:
         self.logprobs = []
         self.done = False
         self.prefill_pos = 0
+        self.prefix_hit = 0
+        self.cow_src = None
         self.state = "queued"
+        self.admit_seq = -1
         self.retries += 1
 
 
@@ -176,17 +197,26 @@ class BlockAllocator:
 
 
 class Scheduler:
-    """FIFO admission + slot assignment + chunked-prefill bookkeeping."""
+    """FIFO admission + slot assignment + chunked-prefill bookkeeping,
+    with the prefix cache's match plans and the preempted queue."""
 
     def __init__(self, allocator: BlockAllocator, max_slots: int,
-                 layout: PagedLayout, prefill_chunk: int):
+                 layout: PagedLayout, prefill_chunk: int,
+                 prefix_cache: PrefixCache | None = None,
+                 session_kv: bool = True):
         self.allocator = allocator
         self.layout = layout
         self.prefill_chunk = prefill_chunk
+        self.prefix_cache = prefix_cache
+        # session KV: retirement caches prompt + emitted output (the
+        # conversation's history), not the prompt alone
+        self.session_kv = session_kv
         self.waiting: deque[Request] = deque()
         self.prefilling: deque[Request] = deque()
         self.decoding: dict[int, Request] = {}
+        self.preempted: deque[Request] = deque()
         self._free_slots = list(range(max_slots))
+        self._admit_seq = 0
 
     def submit(self, req: Request) -> None:
         need = len(req.prompt) + req.max_new_tokens
@@ -209,27 +239,111 @@ class Scheduler:
     def blocks_needed(self, req: Request) -> int:
         return self.layout.blocks_for(len(req.prompt) + req.max_new_tokens)
 
+    def _match_candidates(self, req: Request) -> list[PrefixMatch]:
+        """Admission plans for ``req``, best hit first. A copy-on-write
+        hit pins one block beyond the request's own budget (the shared
+        source), so a request sized at the pool's capacity may be
+        admittable only under a lesser plan: each fallback pins strictly
+        less (drop the copy, keeping the block-aligned hit; then cold,
+        where every trie block is evictable). The cold plan needs
+        ``blocks_needed`` <= the usable pool, which ``submit`` checked, so
+        admission cannot livelock."""
+        if self.prefix_cache is None:
+            return [PrefixMatch()]
+        pc = self.prefix_cache
+        m = pc.match(req.prompt)
+        # the spill tier: page the longest host-resident continuation
+        # back (gated inside promote), then match again so the plans see
+        # the promoted nodes as resident
+        if pc.spill is not None and pc.promote(req.prompt):
+            m = pc.match(req.prompt)
+        cands = [m]
+        if m.cow_src is not None:
+            cands.append(PrefixMatch(m.blocks,
+                                     len(m.blocks) * self.layout.block_size,
+                                     None))
+        if m.blocks:
+            cands.append(PrefixMatch())
+        return cands
+
+    def _try_admit(self, req: Request, match: PrefixMatch) -> bool:
+        """One admission attempt under one plan: retain the shared blocks
+        first (so no eviction, from this attempt or a later one in the
+        same sweep, can take them), evict unreferenced trie leaves if the
+        rest does not fit, then allocate or roll the retains back."""
+        pc = self.prefix_cache
+        if pc is not None:
+            self.allocator.retain(match.blocks)
+            if match.cow_src is not None:
+                self.allocator.retain([match.cow_src])
+        need = self.blocks_needed(req) - len(match.blocks)
+        if need > self.allocator.num_free and pc is not None:
+            pc.evict(need - self.allocator.num_free)
+        fresh = None
+        if need <= self.allocator.num_free:
+            try:
+                fresh = self.allocator.alloc(need)
+            except AllocatorError:
+                pass           # a transient failure: the head waits
+        if fresh is None:
+            if pc is not None:
+                self.allocator.release(match.blocks)
+                if match.cow_src is not None:
+                    self.allocator.release([match.cow_src])
+            return False
+        req.blocks = match.blocks + fresh
+        req.prefix_hit = match.hit
+        req.cow_src = match.cow_src       # the engine copies, then releases
+        req.prefill_pos = match.hit       # the first uncached token
+        if pc is not None:
+            pc.note_admitted(match.hit, len(req.prompt),
+                             match.cow_src is not None)
+        return True
+
     def admit(self) -> list[Request]:
-        """Move waiting requests into slots while capacity lasts; the
-        queue head blocks (no skip-ahead)."""
+        """Move waiting requests into slots while capacity lasts. Strict
+        FIFO: the queue head blocks (no skip-ahead).
+
+        With a prefix cache, the head's plans are tried best first
+        (``_match_candidates``); if even the cold plan does not fit after
+        evicting unreferenced trie leaves, the head waits, and the
+        retirement of live requests eventually unblocks it. Preempted
+        requests re-admit only once the waiting queue has drained (a
+        restore that displaced the request whose admission forced the
+        preemption would thrash); they need no match, their content
+        comes back from the host snapshot."""
         admitted = []
         while self.waiting and self._free_slots:
             req = self.waiting[0]
+            if not any(self._try_admit(req, m)
+                       for m in self._match_candidates(req)):
+                break
+            self.waiting.popleft()
+            req.slot = self._free_slots.pop()
+            req.state = "prefilling"
+            self._stamp(req)
+            self.prefilling.append(req)
+            admitted.append(req)
+        while not self.waiting and self.preempted and self._free_slots:
+            req = self.preempted[0]
             need = self.blocks_needed(req)
+            if need > self.allocator.num_free and self.prefix_cache:
+                self.prefix_cache.evict(need - self.allocator.num_free)
             if need > self.allocator.num_free:
                 break
             try:
                 req.blocks = self.allocator.alloc(need)
             except AllocatorError:
-                break          # a transient failure: the head waits
-
-            req.prefill_pos = 0
-            self.waiting.popleft()
+                break
+            self.preempted.popleft()
             req.slot = self._free_slots.pop()
-            req.state = "prefilling"
-            self.prefilling.append(req)
-            admitted.append(req)
+            self._stamp(req)
+            admitted.append(req)   # the engine restores, then decodes
         return admitted
+
+    def _stamp(self, req: Request) -> None:
+        req.admit_seq = self._admit_seq
+        self._admit_seq += 1
 
     def next_chunk(self) -> tuple[Request, list, int] | None:
         """The head prefilling request's next chunk (req, tokens, pos0)."""
@@ -256,12 +370,29 @@ class Scheduler:
         req.blocks = []
         self._free_slots.append(req.slot)
 
+    def preempt(self, req: Request) -> None:
+        """The bookkeeping half of preemption to host (the engine has
+        snapshotted the blocks): leave the decode batch, release the
+        blocks (trie-shared ones survive through their refcounts), free
+        the slot and queue for re-admission."""
+        if self.decoding.get(req.slot) is not req:
+            raise AssertionError("only decoding requests preempt")
+        self.decoding.pop(req.slot)
+        self._release(req)
+        req.slot = None
+        req.state = "preempted"
+        self.preempted.append(req)
+
     def drop(self, req: Request, state: str) -> bool:
         """Remove ``req`` from whichever queue holds it (cancellation,
         expiry, quarantine), releasing its slot and blocks. False if the
-        request is not in flight. The engine resets the slot's table."""
+        request is not in flight. The engine resets the slot's table and
+        drops a preempted request's host snapshot. A partial prompt is
+        not inserted into the trie."""
         if req in self.waiting:
             self.waiting.remove(req)
+        elif req in self.preempted:
+            self.preempted.remove(req)
         elif req.slot is not None and (req in self.prefilling
                                        or self.decoding.get(req.slot) is req):
             if req in self.prefilling:
@@ -277,12 +408,22 @@ class Scheduler:
         req.done = True
         req.state = "done"
         self.decoding.pop(req.slot, None)
+        if self.prefix_cache is not None:
+            # cache the request's tokens before releasing: new nodes
+            # retain their blocks. Session KV caches the whole history;
+            # only len(output) - 1 output tokens are resident (the last
+            # waits in the next-token buffer)
+            seq = req.prompt
+            if self.session_kv and req.output:
+                n_valid = len(req.prompt) + len(req.output) - 1
+                seq = (list(req.prompt) + list(req.output))[:n_valid]
+            self.prefix_cache.insert(seq, req.blocks)
         self._release(req)
 
     @property
     def num_unfinished(self) -> int:
         return (len(self.waiting) + len(self.prefilling)
-                + len(self.decoding))
+                + len(self.decoding) + len(self.preempted))
 
 
 def _logit_stats(logits: torch.Tensor, tokens: torch.Tensor) -> dict:
@@ -351,23 +492,62 @@ class DecodeEngine:
     ``num_blocks`` sets the shared pool size per layer (default: every
     slot can hold ``max_context``); a smaller pool oversubscribes and
     admission waits for real availability.
+
+    ``preempt`` arms preemption to host under pool pressure: when the
+    FIFO head cannot be admitted, a decoding victim's blocks snapshot to
+    host memory (``KVSwap``) and it re-admits bitwise later. ``"lru"``
+    picks the most recently admitted victim (least work to redo),
+    ``"priority"`` the lowest ``Request.priority`` strictly below the
+    head's.
+
+    ``prefix_cache`` shares the blocks of cached prefixes between
+    requests. Session KV (``session_kv``, default on) caches a retired
+    request's whole history, prompt and output, so a conversation's next
+    turn hits on everything already computed. ``spill_blocks`` arms the
+    host spill tier: evicted trie blocks snapshot to host memory
+    (``PrefixSpill``, capacity in blocks; 0 drops them) and promote back
+    into free pool blocks when the restore-vs-reprefill forecast favours
+    the host link. ``promote`` picks that gate: ``"auto"`` evaluates
+    ``repro_torch.ecm.hopper.predicted_restore_vs_reprefill`` on this
+    engine's KV geometry and parameter count with the H100's figures,
+    ``"always"`` / ``"never"`` force it.
     """
+
+    PREEMPT_POLICIES = ("off", "lru", "priority")
+    PROMOTE_MODES = ("auto", "always", "never")
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 4,
                  max_context: int = 256,
                  block_size: int = DEFAULT_BLOCK_SIZE,
                  num_blocks: int | None = None, prefill_chunk: int = 32,
-                 prefix_cache: bool = False, spill_blocks: int = 0,
+                 prefix_cache: bool = False, session_kv: bool = True,
+                 spill_blocks: int = 0, promote: str = "auto",
                  preempt: str = "off",
                  guard: NumericsGuard | None = NumericsGuard(),
                  fault_injector=None, telemetry=None, device=None):
-        self.device = _device.resolve(device)
-        if prefix_cache or spill_blocks:
-            raise _later("prefix caching / session KV / spill", 7)
-        if preempt != "off":
-            raise _later("preemption to host", 7)
+        if prefix_cache and cfg.family == "ssm":
+            raise ValueError(
+                "prefix caching shares paged KV blocks; the 'ssm' family "
+                "carries constant-size recurrent state with no per-token "
+                "KV to share")
+        if preempt not in self.PREEMPT_POLICIES:
+            raise ValueError(f"preempt must be one of "
+                             f"{self.PREEMPT_POLICIES}, got {preempt!r}")
+        if promote not in self.PROMOTE_MODES:
+            raise ValueError(f"promote must be one of "
+                             f"{self.PROMOTE_MODES}, got {promote!r}")
+        if spill_blocks and not prefix_cache:
+            raise ValueError(
+                "spill_blocks arms the prefix-cache host spill tier and "
+                "needs prefix_cache=True")
+        if preempt != "off" and cfg.family == "ssm":
+            raise ValueError(
+                "preemption snapshots paged KV blocks; the 'ssm' family "
+                "carries recurrent state that cannot be swapped out "
+                "block-wise")
         if telemetry is not None:
             raise _later("telemetry", 9)
+        self.device = _device.resolve(device)
         if self.device.type == "cuda":
             _device.set_numerics()
         self.cfg = cfg
@@ -378,10 +558,17 @@ class DecodeEngine:
                                     max_slots=max_slots,
                                     num_blocks=num_blocks)
         self.layout = self.kv.layout
-        self.scheduler = Scheduler(BlockAllocator(self.kv.num_blocks),
-                                   max_slots, self.layout, prefill_chunk)
+        allocator = BlockAllocator(self.kv.num_blocks)
+        self.prefix_cache = (PrefixCache(allocator, self.layout.block_size)
+                             if prefix_cache else None)
+        self.scheduler = Scheduler(allocator, max_slots, self.layout,
+                                   prefill_chunk,
+                                   prefix_cache=self.prefix_cache,
+                                   session_kv=session_kv)
+        self.preempt_policy = preempt
         self.guard = guard
         self.injector = fault_injector
+        self.swap = KVSwap()
         self.quarantined: list[Request] = []
         self._step_count = 0
         self._prefill_chunk = api.prefill_chunk_fn(cfg)   # raises for a
@@ -398,38 +585,66 @@ class DecodeEngine:
             cfg.with_(kv_dtype="bf16"), max_context=max_context,
             block_size=block_size, max_slots=max_slots,
             num_blocks=num_blocks).token_bytes(max_slots)
+        # prefix counters stay zero with the cache off:
+        # ``prefix_saved_bytes`` prices the hit tokens at the per-token
+        # pool bytes (the KV the hits never re-stored), and
+        # prefix_hit_tokens / prefix_prompt_tokens is the hit rate
         self.kv_stats = {"paged_bytes": 0, "paged_bytes_bf16": 0,
                          "contiguous_bytes": 0, "decode_steps": 0,
                          "prefill_chunks": 0, "prefill_tokens": 0,
+                         "prefix_hit_tokens": 0, "prefix_prompt_tokens": 0,
+                         "prefix_saved_bytes": 0, "prefix_cow_blocks": 0,
+                         "prefix_evicted_blocks": 0,
+                         "prefix_spilled_blocks": 0,
+                         "prefix_spilled_bytes": 0,
+                         "prefix_promoted_blocks": 0,
+                         "prefix_promoted_tokens": 0,
+                         "preempted": 0, "preempted_blocks": 0,
+                         "restored_blocks": 0,
                          "guard_trips": 0, "cancelled": 0, "expired": 0,
                          "alloc_faults": 0, "stalled_requests": 0}
         self.last_logit_stats: dict | None = None
+        # the spill tier, armed last: its snapshot closure reads the live
+        # cache tree, and the auto gate prices this engine's geometry
+        if self.prefix_cache is not None and spill_blocks:
+            self.prefix_cache.spill = PrefixSpill(
+                spill_blocks,
+                lambda blocks: paged.extract_blocks(self.caches, blocks))
+            self.prefix_cache.promote_fn = self._promote_restore
+            self.prefix_cache.promote_ratio = self._promote_gate(promote)
 
     # ------------------------------------------------------------ API -----
 
     def submit(self, req: Request) -> None:
         """Enqueue a request; raises ``AdmissionError`` for requests that
         could never run (context or pool overflow, bad deadline)."""
-        if req.priority != 0:
-            raise _later("Request.priority (preemption)", 7)
         req.submit_step = self._step_count
         req.last_progress_step = self._step_count
         self.scheduler.submit(req)
 
     def step(self) -> None:
         """One engine step: expire deadlines, inject the step's faults,
-        admit, run at most one prefill chunk, then one batched decode step
-        for every decoding slot."""
+        admit (preempting a victim to host under pool pressure if armed),
+        run at most one prefill chunk, then one batched decode step for
+        every decoding slot."""
         self._step_count += 1
         self._expire_deadlines()
         if self.injector is not None:
             self._inject_step_faults()
-        for req in self.scheduler.admit():
-            row = torch.full((self.layout.max_blocks,), NULL_BLOCK,
-                             dtype=torch.int32)
-            row[:len(req.blocks)] = torch.as_tensor(req.blocks)
-            paged.reset_slot(self.caches, req.slot, row.to(self.device))
-            self._on_admit(req)
+        admitted = self.scheduler.admit()
+        if self.preempt_policy != "off":
+            # the FIFO head could not be admitted: swap a decoding victim
+            # to host and try again (each spin shrinks the batch by one)
+            spins = 0
+            while (self.scheduler.waiting and self.scheduler.decoding
+                   and spins < self.max_slots and self._preempt_for_head()):
+                spins += 1
+                admitted += self.scheduler.admit()
+        for req in admitted:
+            if req.state == "preempted":
+                self._restore(req)
+            else:
+                self._admit_slot(req)
         nxt = self.scheduler.next_chunk()
         if nxt is not None:
             req, chunk, pos0 = nxt
@@ -439,16 +654,58 @@ class DecodeEngine:
             self._on_prefill_chunk(req, chunk, pos0)
             req.last_progress_step = self._step_count
             self.kv_stats["prefill_tokens"] += len(chunk)
-            self._account_prefill(pos0 + len(chunk), first=pos0 == 0)
+            self._account_prefill(pos0 + len(chunk),
+                                  first=pos0 == req.prefix_hit)
             if self.scheduler.prefill_advance(req, len(chunk)):
                 self._emit_first_token(req, logits)
         if self.scheduler.decoding:
             self._decode_step()
         self.kv_stats["alloc_faults"] = self.scheduler.allocator.faults
 
+    def _table_row(self, blocks: list[int]) -> torch.Tensor:
+        row = torch.full((self.layout.max_blocks,), NULL_BLOCK,
+                         dtype=torch.int32)
+        row[:len(blocks)] = torch.as_tensor(blocks, dtype=torch.int32)
+        return row.to(self.device)
+
+    def _admit_slot(self, req: Request) -> None:
+        """The device half of a fresh admission: point the slot's table
+        at the request's blocks, run the copy-on-write, pre-set the
+        slot's length to the hit, mirror the prefix stats."""
+        paged.reset_slot(self.caches, req.slot, self._table_row(req.blocks))
+        if req.cow_src is not None:
+            # the table already points at the copy's target: fill it from
+            # the shared block, then drop the admission's protective
+            # reference on the source
+            dst = req.blocks[req.prefix_hit // self.layout.block_size]
+            paged.copy_block(self.caches, req.cow_src, dst)
+            self.scheduler.allocator.release([req.cow_src])
+            req.cow_src = None
+        if req.prefix_hit:
+            # readers mask from the first chunk on, and the batched
+            # decode's stray write for this mid-prefill slot lands at its
+            # own first writable position, never in a shared block
+            self.caches["len"][:, req.slot] = req.prefix_hit
+        if self.prefix_cache is not None:
+            # PrefixCache.stats is the one source; the engine mirrors it
+            cs = self.prefix_cache.stats
+            self.kv_stats.update(
+                prefix_hit_tokens=cs["hit_tokens"],
+                prefix_prompt_tokens=cs["prompt_tokens"],
+                prefix_cow_blocks=cs["cow_blocks"],
+                prefix_evicted_blocks=cs["evicted_blocks"],
+                prefix_promoted_blocks=cs["promoted_blocks"],
+                prefix_promoted_tokens=cs["promoted_tokens"],
+                prefix_saved_bytes=cs["hit_tokens"] * self._token_bytes)
+            sp = self.prefix_cache.spill
+            if sp is not None:
+                self.kv_stats.update(
+                    prefix_spilled_blocks=sp.stats["spilled_blocks"],
+                    prefix_spilled_bytes=sp.stats["spilled_bytes_total"])
+        self._on_admit(req)
+
     # Subclass hooks (the speculative engine mirrors them into its
-    # proposer). Preemption is not ported, so nothing calls the preempt /
-    # restore pair yet.
+    # proposer).
     def _on_admit(self, req: Request) -> None:
         pass
 
@@ -487,7 +744,8 @@ class DecodeEngine:
         out = []
         for state, reqs in (("waiting", sched.waiting),
                             ("prefilling", sched.prefilling),
-                            ("decoding", sched.decoding.values())):
+                            ("decoding", sched.decoding.values()),
+                            ("preempted", sched.preempted)):
             for req in reqs:
                 out.append({"rid": req.rid, "state": state,
                             "slot": req.slot,
@@ -502,17 +760,26 @@ class DecodeEngine:
     def num_unfinished(self) -> int:
         return self.scheduler.num_unfinished
 
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Fraction of admitted prompt tokens served from the prefix
+        cache (0.0 with the cache off)."""
+        tot = self.kv_stats["prefix_prompt_tokens"]
+        return self.kv_stats["prefix_hit_tokens"] / tot if tot else 0.0
+
     # ----------------------------------------------- lifecycle control ----
 
     def _in_flight(self) -> list[Request]:
         sched = self.scheduler
         return (list(sched.waiting) + list(sched.prefilling)
-                + list(sched.decoding.values()))
+                + list(sched.decoding.values()) + list(sched.preempted))
 
     def cancel(self, rid: int) -> bool:
         """Cancel an in-flight request wherever it is (waiting,
-        prefilling, decoding), releasing its slot, blocks and proposer
-        mirror state. False if no such request is in flight."""
+        prefilling, decoding, preempted), releasing its slot, blocks
+        (trie-shared blocks survive through their other references), host
+        snapshot and proposer mirror state. False if no such request is
+        in flight."""
         for req in self._in_flight():
             if req.rid == rid:
                 return self._terminate(req, "cancelled")
@@ -533,17 +800,95 @@ class DecodeEngine:
     def _terminate(self, req: Request, state: str) -> bool:
         sched = self.scheduler
         slot = req.slot
+        preempted = req in sched.preempted
         active = slot is not None and (req in sched.prefilling
                                        or sched.decoding.get(slot) is req)
         if active:
             self._on_drop(req)         # the mirror needs the slot still
         if not sched.drop(req, state):
             return False
+        if preempted:
+            self.swap.drop(req.rid)
         if active:
             paged.reset_slot(self.caches, slot, self._null_row)
             req.slot = None
         self.kv_stats[state] += 1
         return True
+
+    # ------------------------------------------------ preemption to host --
+
+    def preempt(self, rid: int) -> None:
+        """Preempt a decoding request: snapshot its blocks (every pool
+        leaf, scale tiles included) to host memory, release them and free
+        the slot. It re-admits, bitwise, once the waiting queue has
+        drained (``Scheduler.admit``)."""
+        req = next((r for r in self.scheduler.decoding.values()
+                    if r.rid == rid), None)
+        if req is None:
+            raise KeyError(
+                f"request {rid} is not decoding; only decoding requests "
+                f"hold restorable KV state")
+        slot = req.slot
+        self.swap.swap_out(rid, self.caches, req.blocks)
+        self.kv_stats["preempted"] += 1
+        self.kv_stats["preempted_blocks"] += len(req.blocks)
+        self._on_preempt(req)
+        self.scheduler.preempt(req)
+        paged.reset_slot(self.caches, slot, self._null_row)
+
+    def _preempt_for_head(self) -> bool:
+        """Pick and preempt one victim to make room for the FIFO head;
+        False when the policy yields no eligible victim."""
+        head = self.scheduler.waiting[0]
+        cands = list(self.scheduler.decoding.values())
+        if self.preempt_policy == "priority":
+            victim = min(cands, key=lambda r: (r.priority, -r.admit_seq))
+            if victim.priority >= head.priority:
+                return False
+        else:   # "lru": the most recently admitted, least work to redo
+            victim = max(cands, key=lambda r: r.admit_seq)
+        self.preempt(victim.rid)
+        return True
+
+    def _restore(self, req: Request) -> None:
+        """The device half of re-admission after preemption: the fresh
+        blocks are allocated (their ids need not match the originals),
+        the host snapshot scatters back, and the slot's length returns to
+        prompt + emitted - 1 (the last emitted token waits in
+        ``_next_tokens``, the decode step's invariant)."""
+        paged.reset_slot(self.caches, req.slot, self._table_row(req.blocks))
+        self.swap.swap_in(req.rid, self.caches, req.blocks)
+        self.caches["len"][:, req.slot] = (req.prefill_pos
+                                           + len(req.output) - 1)
+        self._next_tokens[req.slot, 0] = int(req.output[-1])
+        self.kv_stats["restored_blocks"] += len(req.blocks)
+        req.last_progress_step = self._step_count
+        self.scheduler.start_decoding(req)
+        self._on_restore(req)
+
+    # ------------------------------------------------ session spill tier --
+
+    def _promote_gate(self, mode: str) -> float:
+        """The restore-vs-reprefill ratio ``PrefixCache.promote`` gates on
+        (> 1 promotes). ``"auto"`` prices one block of this engine's KV
+        against re-prefilling its tokens on the H100's figures; the ratio
+        does not depend on the token count."""
+        if mode == "always":
+            return float("inf")
+        if mode == "never":
+            return 0.0
+        from repro_torch.ecm.hopper import predicted_restore_vs_reprefill
+        return predicted_restore_vs_reprefill(
+            self.layout.block_size, self._token_bytes,
+            2 * api.num_params(self.params))
+
+    def _promote_restore(self, blocks: list[int], snaps: list[dict]) -> None:
+        """The device half of a spill-tier promote: one batched scatter of
+        the chain's host snapshots into the fresh blocks. It runs at match
+        time, so promoted blocks are valid cache content whatever the
+        admission that asked for them does next."""
+        paged.restore_blocks(self.caches, blocks,
+                             paged.concat_block_snapshots(snaps))
 
     # -------------------------------------------- faults & quarantine -----
 

@@ -14,7 +14,8 @@ corrupted or catastrophically cancelling row sits orders above both.
 host keys), so its decisions are bitwise the reference's and a failing
 run replays from its seed. ``FailoverServer`` retries the requests a
 guard quarantined on a degraded engine (bf16 pools, no speculation).
-``SwapMissError`` waits for the host swap tier (ROADMAP queue A item 7).
+``SwapMissError`` is the host swap tier's typed miss
+(``repro_torch.serving.swap``).
 """
 
 from __future__ import annotations
@@ -38,6 +39,15 @@ class AllocatorError(ServingError):
 class AdmissionError(ServingError, ValueError):
     """A request that can NEVER be admitted (context overflow, pool
     oversubmit, bad deadline), rejected at submission."""
+
+
+class SwapMissError(ServingError, KeyError):
+    """A host-tier lookup (``KVSwap.swap_in`` / ``KVSwap.drop`` /
+    ``PrefixSpill.take``) named a request id or trie path with no
+    snapshot. Both directions raise, symmetrically: a drop that misses
+    would hide leaked host bytes, a swap-in that misses would resume a
+    request on uninitialized KV. Subclasses ``KeyError`` so restore
+    contracts written against ``KeyError`` hold."""
 
 
 class ProposerStallError(ServingError):

@@ -1,10 +1,13 @@
 """Fault tolerance in the port: ``FaultInjector`` decisions bitwise against
 the reference's over a (seed, site, step) grid, ``paged.poison_blocks``
-against the reference's on bridged pools, a fault-injected run against
-the reference engine, and the cases of tests/test_faults.py that need no
-swap tier or prefix cache, mirrored inside the port (the sweep of
-tests/test_faults.py:565 runs without preemption and prefix caching,
-which are not ported yet).
+against the reference's on bridged pools, fault-injected runs against
+the reference engine (the sweep of tests/test_faults.py:565, preempting
+and prefix-caching, among them), the restore-vs-reprefill forecast
+against the reference's function, and the cases of tests/test_faults.py
+mirrored inside the port: preemption to host with bitwise restores over
+bf16, int8 and fp8 pools and under both spec proposers, the ``lru`` and
+``priority`` policies, cancellation while preempted, the ``KVSwap``
+round trip and its symmetric ``SwapMissError``.
 
 The injector is a host rule over keyed scalar draws, so its decisions
 are equal bit for bit. Engine outputs inside the port are compared with
@@ -32,10 +35,10 @@ from repro_torch.models import api as tapi  # noqa: E402
 from repro_torch.models import paged as tpaged  # noqa: E402
 from repro_torch.serving import (AdmissionError, AllocatorError,  # noqa: E402
                                  DecodeEngine, FailoverServer, FaultInjector,
-                                 FaultSpec, Request, ServingError,
+                                 FaultSpec, KVSwap, Request, ServingError,
                                  SpecDecodeEngine, StallError,
-                                 degraded_engine)
-from repro_torch.spec import NGramProposer  # noqa: E402
+                                 SwapMissError, degraded_engine)
+from repro_torch.spec import DraftModelProposer, NGramProposer  # noqa: E402
 
 MAX_CONTEXT, BLOCK, CHUNK = 64, 16, 32
 
@@ -388,7 +391,8 @@ def test_deterministic_fault_sweep_completes_all_survivors(setup):
                             for s in FaultInjector.SITES])
     engine = _engine(cfg, params, SpecDecodeEngine,
                      proposer=NGramProposer(), spec_k=2, max_slots=3,
-                     num_blocks=9, fault_injector=inj)
+                     num_blocks=9, preempt="lru", prefix_cache=True,
+                     fault_injector=inj)
     server = FailoverServer(engine)
     sys_prompt = [101, 102, 103, 104]
     reqs = [Request(rid=i, prompt=sys_prompt + [i + 1, 2 * i + 1],
@@ -412,4 +416,288 @@ def test_deterministic_fault_sweep_completes_all_survivors(setup):
     assert engine.kv_stats["guard_trips"] >= 1
     assert engine.kv_stats["alloc_faults"] >= 1
     assert engine.kv_stats["proposer_stalls"] >= 1
-    assert engine.scheduler.allocator.num_held == 0
+    # only the trie holds blocks at the end, one per node
+    alloc = engine.scheduler.allocator
+    assert alloc.num_held == engine.prefix_cache.num_nodes
+    assert len(engine.swap) == 0
+
+
+def test_fault_sweep_matches_reference_engine():
+    """The sweep of tests/test_faults.py:565 (every site armed over a
+    pressured, preempting, prefix-caching spec engine, one cancellation)
+    on both stacks from the reference's weights: the same (step, site,
+    victim) log, states, retries, streams and bookkeeping."""
+    cfg = reduced(get_config("qwen1.5-0.5b")).with_(num_layers=2,
+                                                     num_kv_heads=2)
+    params = common.init_params(api.schema(cfg), jax.random.key(0))
+    tparams = bridge.params_from_reference(jax.tree.map(np.asarray, params),
+                                           device="cpu")
+    from repro.serving.engine import SpecDecodeEngine as RefSpecEngine
+    from repro.spec import NGramProposer as RefNGram
+    runs = []
+    for klass, inj_cls, spec_cls, req_cls, srv_cls, prop, p, c in (
+            (RefSpecEngine, RefInjector, RefSpec, RefRequest, RefFailover,
+             RefNGram, params, cfg),
+            (SpecDecodeEngine, FaultInjector, FaultSpec, Request,
+             FailoverServer, NGramProposer, tparams,
+             _tcfg(num_kv_heads=2))):
+        inj = inj_cls(0, [spec_cls(site=s) for s in FaultInjector.SITES])
+        kw = dict(proposer=prop(), spec_k=2, max_slots=3,
+                  max_context=MAX_CONTEXT, block_size=BLOCK,
+                  prefill_chunk=CHUNK, num_blocks=9, preempt="lru",
+                  prefix_cache=True, fault_injector=inj)
+        if klass is SpecDecodeEngine:
+            kw["device"] = "cpu"
+        engine = klass(c, p, **kw)
+        server = srv_cls(engine)
+        reqs = [req_cls(rid=i, prompt=[101, 102, 103, 104, i + 1, 2 * i + 1],
+                        max_new_tokens=6) for i in range(5)]
+        for r in reqs:
+            server.submit(r)
+        for _ in range(3):
+            server.step()
+        assert engine.cancel(4)
+        server.run_until_done(max_steps=500)
+        keys = ("guard_trips", "alloc_faults", "proposer_stalls",
+                "preempted", "prefix_hit_tokens", "prefix_cow_blocks")
+        runs.append((inj.log, [r.output for r in reqs],
+                     [(r.rid, r.state, r.retries, r.prefix_hit)
+                      for r in reqs],
+                     {k: engine.kv_stats[k] for k in keys},
+                     engine.prefix_cache.num_nodes))
+    assert runs[0] == runs[1]
+    assert sorted({s for _, s, _ in runs[1][0]}) == \
+        sorted(FaultInjector.SITES)
+
+
+# ------------------------------------------------ preemption to host ------
+
+
+def _run_with_preemption(cfg, params, klass=DecodeEngine, *, prompt,
+                         n_new, preempt_after=2, **kw):
+    """A solo request preempted mid-decode and restored; a filler request
+    churns the freed blocks in between, so a restore of stale content or
+    of the wrong ids cannot pass by accident."""
+    engine = _engine(cfg, params, klass, **kw)
+    req = Request(rid=0, prompt=list(prompt), max_new_tokens=n_new)
+    engine.submit(req)
+    for _ in range(preempt_after):
+        engine.step()
+    assert not req.done and len(req.output) >= 1
+    engine.preempt(0)
+    assert req.state == "preempted" and req.slot is None
+    assert req.blocks == [] and engine.swap.holds(0)
+    filler = Request(rid=1, prompt=[9, 8, 7], max_new_tokens=4)
+    engine.submit(filler)
+    engine.run_until_done()
+    assert req.done and filler.done and not engine.swap.holds(0)
+    assert engine.kv_stats["preempted"] == 1
+    assert engine.kv_stats["restored_blocks"] >= 1
+    return req, engine
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8", "fp8"])
+def test_preempt_restore_bitwise_parity(setup, kv_dtype, record_blocks):
+    """A preempted and restored request equals its never-preempted run
+    bitwise: tokens, logprobs and the written blocks, scale tiles
+    included (block ids differ, content does not)."""
+    cfg, params = setup
+    qcfg = cfg.with_(kv_dtype=kv_dtype)
+    prompt, n_new = [5, 9, 11, 2], 8
+    ref, ref_engine = _reference(qcfg, params, prompt, n_new)
+    req, engine = _run_with_preemption(qcfg, params, prompt=prompt,
+                                       n_new=n_new)
+    assert req.output == ref.output
+    assert req.logprobs == ref.logprobs
+    # the retired requests' blocks still hold their content
+    got = tpaged.extract_blocks(engine.caches, _last_blocks(engine, req))
+    want = tpaged.extract_blocks(ref_engine.caches,
+                                 _last_blocks(ref_engine, ref))
+    assert set(got) == set(want)
+    if kv_dtype != "bf16":
+        assert any("scale" in k for k in got)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def _last_blocks(engine, req):
+    """The blocks a retired request held (recorded at retirement)."""
+    return engine.held[req.rid]
+
+
+@pytest.fixture
+def record_blocks(monkeypatch):
+    """Engines remember each retiring request's blocks in ``held``."""
+    retire = DecodeEngine._retire
+
+    def recording(self, req):
+        if not hasattr(self, "held"):
+            self.held = {}
+        self.held[req.rid] = list(req.blocks)
+        retire(self, req)
+    monkeypatch.setattr(DecodeEngine, "_retire", recording)
+
+
+@pytest.mark.parametrize("proposer_kind", ["ngram", "draft"])
+def test_preempt_restore_spec_engines(setup, proposer_kind):
+    """Both proposers survive preemption: mirror state goes with the slot
+    and is rebuilt on restore (the draft model replays prompt +
+    output[:-1]), so the continuation stays bitwise."""
+    cfg, params = setup
+
+    def make():
+        return (NGramProposer() if proposer_kind == "ngram"
+                else DraftModelProposer(cfg, params))
+
+    prompt, n_new = [3, 1, 4, 1, 5, 3, 1, 4], 8
+    ref, _ = _reference(cfg, params, prompt, n_new, klass=SpecDecodeEngine,
+                        proposer=make(), spec_k=2)
+    req, _ = _run_with_preemption(cfg, params, SpecDecodeEngine,
+                                  prompt=prompt, n_new=n_new,
+                                  proposer=make(), spec_k=2)
+    assert req.output == ref.output
+    assert req.logprobs == ref.logprobs
+
+
+def test_auto_preempt_lru_under_pool_pressure(setup):
+    """preempt='lru': a tight pool swaps the most recently admitted
+    request out so the head can admit; every stream is its unperturbed
+    run's (at the same max_slots: the decode step's GEMM rows)."""
+    cfg, params = setup
+    engine = _engine(cfg, params, max_slots=3, num_blocks=7, preempt="lru")
+    reqs = [Request(rid=i, prompt=[10 + i, 20 + i], max_new_tokens=6)
+            for i in range(4)]
+    for r in reqs:
+        engine.submit(r)
+    engine.run_until_done()
+    assert all(r.done for r in reqs)
+    assert engine.kv_stats["preempted"] >= 1
+    for r in reqs:
+        ref, _ = _reference(cfg, params, r.prompt, 6, max_slots=3)
+        assert r.output == ref.output and r.logprobs == ref.logprobs
+
+
+def test_priority_policy_picks_lowest_priority_victim(setup):
+    cfg, params = setup
+    engine = _engine(cfg, params, max_slots=3, num_blocks=6,
+                     preempt="priority")
+    lo = Request(rid=0, prompt=[1, 2], max_new_tokens=15, priority=0)
+    mid = Request(rid=1, prompt=[3, 4], max_new_tokens=15, priority=1)
+    hi2 = Request(rid=2, prompt=[5, 6], max_new_tokens=15, priority=2)
+    engine.submit(lo)
+    engine.submit(mid)
+    engine.step()
+    engine.submit(hi2)
+    engine.step()
+    assert lo.state == "preempted" and mid.state != "preempted"
+    engine.run_until_done()
+    assert all(r.done for r in (lo, mid, hi2))
+    for r in (lo, mid, hi2):
+        ref, _ = _reference(cfg, params, r.prompt, 15, max_slots=3)
+        assert r.output == ref.output and r.logprobs == ref.logprobs
+
+
+def test_preempt_priority_never_evicts_equal_priority(setup):
+    cfg, params = setup
+    engine = _engine(cfg, params, max_slots=3, num_blocks=6,
+                     preempt="priority")
+    reqs = [Request(rid=i, prompt=[1 + 2 * i, 2 + 2 * i],
+                    max_new_tokens=15, priority=1) for i in range(3)]
+    for r in reqs:
+        engine.submit(r)
+    engine.run_until_done()
+    assert all(r.done for r in reqs)
+    assert engine.kv_stats["preempted"] == 0
+
+
+def test_cancel_while_preempted_drops_snapshot(setup):
+    cfg, params = setup
+    engine = _engine(cfg, params)
+    req = Request(rid=0, prompt=[5, 9], max_new_tokens=8)
+    engine.submit(req)
+    engine.step()
+    engine.preempt(0)
+    assert engine.swap.holds(0)
+    assert engine.request_diagnostics()[0]["state"] == "preempted"
+    assert engine.cancel(0)
+    assert not engine.swap.holds(0) and len(engine.swap) == 0
+    assert engine.swap.stats["dropped_blocks"] >= 1
+    assert engine.swap.stats["host_bytes"] == 0
+    alloc = engine.scheduler.allocator
+    assert alloc.num_free == engine.kv.num_blocks - 1
+    with pytest.raises(KeyError):
+        engine.preempt(0)
+
+
+def test_swap_unit_roundtrip(setup):
+    """KVSwap alone: snapshot, restore into other block ids, stats, and
+    the double swap-out guard."""
+    cfg, params = setup
+    engine = _engine(cfg.with_(kv_dtype="int8"), params)
+    req = Request(rid=0, prompt=[5, 9, 11], max_new_tokens=4)
+    engine.submit(req)
+    engine.step()
+    swap = KVSwap()
+    blocks = list(req.blocks)
+    want = tpaged.extract_blocks(engine.caches, blocks)
+    swap.swap_out(0, engine.caches, blocks)
+    assert swap.holds(0) and len(swap) == 1
+    assert swap.stats["host_bytes"] == tpaged.snapshot_bytes(want) > 0
+    assert swap.stats["host_bytes_total"] == swap.stats["host_bytes"]
+    with pytest.raises(AssertionError):
+        swap.swap_out(0, engine.caches, blocks)
+    alloc = engine.scheduler.allocator
+    others = alloc.alloc(len(blocks))
+    assert set(others).isdisjoint(blocks)
+    with pytest.raises(AssertionError):
+        swap.swap_in(0, engine.caches, others + others)   # count differs
+    swap.swap_in(0, engine.caches, others)
+    got = tpaged.extract_blocks(engine.caches, others)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert not swap.holds(0) and swap.stats["host_bytes"] == 0
+    assert swap.stats["restored_bytes_total"] == tpaged.snapshot_bytes(want)
+
+
+def test_swap_miss_raises_symmetrically(setup):
+    swap = KVSwap()
+    with pytest.raises(SwapMissError):
+        swap.swap_in(42, None, [0])
+    with pytest.raises(SwapMissError):
+        swap.drop(42)
+    with pytest.raises(KeyError):
+        swap.swap_in(42, None, [0])
+    assert issubclass(SwapMissError, ServingError)
+    assert swap.stats["dropped_blocks"] == 0
+    cfg, params = setup
+    engine = _engine(cfg, params)
+    req = Request(rid=0, prompt=[5, 9], max_new_tokens=8)
+    engine.submit(req)
+    engine.step()
+    engine.preempt(0)
+    assert engine.cancel(0)
+    assert len(engine.swap) == 0
+
+
+def test_restore_vs_reprefill_matches_reference():
+    """The H100 forecast is the reference's function evaluated on the
+    port's figures (the reference names the compute rate
+    ``peak_bf16_flops``; the port's rate is f32 on the CUDA cores, see
+    ``ecm.machines``), and it validates its inputs the same way."""
+    from repro.ecm.tpu import predicted_restore_vs_reprefill as ref_fn
+    from repro_torch.ecm.hopper import predicted_restore_vs_reprefill
+    from repro_torch.ecm.machines import H100_SXM
+    as_ref = dict(H100_SXM, peak_bf16_flops=H100_SXM["peak_flops"])
+    for tokens, tb, fpt in ((16, 98304, 2 * 619e6), (4096, 512, 1e9),
+                            (16, 1e4, 2e5), (1, 1e6, 1e3)):
+        assert predicted_restore_vs_reprefill(tokens, tb, fpt) == \
+            ref_fn(tokens, tb, fpt, hw=as_ref)
+    # full-width qwen1.5 (98 304 bf16 bytes per token) restores faster
+    # than it re-prefills; a reduced test model does not
+    assert predicted_restore_vs_reprefill(16, 98304, 2 * 619e6) > 1.0
+    assert predicted_restore_vs_reprefill(16, 1e4, 2e5) < 1.0
+    for bad in (dict(tokens=0, token_bytes=512, flops_per_token=1e9),
+                dict(tokens=64, token_bytes=-1, flops_per_token=1e9),
+                dict(tokens=64, token_bytes=512, flops_per_token=0)):
+        with pytest.raises(ValueError):
+            predicted_restore_vs_reprefill(**bad)

@@ -188,3 +188,152 @@ def test_gather_and_scatter_latent_pools_bitwise(name):
     tp.scatter_chunk(pool, torch.from_numpy(table[1]), 3,
                      torch.from_numpy(chunk))
     np.testing.assert_array_equal(np.asarray(want), pool.numpy())
+
+
+# ------------------------------- block copies and host snapshots ----------
+
+def test_layout_helpers_match_reference():
+    for spec in (100, rp.PagedLayout(8, 5)):
+        tspec = spec if isinstance(spec, int) else tp.PagedLayout(*spec)
+        assert tuple(rp.as_layout(spec)) == tuple(tp.as_layout(tspec))
+    lay = (16, 7)
+    for batch, mult in ((3, 4), (8, 8), (1, 3)):
+        assert rp.padded_num_blocks(rp.PagedLayout(*lay), batch, mult) == \
+            tp.padded_num_blocks(tp.PagedLayout(*lay), batch, mult)
+
+
+def _bridged_pools(arch, kv_dtype, seed=0):
+    """Random reference pools for ``arch`` at ``kv_dtype`` (every pool
+    leaf filled: payload bytes, scale tiles, MLA latents) and the port's
+    bridged copy."""
+    import jax
+    from repro.configs import get_config, reduced
+    from repro.models import api
+    from repro_torch import bridge
+    cfg = reduced(get_config(arch)).with_(num_layers=3, kv_dtype=kv_dtype)
+    kv = api.KVCache.build(cfg, max_context=64, block_size=16, max_slots=2)
+    rng = np.random.default_rng(seed)
+    ref = []
+    for stack in kv.init(2):
+        out = {}
+        for k, v in stack.items():
+            a = np.asarray(v)
+            if k in rp.POOL_KEYS:
+                if np.issubdtype(a.dtype, np.integer):
+                    info = np.iinfo(a.dtype)
+                    a = rng.integers(info.min, info.max + 1,
+                                     a.shape).astype(a.dtype)
+                else:
+                    a = rng.normal(size=a.shape).astype(a.dtype)
+            out[k] = a
+        ref.append(out)
+    port = bridge.caches_from_reference(ref, device="cpu")
+    tree = tuple({k: jax.numpy.asarray(v) for k, v in c.items()}
+                 for c in ref)
+    return tree, port
+
+
+def _bits(a):
+    """Bit pattern of a pool leaf, numpy or torch (bf16 widened)."""
+    from repro_torch import bridge
+    if isinstance(a, torch.Tensor):
+        a = bridge.to_numpy(a)
+    a = np.asarray(a)
+    if a.dtype.itemsize == 1:
+        return a.view(np.uint8)
+    return a.astype(np.float32).view(np.uint32)
+
+
+def _ref_by_leaf(tree_or_snap, nstacks):
+    """The reference's per-stack leaves (a cache tuple, or an
+    ``extract_blocks`` dict keyed by path) concatenated over the layer
+    axis, as the port stacks them."""
+    if isinstance(tree_or_snap, dict):
+        names = {k.split("'")[1] for k in tree_or_snap}
+        return {n: np.concatenate([np.asarray(tree_or_snap[f"[{i}]['{n}']"])
+                                   for i in range(nstacks)])
+                for n in names}
+    return {n: np.concatenate([np.asarray(t[n]) for t in tree_or_snap])
+            for n in tree_or_snap[0] if n in rp.POOL_KEYS}
+
+
+CASES = [("qwen1.5-0.5b", d) for d in ("bf16", "int8", "fp8")] + \
+    [("deepseek-v2-236b", d) for d in ("bf16", "int8", "fp8")]
+
+
+@pytest.mark.parametrize("arch,kv_dtype", CASES)
+def test_copy_block_bitwise(arch, kv_dtype):
+    tree, port = _bridged_pools(arch, kv_dtype)
+    want = rp.copy_block(tree, jnp.int32(3), jnp.int32(6))
+    tp.copy_block(port, 3, 6)
+    ref = _ref_by_leaf(want, len(want))
+    assert set(ref) == {k for k in port if k in tp.POOL_KEYS}
+    for k, v in ref.items():
+        np.testing.assert_array_equal(_bits(port[k]), _bits(v), err_msg=k)
+
+
+@pytest.mark.parametrize("arch,kv_dtype", CASES)
+def test_extract_restore_concat_bitwise(arch, kv_dtype):
+    """extract_blocks gathers every pool leaf (scale tiles and latents
+    included) bitwise the reference's; restore_blocks into other block
+    ids and the concatenation of per-block snapshots too."""
+    tree, port = _bridged_pools(arch, kv_dtype)
+    n = len(tree)
+    blocks = [5, 2, 7]
+    snap = tp.extract_blocks(port, blocks)
+    want = _ref_by_leaf(rp.extract_blocks(tree, blocks), n)
+    assert set(snap) == set(want)
+    if kv_dtype != "bf16":
+        assert any("scale" in k for k in snap)
+    for k in want:
+        assert snap[k].device.type == "cpu"
+        np.testing.assert_array_equal(_bits(snap[k]), _bits(want[k]),
+                                      err_msg=k)
+    assert tp.snapshot_bytes(snap) == sum(t.nbytes for t in snap.values())
+    # per-block snapshots concatenated == the 3-block snapshot
+    parts = [tp.extract_blocks(port, [b]) for b in blocks]
+    cat = tp.concat_block_snapshots(parts)
+    ref_cat = rp.concat_block_snapshots(
+        [{k: np.asarray(v) for k, v in rp.extract_blocks(tree, [b]).items()}
+         for b in blocks])
+    ref_cat = _ref_by_leaf(ref_cat, n)
+    for k in want:
+        np.testing.assert_array_equal(_bits(cat[k]), _bits(ref_cat[k]),
+                                      err_msg=k)
+        np.testing.assert_array_equal(_bits(cat[k]), _bits(snap[k]),
+                                      err_msg=k)
+    # restore into other ids: the pools equal the reference's restore
+    others = [1, 8, 4]
+    rsnap = rp.extract_blocks(tree, blocks)
+    want_tree = rp.restore_blocks(tree, others, rsnap)
+    tp.restore_blocks(port, others, snap)
+    for k, v in _ref_by_leaf(want_tree, n).items():
+        np.testing.assert_array_equal(_bits(port[k]), _bits(v), err_msg=k)
+    back = tp.extract_blocks(port, others)
+    for k in snap:
+        np.testing.assert_array_equal(_bits(back[k]), _bits(snap[k]),
+                                      err_msg=k)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8", "fp8"])
+def test_snapshots_on_card_pinned_bitwise(kv_dtype):
+    """On the card: snapshots land in pinned host memory, bitwise the CPU
+    pool's, and restore into other blocks bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    _, port = _bridged_pools("qwen1.5-0.5b", kv_dtype)
+    card = {k: v.cuda() for k, v in port.items()}
+    blocks, others = [5, 2, 7], [1, 8, 4]
+    snap = tp.extract_blocks(card, blocks)
+    want = tp.extract_blocks(port, blocks)
+    for k in want:
+        assert snap[k].is_pinned() and torch.equal(snap[k], want[k]), k
+    cat = tp.concat_block_snapshots([tp.extract_blocks(card, [b])
+                                     for b in blocks])
+    tp.restore_blocks(card, others, cat)
+    tp.copy_block(card, others[0], 3)
+    back = tp.extract_blocks(card, others + [3])
+    for k in want:
+        assert cat[k].is_pinned()
+        assert torch.equal(back[k][:, :3], want[k]), k
+        assert torch.equal(back[k][:, 3], want[k][:, 0]), k

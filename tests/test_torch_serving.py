@@ -266,14 +266,20 @@ def test_traffic_accounting_and_stall(port):
 
 def test_later_slices_raise(port):
     cfg, params = port
-    for kw in (dict(prefix_cache=True), dict(preempt="lru"),
-               dict(spill_blocks=4), dict(telemetry=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _engine(cfg, params, **kw)
+    # telemetry is the one knob still refused
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _engine(cfg, params).submit(
-            Request(rid=0, prompt=[1], max_new_tokens=2, priority=10))
-    # sampling, deadlines and fault injection are served now
+        _engine(cfg, params, telemetry=object())
+    # prefix caching, the spill tier, preemption and priorities are
+    # served now; the spill tier needs the prefix cache, as in the
+    # reference
+    with pytest.raises(ValueError):
+        _engine(cfg, params, spill_blocks=4)
+    engine = _engine(cfg, params, prefix_cache=True, spill_blocks=4,
+                     preempt="lru")
+    engine.submit(Request(rid=0, prompt=[1, 2, 3], max_new_tokens=2,
+                          priority=10))
+    engine.run_until_done()
+    # sampling, deadlines and fault injection are served too
     engine = _engine(cfg, params, fault_injector=FaultInjector(0))
     engine.submit(Request(rid=0, prompt=[1], max_new_tokens=2,
                           temperature=1.0, top_k=5, seed=3,
