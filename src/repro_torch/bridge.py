@@ -73,9 +73,13 @@ def _map(tree, fn):
 def params_from_reference(tree: dict, device=None) -> dict:
     """Reference parameter tree (numpy leaves) -> the port's tree, with
     the stacked ``dense_layers`` / ``layers`` split into one dict per
-    layer. ``device`` defaults to the card."""
-    from repro_torch.models import lm
-    return lm.split_layers(_map(tree, lambda a: from_numpy(a, device)))
+    layer and the weights that only feed bf16 products held as bf16
+    (``models.common.BF16_WEIGHTS``; they are rounded to bf16 before
+    every product anyway, so no result changes). ``device`` defaults to
+    the card."""
+    from repro_torch.models import common, lm
+    return lm.split_layers(common.hold_weights_bf16(
+        _map(tree, lambda a: from_numpy(a, device))))
 
 
 def caches_from_reference(caches, device=None) -> dict:

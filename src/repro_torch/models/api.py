@@ -27,13 +27,17 @@ def schema(cfg: ModelConfig) -> dict:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
-                device=None, seed: int = 0) -> dict:
+                device=None, seed: int = 0, hold_bf16: bool = True) -> dict:
     """Random parameters with the reference's distributions, drawn from
-    ``generator`` (default: a fresh one on ``device`` seeded ``seed``)."""
+    ``generator`` (default: a fresh one on ``device`` seeded ``seed``).
+    The weights that only feed bf16 products are held as bf16
+    (``common.BF16_WEIGHTS``); ``hold_bf16=False`` keeps every leaf f32,
+    the reference's tree as it stands (a training master copy)."""
     dev = _device.resolve(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
-    return lm.split_layers(common.init_params(schema(cfg), generator, dev))
+    return lm.split_layers(common.init_params(schema(cfg), generator, dev,
+                                              hold_bf16=hold_bf16))
 
 
 def decode_fn(cfg: ModelConfig) -> Callable:

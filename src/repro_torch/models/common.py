@@ -2,10 +2,19 @@
 ``repro.models.common``).
 
 Parameters are plain nested dicts of tensors built from a declarative
-schema, in the reference's dtypes (f32). ``dense`` computes what the
-reference's bf16 einsum with f32 accumulation computes: both operands are
-rounded to bf16 and multiplied in f32 (bf16 x bf16 products are exact in
-f32), the bias is added in f32, and the result is rounded once to bf16.
+schema, in the reference's dtypes (f32), except the weights that only
+ever feed ``dense`` (or the MoE expert products) at ``compute_dtype`` bf16
+(``BF16_WEIGHTS``): ``hold_weights_bf16`` keeps those as bf16 from load
+time. ``dense`` rounds its operands to bf16 anyway, and rounding is
+idempotent, so no product changes.
+
+``dense`` computes what the reference's bf16 einsum with f32
+accumulation computes: bf16 operands, f32 products and sums, the bias
+added in f32, one rounding of the result to ``compute_dtype``. On the
+card that is a bf16 tensor-core GEMM with an f32 result
+(``torch.mm(..., out_dtype=torch.float32)``); PyTorch's CPU backend has
+no such op, so on the CPU both operands are widened to f32 (bf16 x bf16
+products are exact in f32).
 """
 
 from __future__ import annotations
@@ -56,17 +65,45 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
     return x.mul_(scale).to(spec.dtype)
 
 
+# Weights that only ever feed ``dense`` or the MoE expert products at
+# compute_dtype=bf16 (attention q/k/v/o, the MLP, the MoE router and
+# experts, the MLA projections wq_a / wq_b / wkv_a / wo). The reference
+# keeps norms, embeddings, the LM head (an f32 product), biases and the
+# absorbed MLA weights wk_b / wv_b at f32, and so does the port.
+BF16_WEIGHTS = frozenset({"wq", "wk", "wv", "wo", "w_gate_up", "w_down",
+                          "router", "wq_a", "wq_b", "wkv_a"})
+
+
 def init_params(schema: dict, generator: torch.Generator,
-                device) -> dict:
+                device, *, hold_bf16: bool = False) -> dict:
     """Materialize a parameter tree from a schema, leaves drawn in sorted
-    path order from ``generator`` (which must live on ``device``)."""
+    path order from ``generator`` (which must live on ``device``).
+    ``hold_bf16`` rounds each ``BF16_WEIGHTS`` leaf to bf16 as it is
+    drawn (the draws do not change), so the f32 tree never exists whole."""
     tree: dict = {}
     for path, spec in _flatten_schema(schema):
         node = tree
         parts = path.split("/")
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        node[parts[-1]] = _init_leaf(spec, generator, device)
+        leaf = _init_leaf(spec, generator, device)
+        if hold_bf16 and parts[-1] in BF16_WEIGHTS:
+            leaf = leaf.to(torch.bfloat16)
+        node[parts[-1]] = leaf
+    return tree
+
+
+def hold_weights_bf16(tree):
+    """The tree (nested dicts and per-layer lists) with every
+    ``BF16_WEIGHTS`` leaf rounded to bf16; other leaves, and leaves
+    already bf16, are passed through as they are."""
+    if isinstance(tree, dict):
+        return {k: (v.to(torch.bfloat16) if k in BF16_WEIGHTS
+                    and isinstance(v, torch.Tensor)
+                    else hold_weights_bf16(v))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [hold_weights_bf16(v) for v in tree]
     return tree
 
 
@@ -111,9 +148,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
 def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
           compute_dtype=torch.bfloat16) -> torch.Tensor:
     """y = x @ w (+ b): operands rounded to ``compute_dtype``, f32
-    accumulation, bias added in f32, one rounding to ``compute_dtype``."""
-    y = torch.matmul(x.to(compute_dtype).to(torch.float32),
-                     w.to(compute_dtype).to(torch.float32))
+    accumulation, bias added in f32, one rounding to ``compute_dtype``.
+    On the card a bf16 ``compute_dtype`` runs one tensor-core GEMM with an
+    f32 result; elsewhere the rounded operands are widened to f32."""
+    if x.is_cuda and compute_dtype == torch.bfloat16:
+        y = torch.mm(x.reshape(-1, x.shape[-1]).to(compute_dtype),
+                     w.to(compute_dtype), out_dtype=torch.float32)
+        y = y.reshape(*x.shape[:-1], w.shape[-1])
+    else:
+        y = torch.matmul(x.to(compute_dtype).to(torch.float32),
+                         w.to(compute_dtype).to(torch.float32))
     if b is not None:
         y = y + b.to(torch.float32)
     return y.to(compute_dtype)

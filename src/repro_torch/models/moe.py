@@ -9,9 +9,11 @@ computes:
 
 * **Expert products.** The reference multiplies bf16 operands with f32
   accumulation and rounds to bf16. The port does what ``common.dense``
-  does, experts a chunk at a time, so a full-width layer (a
-  [160, 5120, 3072] f32 ``w_gate_up``) never makes more than a ~1 GiB f32
-  copy of its weights per call.
+  does: on the card one bf16 tensor-core ``bmm`` with an f32 result over
+  the expert weights, which the load path holds as bf16; on the CPU the
+  operands widened to f32, experts a chunk at a time, so a full-width
+  layer (a [160, 5120, 3072] ``w_gate_up``) never makes more than a
+  ~1 GiB f32 copy of its weights per call.
 * **Scatter back.** The reference's ``.at[st].add`` adds each token's k
   contributions in bf16, in sorted (expert-id) order, starting from zero.
   ``index_add_`` on a CUDA bf16 tensor uses atomics, whose order (and so
@@ -69,7 +71,11 @@ def _top_k(probs: torch.Tensor, k: int):
 
 def _expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """[E, C, d] x [E, d, f] -> [E, C, f] f32: bf16-rounded operands, f32
-    products and sums, over chunks of experts."""
+    products and sums: one bf16 ``bmm`` with an f32 result on the card,
+    the operands widened to f32 a chunk of experts at a time elsewhere."""
+    if x.is_cuda:
+        return torch.bmm(x.to(torch.bfloat16), w.to(torch.bfloat16),
+                         out_dtype=torch.float32)
     e, d, f = w.shape
     step = max(1, _CHUNK_ELEMS // (d * f))
     xf = x.to(torch.bfloat16).to(torch.float32)

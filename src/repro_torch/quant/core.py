@@ -147,3 +147,15 @@ def dequantize_weight(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     k = q.shape[0]
     wb = cast_f32(q).reshape(nk, k // nk, n)
     return (wb * scales[:, None, :]).reshape(k, n)
+
+
+def kv_bytes_per_value(kv_dtype: str, vec_len: int,
+                       baseline_itemsize: int = 2) -> float:
+    """HBM bytes per cached KV element including the amortized f32 scale
+    (one scale per ``vec_len`` elements): the input of the decode-speedup
+    forecast (``repro_torch.ecm.hopper.predicted_decode_speedup``) and the
+    analytic mirror of ``KVCache.token_bytes``."""
+    fmt = get_format(kv_dtype)
+    if fmt is None:
+        return float(baseline_itemsize)
+    return fmt.itemsize + 4.0 / vec_len

@@ -47,12 +47,19 @@ later requests, with LRU eviction of unreferenced trie leaves (spilled
 to host memory when ``spill_blocks`` arms the tier) when the free list
 runs short. ``preempt`` arms preemption to host under pool pressure:
 a decoding victim's blocks snapshot to host (``serving.swap.KVSwap``)
-and restore bitwise on re-admission. Telemetry is a later slice of the
-port; its knob raises ``NotImplementedError`` naming the ROADMAP item.
+and restore bitwise on re-admission.
+
+``telemetry`` attaches a ``repro_torch.obs.Telemetry``: lifecycle spans
+and instants on the engine-step clock (``obs.trace``), the typed metrics
+registry (``metrics_registry`` / ``metrics_snapshot`` /
+``metrics_prometheus``) and, with ``profile=True``, the ECM attribution
+profiler. The default, ``obs.NULL``, leaves every step as it is: the
+same launches and the one host transfer.
 """
 
 from __future__ import annotations
 
+import time
 from collections import deque
 from dataclasses import dataclass, field
 
@@ -60,6 +67,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch import obs
 from repro_torch.core import prng
 from repro_torch.kernels import ops
 from repro_torch.models import api, paged
@@ -72,11 +80,6 @@ from repro_torch.serving.prefix_cache import PrefixCache, PrefixMatch
 from repro_torch.serving.swap import KVSwap, PrefixSpill
 
 DEFAULT_BLOCK_SIZE = paged.DEFAULT_BLOCK_SIZE
-
-
-def _later(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue A item {item})")
 
 
 @dataclass
@@ -255,7 +258,7 @@ class Scheduler:
         # the spill tier: page the longest host-resident continuation
         # back (gated inside promote), then match again so the plans see
         # the promoted nodes as resident
-        if pc.spill is not None and pc.promote(req.prompt):
+        if pc.spill is not None and pc.promote(req.prompt, rid=req.rid):
             m = pc.match(req.prompt)
         cands = [m]
         if m.cow_src is not None:
@@ -297,7 +300,7 @@ class Scheduler:
         req.prefill_pos = match.hit       # the first uncached token
         if pc is not None:
             pc.note_admitted(match.hit, len(req.prompt),
-                             match.cow_src is not None)
+                             match.cow_src is not None, rid=req.rid)
         return True
 
     def admit(self) -> list[Request]:
@@ -511,6 +514,9 @@ class DecodeEngine:
     ``repro_torch.ecm.hopper.predicted_restore_vs_reprefill`` on this
     engine's KV geometry and parameter count with the H100's figures,
     ``"always"`` / ``"never"`` force it.
+
+    ``telemetry`` attaches a ``repro_torch.obs.Telemetry``, shared with
+    the prefix cache, the spill and swap tiers and the fault injector.
     """
 
     PREEMPT_POLICIES = ("off", "lru", "priority")
@@ -524,7 +530,8 @@ class DecodeEngine:
                  spill_blocks: int = 0, promote: str = "auto",
                  preempt: str = "off",
                  guard: NumericsGuard | None = NumericsGuard(),
-                 fault_injector=None, telemetry=None, device=None):
+                 fault_injector=None,
+                 telemetry: obs.Telemetry | None = None, device=None):
         if prefix_cache and cfg.family == "ssm":
             raise ValueError(
                 "prefix caching shares paged KV blocks; the 'ssm' family "
@@ -545,8 +552,6 @@ class DecodeEngine:
                 "preemption snapshots paged KV blocks; the 'ssm' family "
                 "carries recurrent state that cannot be swapped out "
                 "block-wise")
-        if telemetry is not None:
-            raise _later("telemetry", 9)
         self.device = _device.resolve(device)
         if self.device.type == "cuda":
             _device.set_numerics()
@@ -571,6 +576,29 @@ class DecodeEngine:
         self.swap = KVSwap()
         self.quarantined: list[Request] = []
         self._step_count = 0
+        # telemetry: every hook guards on ``self.obs.enabled``, so the
+        # default NULL recorder runs the step as it is; the components
+        # share the engine's handle (one step clock, one event stream)
+        self.obs = telemetry if telemetry is not None else obs.NULL
+        self.swap.obs = self.obs
+        if self.prefix_cache is not None:
+            self.prefix_cache.obs = self.obs
+        if fault_injector is not None:
+            fault_injector.obs = self.obs
+        if self.obs.enabled:
+            m = self.obs.metrics
+            self._h_ttft = m.histogram(
+                "ttft_steps", unit="steps",
+                help="engine steps from submit to first emitted token")
+            self._h_queue_wait = m.histogram(
+                "queue_wait_steps", unit="steps",
+                help="engine steps from submit to slot admission")
+            self._h_intertoken = m.histogram(
+                "intertoken_seconds", unit="s",
+                help="wall-clock decode/verify step latency "
+                     "(~ inter-token latency per resident request)",
+                buckets=(1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2,
+                         0.1, 0.3, 1.0, 3.0))
         self._prefill_chunk = api.prefill_chunk_fn(cfg)   # raises for a
         self._decode = api.decode_fn(cfg)                 # family not served
         self.caches = self.kv.init(max_slots, self.device)
@@ -585,6 +613,10 @@ class DecodeEngine:
             cfg.with_(kv_dtype="bf16"), max_context=max_context,
             block_size=block_size, max_slots=max_slots,
             num_blocks=num_blocks).token_bytes(max_slots)
+        self._costs = None
+        if self.obs.profile is not None:
+            from repro_torch.obs.profile import CostModel
+            self._costs = CostModel(cfg, self.params, self._token_bytes)
         # prefix counters stay zero with the cache off:
         # ``prefix_saved_bytes`` prices the hit tokens at the per-token
         # pool bytes (the KV the hits never re-stored), and
@@ -610,6 +642,7 @@ class DecodeEngine:
             self.prefix_cache.spill = PrefixSpill(
                 spill_blocks,
                 lambda blocks: paged.extract_blocks(self.caches, blocks))
+            self.prefix_cache.spill.obs = self.obs
             self.prefix_cache.promote_fn = self._promote_restore
             self.prefix_cache.promote_ratio = self._promote_gate(promote)
 
@@ -621,6 +654,10 @@ class DecodeEngine:
         req.submit_step = self._step_count
         req.last_progress_step = self._step_count
         self.scheduler.submit(req)
+        if self.obs.enabled:
+            self.obs.trace.begin("queued", rid=req.rid,
+                                 prompt_tokens=len(req.prompt),
+                                 max_new=req.max_new_tokens)
 
     def step(self) -> None:
         """One engine step: expire deadlines, inject the step's faults,
@@ -628,6 +665,8 @@ class DecodeEngine:
         run at most one prefill chunk, then one batched decode step for
         every decoding slot."""
         self._step_count += 1
+        if self.obs.enabled:
+            self.obs.set_step(self._step_count)
         self._expire_deadlines()
         if self.injector is not None:
             self._inject_step_faults()
@@ -649,9 +688,18 @@ class DecodeEngine:
         if nxt is not None:
             req, chunk, pos0 = nxt
             tok = torch.tensor([chunk], dtype=torch.int32, device=self.device)
-            logits = self._prefill_chunk(self.params, tok, self.caches,
-                                         req.slot, pos0)
+            n = len(chunk)
+            logits = self._run_phase(
+                "prefill_chunk",
+                lambda: self._prefill_chunk(self.params, tok, self.caches,
+                                            req.slot, pos0),
+                lambda: ((n, pos0),
+                         lambda: self._costs.prefill_chunk(n, pos0),
+                         tok.numel() * tok.element_size()))
             self._on_prefill_chunk(req, chunk, pos0)
+            if self.obs.enabled:
+                self.obs.trace.instant("prefill_chunk", rid=req.rid,
+                                       pos0=pos0, tokens=len(chunk))
             req.last_progress_step = self._step_count
             self.kv_stats["prefill_tokens"] += len(chunk)
             self._account_prefill(pos0 + len(chunk),
@@ -659,8 +707,135 @@ class DecodeEngine:
             if self.scheduler.prefill_advance(req, len(chunk)):
                 self._emit_first_token(req, logits)
         if self.scheduler.decoding:
-            self._decode_step()
+            if self.obs.enabled:
+                self._observed_decode_step()
+            else:
+                self._decode_step()
         self.kv_stats["alloc_faults"] = self.scheduler.allocator.faults
+
+    # ------------------------------------------------------- telemetry ----
+
+    def _run_phase(self, name: str, fn, counters, launch_key=()):
+        """``fn()`` as one call of the profiler's phase ``name``, or just
+        ``fn()`` without a profiler. ``counters()``, evaluated after ``fn``
+        ran, gives (shape signature, a thunk of the phase's ``CostModel``
+        cost, host-link bytes)."""
+        prof = self.obs.profile
+        if prof is None:
+            return fn()
+        with prof.phase(name, self.device, launch_key) as ph:
+            out = fn()
+            sig, cost, ph.host_bytes = counters()
+            ph.cost = prof.cost(name, sig, cost)
+        return out
+
+    def _copy_counters(self, nbytes: int):
+        return (nbytes,), lambda: self._costs.copy(nbytes), nbytes
+
+    _STEP_PHASE = "decode_step"
+
+    def _step_counters(self):
+        """The decode step's (signature, cost thunk, host bytes): every
+        slot's row runs; the live slots read their touched blocks."""
+        bs = self.layout.block_size
+        rows = self.max_slots
+        ctx = sum(paged.cdiv(r.num_cached + 1, bs) * bs
+                  for r in self.scheduler.decoding.values())
+        # tokens up, the packed [7, B] f32 stats down
+        return ((rows, ctx), lambda: self._costs.decode_step(rows, ctx),
+                rows * 4 + 7 * rows * 4)
+
+    def _observed_decode_step(self) -> None:
+        """The decode (or verify) step with telemetry attached: its wall
+        time into the inter-token histogram (``wall_clock``), and one call
+        of the profiler's step phase, keyed for launch counting by whether
+        slots were mid-prefill and the sampled slots' top_k groups."""
+        t0 = time.perf_counter() if self.obs.wall_clock else 0.0
+        counters, key = None, ()
+        if self.obs.profile is not None:
+            counters = self._step_counters()    # shapes before the step
+            key = (bool(self.scheduler.prefilling),
+                   tuple(sorted({r.top_k for r in
+                                 self.scheduler.decoding.values()
+                                 if r.temperature > 0.0})))
+        self._run_phase(self._STEP_PHASE, self._decode_step,
+                        lambda: counters, key)
+        if self.obs.wall_clock:
+            self._h_intertoken.observe(time.perf_counter() - t0)
+
+    # Units of the kv_stats counters in the typed registry and the
+    # Prometheus exposition.
+    _METRIC_UNITS = {
+        "paged_bytes": "bytes", "paged_bytes_bf16": "bytes",
+        "contiguous_bytes": "bytes", "decode_steps": "steps",
+        "prefill_chunks": "chunks", "prefill_tokens": "tokens",
+        "prefix_hit_tokens": "tokens", "prefix_prompt_tokens": "tokens",
+        "prefix_saved_bytes": "bytes", "prefix_cow_blocks": "blocks",
+        "prefix_evicted_blocks": "blocks",
+        "prefix_spilled_blocks": "blocks", "prefix_spilled_bytes": "bytes",
+        "prefix_promoted_blocks": "blocks",
+        "prefix_promoted_tokens": "tokens", "preempted": "requests",
+        "preempted_blocks": "blocks", "restored_blocks": "blocks",
+        "guard_trips": "trips", "cancelled": "requests",
+        "expired": "requests", "alloc_faults": "faults",
+        "stalled_requests": "requests", "spec_steps": "steps",
+        "spec_slot_steps": "walks", "spec_drafted": "tokens",
+        "spec_accepted": "tokens", "spec_emitted": "tokens",
+        "proposer_stalls": "stalls",
+    }
+
+    def metrics_registry(self) -> obs.MetricsRegistry:
+        """The engine's typed registry, assembled now: every ``kv_stats``
+        counter mirrored verbatim (the engine's own accounting stays the
+        one source), the swap tier's counters, derived-rate gauges and,
+        with telemetry attached, the live TTFT / queue-wait / inter-token
+        histograms."""
+        reg = obs.MetricsRegistry()
+        for key, val in self.kv_stats.items():
+            c = reg.counter(key, unit=self._METRIC_UNITS.get(key, ""),
+                            help=f"engine kv_stats[{key!r}]")
+            c.value = val
+        for key in ("swapped_out_blocks", "restored_blocks",
+                    "dropped_blocks", "host_bytes_total",
+                    "restored_bytes_total"):
+            c = reg.counter(
+                f"swap_{key}",
+                unit="bytes" if "bytes" in key else "blocks",
+                help=f"KVSwap stats[{key!r}]")
+            c.value = self.swap.stats[key]
+        reg.gauge("swap_host_bytes", unit="bytes",
+                  help="host bytes currently holding swapped snapshots"
+                  ).set(self.swap.stats["host_bytes"])
+        reg.gauge("prefix_hit_rate",
+                  help="fraction of admitted prompt tokens served from "
+                       "the prefix cache").set(self.prefix_hit_rate)
+        sp = (self.prefix_cache.spill
+              if self.prefix_cache is not None else None)
+        if sp is not None:
+            reg.gauge("prefix_host_blocks", unit="blocks",
+                      help="evicted prefix blocks currently resident in "
+                           "the host spill tier").set(len(sp))
+            reg.gauge("prefix_host_bytes", unit="bytes",
+                      help="host bytes currently holding spilled prefix "
+                           "blocks").set(sp.stats["host_bytes"])
+        if self.last_logit_stats is not None:
+            reg.gauge("round_off_deviation",
+                      help="max round_off logit deviation over the last "
+                           "decode step (paper's Kahan-vs-naive metric)"
+                      ).set(float(np.max(self.last_logit_stats["round_off"])))
+        if self.obs.enabled:
+            reg.merge(self.obs.metrics)
+        return reg
+
+    def metrics_snapshot(self) -> dict:
+        """Plain dict of every metric: every ``kv_stats`` key with the
+        same value, the derived gauges and (with telemetry) histogram
+        summaries."""
+        return self.metrics_registry().snapshot()
+
+    def metrics_prometheus(self) -> str:
+        """Prometheus text exposition of the same registry."""
+        return self.metrics_registry().to_prometheus()
 
     def _table_row(self, blocks: list[int]) -> torch.Tensor:
         row = torch.full((self.layout.max_blocks,), NULL_BLOCK,
@@ -702,6 +877,12 @@ class DecodeEngine:
                 self.kv_stats.update(
                     prefix_spilled_blocks=sp.stats["spilled_blocks"],
                     prefix_spilled_bytes=sp.stats["spilled_bytes_total"])
+        if self.obs.enabled:
+            tr = self.obs.trace
+            tr.end("queued", rid=req.rid)
+            tr.begin("prefill", rid=req.rid, slot=req.slot,
+                     blocks=len(req.blocks), prefix_hit=req.prefix_hit)
+            self._h_queue_wait.observe(self._step_count - req.submit_step)
         self._on_admit(req)
 
     # Subclass hooks (the speculative engine mirrors them into its
@@ -736,6 +917,10 @@ class DecodeEngine:
         if self.scheduler.num_unfinished:
             diags = self.request_diagnostics()
             self.kv_stats["stalled_requests"] = len(diags)
+            if self.obs.enabled:
+                for d in diags:
+                    self.obs.trace.instant("stall", rid=d["rid"], **{
+                        k: v for k, v in d.items() if k != "rid"})
             raise StallError(f"{len(diags)} requests unfinished after "
                              f"{max_steps} steps", diags)
 
@@ -797,6 +982,16 @@ class DecodeEngine:
                     > req.deadline_steps):
                 self._terminate(req, "expired")
 
+    # The lifecycle span open on a request's track, by queue state:
+    # terminal paths close it before their terminal instant.
+    _STATE_SPANS = {"queued": "queued", "prefilling": "prefill",
+                    "decoding": "decode", "preempted": "preempted"}
+
+    def _close_span(self, req: Request) -> None:
+        span = self._STATE_SPANS.get(req.state)
+        if span is not None:
+            self.obs.trace.end(span, rid=req.rid)
+
     def _terminate(self, req: Request, state: str) -> bool:
         sched = self.scheduler
         slot = req.slot
@@ -805,6 +1000,11 @@ class DecodeEngine:
                                        or sched.decoding.get(slot) is req)
         if active:
             self._on_drop(req)         # the mirror needs the slot still
+        if self.obs.enabled and (active or preempted
+                                 or req in sched.waiting):
+            self._close_span(req)
+            self.obs.trace.instant(state, rid=req.rid,
+                                   emitted=len(req.output))
         if not sched.drop(req, state):
             return False
         if preempted:
@@ -829,9 +1029,18 @@ class DecodeEngine:
                 f"request {rid} is not decoding; only decoding requests "
                 f"hold restorable KV state")
         slot = req.slot
-        self.swap.swap_out(rid, self.caches, req.blocks)
+        before = self.swap.stats["host_bytes_total"]
+        self._run_phase(
+            "swap_out",
+            lambda: self.swap.swap_out(rid, self.caches, req.blocks),
+            lambda: self._copy_counters(
+                self.swap.stats["host_bytes_total"] - before))
         self.kv_stats["preempted"] += 1
         self.kv_stats["preempted_blocks"] += len(req.blocks)
+        if self.obs.enabled:
+            self.obs.trace.end("decode", rid=req.rid)
+            self.obs.trace.begin("preempted", rid=req.rid,
+                                 blocks=len(req.blocks))
         self._on_preempt(req)
         self.scheduler.preempt(req)
         paged.reset_slot(self.caches, slot, self._null_row)
@@ -857,11 +1066,20 @@ class DecodeEngine:
         prompt + emitted - 1 (the last emitted token waits in
         ``_next_tokens``, the decode step's invariant)."""
         paged.reset_slot(self.caches, req.slot, self._table_row(req.blocks))
-        self.swap.swap_in(req.rid, self.caches, req.blocks)
+        before = self.swap.stats["restored_bytes_total"]
+        self._run_phase(
+            "swap_in",
+            lambda: self.swap.swap_in(req.rid, self.caches, req.blocks),
+            lambda: self._copy_counters(
+                self.swap.stats["restored_bytes_total"] - before))
         self.caches["len"][:, req.slot] = (req.prefill_pos
                                            + len(req.output) - 1)
         self._next_tokens[req.slot, 0] = int(req.output[-1])
         self.kv_stats["restored_blocks"] += len(req.blocks)
+        if self.obs.enabled:
+            self.obs.trace.end("preempted", rid=req.rid)
+            self.obs.trace.begin("decode", rid=req.rid,
+                                 restored_blocks=len(req.blocks))
         req.last_progress_step = self._step_count
         self.scheduler.start_decoding(req)
         self._on_restore(req)
@@ -887,8 +1105,11 @@ class DecodeEngine:
         the chain's host snapshots into the fresh blocks. It runs at match
         time, so promoted blocks are valid cache content whatever the
         admission that asked for them does next."""
-        paged.restore_blocks(self.caches, blocks,
-                             paged.concat_block_snapshots(snaps))
+        snap = paged.concat_block_snapshots(snaps)
+        self._run_phase(
+            "prefix_promote",
+            lambda: paged.restore_blocks(self.caches, blocks, snap),
+            lambda: self._copy_counters(paged.snapshot_bytes(snap)))
 
     # -------------------------------------------- faults & quarantine -----
 
@@ -973,14 +1194,26 @@ class DecodeEngine:
         """The final prefill chunk's logits yield the first token."""
         row = logits.reshape(1, -1)
         toks = self._choose(row, [(0, req)])
-        packed = _pack(toks, _logit_stats(row, toks)).cpu().numpy()
+        # the one stats pass the decode step does not fold in
+        packed = self._run_phase(
+            "ops.logit_stats",
+            lambda: _pack(toks, _logit_stats(row, toks)).cpu().numpy(),
+            lambda: ((row.shape[1],), lambda: self._costs.logit_stats(1),
+                     7 * 4))
         tok = int(packed[0, 0])
         stats = {k: packed[i + 1] for i, k in enumerate(_STAT_KEYS)}
         self.scheduler.start_decoding(req)
         tripped = self._guard_tripped(stats, [(0, req)])
+        if self.obs.enabled:
+            # the decode span opens either way; a quarantine closes it
+            # again (_close_span), keeping begin / end balanced
+            self.obs.trace.end("prefill", rid=req.rid)
+            self.obs.trace.begin("decode", rid=req.rid)
         if tripped:
             self._quarantine(req, tripped[0][1])
             return
+        if self.obs.enabled:
+            self._h_ttft.observe(self._step_count - req.submit_step)
         req.output.append(tok)
         req.logprobs.append(float(stats["logprob"][0]))
         self._next_tokens[req.slot, 0] = tok
@@ -988,6 +1221,9 @@ class DecodeEngine:
             self._retire(req)
 
     def _decode_step(self) -> None:
+        if self.obs.enabled:
+            self.obs.trace.instant("decode_step",
+                                   batch=len(self.scheduler.decoding))
         prefilling = [r.slot for r in self.scheduler.prefilling]
         old_len = self.caches["len"].clone() if prefilling else None
         tok_in = torch.from_numpy(self._next_tokens).to(self.device)
@@ -1043,6 +1279,11 @@ class DecodeEngine:
         everything and park the request on ``self.quarantined``."""
         self.kv_stats["guard_trips"] += 1
         req.error = reason
+        if self.obs.enabled:
+            self.obs.trace.instant("guard_trip", rid=req.rid, reason=reason)
+            self._close_span(req)
+            self.obs.trace.instant("quarantined", rid=req.rid,
+                                   emitted=len(req.output))
         self._on_drop(req)
         alloc = self.scheduler.allocator
         scrub = [b for b in req.blocks if alloc.refcount(b) == 1]
@@ -1060,6 +1301,10 @@ class DecodeEngine:
 
     def _retire(self, req: Request) -> None:
         slot = req.slot
+        if self.obs.enabled:
+            self.obs.trace.end("decode", rid=req.rid)
+            self.obs.trace.instant("retired", rid=req.rid,
+                                   emitted=len(req.output))
         self._on_retire(req)
         self.scheduler.retire(req)
         # point the slot back at the null block so later batched steps'
@@ -1235,6 +1480,9 @@ class SpecDecodeEngine(DecodeEngine):
         decoding = [self.scheduler.decoding[s]
                     for s in sorted(self.scheduler.decoding)]
         ks = [self._effective_k(r) for r in decoding]
+        if self.obs.enabled:
+            self.obs.trace.instant("verify_step", batch=len(decoding),
+                                   drafted=sum(ks))
         stalled = (self.injector is not None
                    and self.injector.fire("proposer_stall",
                                           self._step_count))
@@ -1344,3 +1592,32 @@ class SpecDecodeEngine(DecodeEngine):
         """Tokens emitted per per-slot verify walk."""
         walks = self.kv_stats["spec_slot_steps"]
         return self.kv_stats["spec_emitted"] / walks if walks else 0.0
+
+    _STEP_PHASE = "verify_step"
+
+    def _step_counters(self):
+        """The verify step's (signature, cost thunk, host bytes): every
+        slot's window of spec_k + 1 rows runs (padding rows included);
+        each live slot reads its blocks through its window's end. The
+        proposer's drafting lands in the same phase."""
+        bs = self.layout.block_size
+        window = self.spec_k + 1
+        slots = self.max_slots
+        ctx = sum(paged.cdiv(r.prefill_pos + len(r.output) - 1 + window,
+                             bs) * bs
+                  for r in self.scheduler.decoding.values())
+        # tokens, slots, pos0s and lengths up; packed [7, S * C] down
+        return ((slots, window, ctx),
+                lambda: self._costs.verify_step(slots, window, ctx),
+                slots * window * 4 + 3 * slots * 4 + 7 * slots * window * 4)
+
+    def metrics_registry(self) -> obs.MetricsRegistry:
+        reg = super().metrics_registry()
+        reg.gauge("acceptance_rate",
+                  help="fraction of drafted tokens the target accepted"
+                  ).set(self.acceptance_rate)
+        reg.gauge("mean_accepted_length", unit="tokens",
+                  help="tokens emitted per per-slot verify walk (the "
+                       "measured side of predicted_spec_speedup)"
+                  ).set(self.mean_accepted_length)
+        return reg

@@ -24,6 +24,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core import prng
 
 
@@ -136,6 +137,10 @@ class FaultInjector:
                 raise ValueError(f"unknown fault site {f.site!r}; "
                                  f"expected one of {self.SITES}")
         self.log: list[tuple[int, str, dict]] = []
+        # the owning engine's telemetry handle; a firing stamps its own
+        # step (the injector may be consulted before the engine advances
+        # the shared trace clock)
+        self.obs = obs.NULL
 
     def _key(self, site: str, step: int):
         key = prng.key(self.seed, device="cpu")
@@ -159,6 +164,9 @@ class FaultInjector:
                 continue
             f.fired += 1
             self.log.append((step, site, {}))
+            if self.obs.enabled:
+                self.obs.trace.instant("fault_injected", step=step,
+                                       site=site)
             return True
         return False
 
@@ -192,15 +200,20 @@ class FailoverServer:
         self.primary.submit(req)
 
     def _sweep(self) -> None:
+        tele = self.primary.obs
         for req in self._drain(self.primary):
             req.reset_for_retry()
             if self.degraded is None:
                 self.degraded = self._factory()
             self.retried.append(req)
+            if tele.enabled:
+                tele.trace.instant("failover_retry", rid=req.rid)
             self.degraded.submit(req)
         if self.degraded is not None:
             for req in self._drain(self.degraded):
                 req.state = "failed"
+                if tele.enabled:
+                    tele.trace.instant("failover_failed", rid=req.rid)
                 self.failed.append(req)
 
     @staticmethod
@@ -241,8 +254,8 @@ class FailoverServer:
 def degraded_engine(primary):
     """``FailoverServer``'s default degraded tier: a plain
     ``DecodeEngine`` (no speculation) over bf16 pools with the primary's
-    geometry, guard and device. Fault injection does not follow the
-    request there."""
+    geometry, guard, device and telemetry (one step clock, one event
+    stream). Fault injection does not follow the request there."""
     from repro_torch.serving.engine import DecodeEngine
 
     return DecodeEngine(
@@ -251,4 +264,5 @@ def degraded_engine(primary):
         max_context=primary.layout.max_context,
         block_size=primary.layout.block_size,
         prefill_chunk=primary.scheduler.prefill_chunk,
-        guard=primary.guard, device=primary.device)
+        guard=primary.guard, device=primary.device,
+        telemetry=primary.obs if primary.obs.enabled else None)

@@ -62,6 +62,7 @@ from __future__ import annotations
 import heapq
 from dataclasses import dataclass, field
 
+from repro_torch import obs
 from repro_torch.serving.faults import AllocatorError
 
 
@@ -126,6 +127,7 @@ class PrefixCache:
                       "prompt_tokens": 0, "cow_blocks": 0,
                       "evicted_blocks": 0, "nodes": 0,
                       "promoted_blocks": 0, "promoted_tokens": 0}
+        self.obs = obs.NULL          # the owning engine's telemetry
         # the session spill tier (armed by the engine; None / 0 keeps it
         # off): the host store, the device restore callback (blocks,
         # snapshots) -> None, and the restore-vs-reprefill ratio
@@ -251,6 +253,9 @@ class PrefixCache:
             if (parent is not self.root and not parent.children
                     and self.allocator.refcount(parent.block) == 1):
                 heapq.heappush(heap, entry(parent))
+        if freed and self.obs.enabled:
+            self.obs.trace.instant("prefix_evict", freed=freed,
+                                   requested=n)
         return freed
 
     # ------------------------------------------------------------ promote --
@@ -276,7 +281,7 @@ class PrefixCache:
             node, m = child, m + bs
         return node, m
 
-    def promote(self, prompt: list) -> int:
+    def promote(self, prompt: list, rid: int | None = None) -> int:
         """Page the longest host-spilled continuation of ``prompt`` back
         into fresh pool blocks and trie nodes; returns blocks promoted.
 
@@ -314,11 +319,16 @@ class PrefixCache:
             self.stats["nodes"] += 1
         self.stats["promoted_blocks"] += len(chain)
         self.stats["promoted_tokens"] += len(chain) * bs
+        if self.obs.enabled:
+            self.obs.trace.instant("prefix_promote", rid=rid,
+                                   blocks=len(chain),
+                                   tokens=len(chain) * bs)
         return len(chain)
 
     # ------------------------------------------------------------ stats ----
 
-    def note_admitted(self, hit: int, prompt_len: int, cow: bool) -> None:
+    def note_admitted(self, hit: int, prompt_len: int, cow: bool,
+                      rid: int | None = None) -> None:
         """Admission-time accounting (``match`` has no stats side effect,
         so re-matching a blocked head does not inflate the hit rate)."""
         self.stats["requests"] += 1
@@ -326,6 +336,11 @@ class PrefixCache:
         if hit:
             self.stats["hits"] += 1
             self.stats["hit_tokens"] += hit
+            if self.obs.enabled:
+                self.obs.trace.instant("prefix_hit", rid=rid,
+                                       hit_tokens=hit,
+                                       prompt_tokens=prompt_len,
+                                       cow=int(cow))
         if cow:
             self.stats["cow_blocks"] += 1
 

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 from collections import OrderedDict
 
+from repro_torch import obs
 from repro_torch.models import paged
 from repro_torch.serving.faults import SwapMissError
 
@@ -58,6 +59,7 @@ class KVSwap:
         self.stats = {"swapped_out_blocks": 0, "restored_blocks": 0,
                       "dropped_blocks": 0, "host_bytes": 0,
                       "host_bytes_total": 0, "restored_bytes_total": 0}
+        self.obs = obs.NULL          # the owning engine's telemetry
 
     def __len__(self) -> int:
         return len(self._store)
@@ -75,6 +77,8 @@ class KVSwap:
         self.stats["swapped_out_blocks"] += len(blocks)
         self.stats["host_bytes"] += nbytes
         self.stats["host_bytes_total"] += nbytes
+        if self.obs.enabled:
+            self.obs.trace.instant("swap_out", rid=rid, blocks=len(blocks))
 
     def swap_in(self, rid: int, caches: dict, blocks: list[int]) -> None:
         """Restore ``rid``'s snapshot into ``blocks`` (same count, any
@@ -94,6 +98,8 @@ class KVSwap:
         self.stats["restored_blocks"] += n
         self.stats["host_bytes"] -= nbytes
         self.stats["restored_bytes_total"] += nbytes
+        if self.obs.enabled:
+            self.obs.trace.instant("swap_in", rid=rid, blocks=n)
         paged.restore_blocks(caches, blocks, snap)
 
     def drop(self, rid: int) -> None:
@@ -103,8 +109,11 @@ class KVSwap:
             raise SwapMissError(
                 f"drop: no host snapshot held for request {rid}")
         snap = self._store.pop(rid)
-        self.stats["dropped_blocks"] += self._nblocks.pop(rid)
+        n = self._nblocks.pop(rid)
+        self.stats["dropped_blocks"] += n
         self.stats["host_bytes"] -= paged.snapshot_bytes(snap)
+        if self.obs.enabled:
+            self.obs.trace.instant("swap_drop", rid=rid, blocks=n)
 
 
 class PrefixSpill:
@@ -143,6 +152,7 @@ class PrefixSpill:
         self.stats = {"spilled_blocks": 0, "promoted_blocks": 0,
                       "dropped_blocks": 0, "host_bytes": 0,
                       "spilled_bytes_total": 0, "promoted_bytes_total": 0}
+        self.obs = obs.NULL          # the owning engine's telemetry
 
     def __len__(self) -> int:
         return len(self._store)
@@ -164,6 +174,9 @@ class PrefixSpill:
         self.stats["spilled_blocks"] += 1
         self.stats["host_bytes"] += nbytes
         self.stats["spilled_bytes_total"] += nbytes
+        if self.obs.enabled:
+            self.obs.trace.instant("prefix_spill", tokens=len(key),
+                                   resident_blocks=len(self._store))
         while len(self._store) > self.capacity:
             old, _ = self._store.popitem(last=False)
             self.stats["host_bytes"] -= self._nbytes.pop(old)

@@ -18,6 +18,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_intra_op_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -682,8 +684,9 @@ def test_swap_miss_raises_symmetrically(setup):
 def test_restore_vs_reprefill_matches_reference():
     """The H100 forecast is the reference's function evaluated on the
     port's figures (the reference names the compute rate
-    ``peak_bf16_flops``; the port's rate is f32 on the CUDA cores, see
-    ``ecm.machines``), and it validates its inputs the same way."""
+    ``peak_bf16_flops``; the port's is ``peak_flops``, the bf16 tensor
+    cores, see ``ecm.machines``), and it validates its inputs the same
+    way."""
     from repro.ecm.tpu import predicted_restore_vs_reprefill as ref_fn
     from repro_torch.ecm.hopper import predicted_restore_vs_reprefill
     from repro_torch.ecm.machines import H100_SXM
@@ -692,10 +695,13 @@ def test_restore_vs_reprefill_matches_reference():
                             (16, 1e4, 2e5), (1, 1e6, 1e3)):
         assert predicted_restore_vs_reprefill(tokens, tb, fpt) == \
             ref_fn(tokens, tb, fpt, hw=as_ref)
-    # full-width qwen1.5 (98 304 bf16 bytes per token) restores faster
-    # than it re-prefills; a reduced test model does not
-    assert predicted_restore_vs_reprefill(16, 98304, 2 * 619e6) > 1.0
+    # at bf16 tensor-core re-prefill, full-width qwen1.5 (98 304 bf16
+    # bytes per token) re-prefills faster than it restores, and so does a
+    # reduced test model; a model past ~978 M parameters at those bytes
+    # per token restores faster
+    assert predicted_restore_vs_reprefill(16, 98304, 2 * 619e6) < 1.0
     assert predicted_restore_vs_reprefill(16, 1e4, 2e5) < 1.0
+    assert predicted_restore_vs_reprefill(16, 98304, 2 * 1.2e9) > 1.0
     for bad in (dict(tokens=0, token_bytes=512, flops_per_token=1e9),
                 dict(tokens=64, token_bytes=-1, flops_per_token=1e9),
                 dict(tokens=64, token_bytes=512, flops_per_token=0)):

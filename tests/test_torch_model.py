@@ -26,6 +26,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_intra_op_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -239,3 +241,47 @@ def test_greedy_rollout_equals_reference_default_path(kv_dtype):
     dev = max(float(np.abs(a - b).max()) for a, b in zip(ref, got))
     assert got_toks == ref_toks
     assert dev <= ROLLOUT_LOGIT_DEV[kv_dtype], dev
+
+
+@pytest.mark.parametrize("which", ["dense", "expert_matmul"])
+def test_bf16_held_weights_bitwise_f32_held(which):
+    """The load paths hold the weights that only feed bf16 products as
+    bf16 (``common.BF16_WEIGHTS``); ``dense`` and the MoE expert products
+    on them are bitwise the same products on the f32 weights (rounding to
+    bf16 is idempotent). The tree's shape and the f32 leaves stay."""
+    from repro_torch.models import common as tcommon
+    from repro_torch.models import moe as tmoe
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(3, 5, 64, generator=g)
+    if which == "dense":
+        w = torch.randn(64, 48, generator=g)
+        b = torch.randn(48, generator=g)
+        got = tcommon.dense(x, w.to(torch.bfloat16), b)
+        want = tcommon.dense(x, w, b)
+    else:
+        w = torch.randn(4, 64, 48, generator=g)
+        got = tmoe._expert_matmul(x[:, :4].transpose(0, 1).contiguous(),
+                                  w.to(torch.bfloat16))
+        want = tmoe._expert_matmul(x[:, :4].transpose(0, 1).contiguous(), w)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    # both load paths hold exactly the listed weights as bf16
+    cfg = t_reduced(t_get_config("qwen1.5-0.5b")).with_(num_layers=2)
+    held = tapi.init_params(cfg, device="cpu", seed=0)
+    f32 = tapi.init_params(cfg, device="cpu", seed=0, hold_bf16=False)
+    ref = common.init_params(api.schema(reduced(get_config("qwen1.5-0.5b"))
+                                        .with_(num_layers=2)),
+                             jax.random.key(0))
+    bridged = bridge.params_from_reference(jax.tree.map(np.asarray, ref),
+                                           device="cpu")
+    for tree in (held, bridged):
+        for i, layer in enumerate(tree["layers"]):
+            for grp, leaves in layer.items():
+                for name, t in (leaves.items() if isinstance(leaves, dict)
+                                else [(grp, leaves)]):
+                    bf = name in tcommon.BF16_WEIGHTS
+                    assert t.dtype == (torch.bfloat16 if bf
+                                       else torch.float32), name
+                    if tree is held:
+                        assert torch.equal(
+                            t, f32["layers"][i][grp][name].to(t.dtype))
+        assert tree["lm_head"].dtype == tree["embed"].dtype == torch.float32

@@ -34,6 +34,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_intra_op_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -50,6 +52,7 @@ from repro.serving.engine import Request as RefRequest  # noqa: E402
 from repro.serving.prefix_cache import PrefixCache as RefCache  # noqa: E402
 from repro.serving.swap import PrefixSpill as RefSpill  # noqa: E402
 from repro_torch import bridge  # noqa: E402
+from repro_torch.obs import Telemetry  # noqa: E402
 from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.configs import reduced as t_reduced  # noqa: E402
 from repro_torch.models import api, paged  # noqa: E402
@@ -420,8 +423,13 @@ def test_knobs_validate_like_the_reference(setup):
         _engine(cfg, params, prefix_cache=True, promote="sometimes")
     with pytest.raises(ValueError):
         _engine(cfg, params, preempt="random")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _engine(cfg, params, telemetry=object())
+    # telemetry is served now, and shared with the prefix cache and its
+    # spill tier
+    tele = Telemetry()
+    eng = _engine(cfg, params, prefix_cache=True, spill_blocks=2,
+                  telemetry=tele)
+    assert eng.obs is tele and eng.prefix_cache.obs is tele
+    assert eng.prefix_cache.spill.obs is tele and eng.swap.obs is tele
     for mode in ("auto", "always", "never"):
         eng = _engine(cfg, params, prefix_cache=True, spill_blocks=2,
                       promote=mode, preempt="priority")
@@ -802,8 +810,9 @@ def test_session_promote_gate_never_degrades(setup):
 
 def test_promote_gate_auto_prices_the_h100(setup):
     """'auto' evaluates the H100 forecast on the engine's geometry: the
-    reduced test model is far below the crossover, full-width qwen1.5
-    well above it."""
+    reduced test model is far below the crossover, and so is full-width
+    qwen1.5 now that re-prefill is priced at the bf16 tensor cores'
+    989 TFLOP/s (0.6335: re-prefill wins, nothing is promoted)."""
     from repro_torch.ecm.hopper import predicted_restore_vs_reprefill
     from repro_torch.ecm.machines import H100_SXM
     cfg, params = setup
@@ -818,7 +827,7 @@ def test_promote_gate_auto_prices_the_h100(setup):
     assert kv.token_bytes(8) == 98304
     n = sum(int(np.prod(s)) for s in _shapes(api.schema(full)))
     ratio = predicted_restore_vs_reprefill(16, kv.token_bytes(8), 2 * n)
-    assert ratio > 1.0
+    assert ratio < 1.0 and ratio == pytest.approx(0.6335, abs=1e-4)
     assert ratio == pytest.approx(
         2 * n / H100_SXM["peak_flops"]
         / (98304 / H100_SXM["host_link_bw"]))

@@ -16,6 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_intra_op_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -27,6 +29,7 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.configs import reduced as t_reduced  # noqa: E402
 from repro_torch.models import api as tapi  # noqa: E402
+from repro_torch.obs import Telemetry  # noqa: E402
 from repro_torch.serving.engine import (DecodeEngine, Request,  # noqa: E402
                                         _logit_stats)
 from repro_torch.serving.faults import (AdmissionError,  # noqa: E402
@@ -266,9 +269,9 @@ def test_traffic_accounting_and_stall(port):
 
 def test_later_slices_raise(port):
     cfg, params = port
-    # telemetry is the one knob still refused
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _engine(cfg, params, telemetry=object())
+    # telemetry, the last knob refused, is served now
+    tele = Telemetry()
+    assert _engine(cfg, params, telemetry=tele).obs is tele
     # prefix caching, the spill tier, preemption and priorities are
     # served now; the spill tier needs the prefix cache, as in the
     # reference
