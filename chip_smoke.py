@@ -117,10 +117,11 @@ Phases (each prints its own lines; any failure exits non-zero):
              the serve phases'; snapshot and pinned host-link copy rates;
 16. spill  — prefix cache + session KV + ``spill_blocks`` under pool
              pressure, run with ``promote="auto"`` (the H100 gate, ratio
-             printed; below 1 for qwen1.5-0.5b with bf16 tensor-core
-             re-prefill, so nothing may be promoted) and with
-             ``promote="always"`` (blocks promoted, each bitwise its
-             snapshot); nothing held at the end. Counters on every run of
+             printed; it prices the host's dispatch of a prefill chunk's
+             launches, which puts qwen1.5-0.5b's ratio far above 1, so
+             blocks must be promoted) and with ``promote="always"``
+             (blocks promoted); each promoted block bitwise its
+             snapshot; nothing held at the end. Counters on every run of
              13-17;
 17. obs    — the bf16 serve phase's 16 requests under
              ``Telemetry(wall_clock=True, profile=True)``, twice, and
@@ -129,9 +130,26 @@ Phases (each prints its own lines; any failure exits non-zero):
              ``metrics_snapshot`` holding every ``kv_stats`` counter, the
              launch counters the serve phase's; prints the profiler's
              B2f calibration, the per-phase ECM attribution, the residual
-             rows and the median step with telemetry on and off; the
-             deepseek-v2 and qwen1.5 decode numbers of the bf16 weight
-             repair (``[c1]``) after the deepseek-v2 phases.
+             rows (the restore gate's forecast within 10x of the
+             measured ratio) and the median step with telemetry on and
+             off; the deepseek-v2 and qwen1.5 decode numbers of the bf16
+             weight repair (``[c1]``) after the deepseek-v2 phases;
+18. train  — the training path: full-width qwen1.5-0.5b (24 layers, f32
+             parameters, remat) through ``Trainer`` (seq 256, global
+             batch 8 in 4 microbatches, Kahan accumulation and AdamW
+             carry on B7, fused gradient statistics on B2f), 6 steps with
+             the counters zeroed just before and read just after (B7 and
+             B2f once per leaf and call), finite losses, gradient norms
+             and max|g|; step ms, tokens/s, share of the bf16 peak, a
+             profiled window (device busy and idle share, kernels, B7 and
+             B2f ms per step) and peak memory; one step with every B7
+             call bitwise ``neumaier_step`` and every B2f call within the
+             compensated bound of its twin; the restart contract (4 steps
+             against 2 + checkpoint + restore + 2, bitwise; 2 layers);
+             the bf16 product's backward at the step's products against
+             its plain version; card against CPU at ``small_config``:
+             gradients per leaf, remat bitwise, AdamW updates and moments
+             on the same gradients, losses of 3 steps with no warmup.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``. Imports nothing of ``jax`` or of the
@@ -141,6 +159,7 @@ reference package ``repro``.
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import math
 import re
@@ -3367,16 +3386,19 @@ def phase_spill(dev, kind: str, cfg, params, h2d: float) -> dict:
     whose admission may promote them back. Run twice:
 
     - ``promote="auto"``: the H100 gate (its ratio printed, and the ratio
-      the measured host link gives). With bf16 tensor-core re-prefill,
-      qwen1.5-0.5b's ratio is below 1, so nothing may be promoted;
-    - ``promote="always"``: blocks must be promoted, each bitwise its
-      spilled snapshot.
+      the measured host link gives). It prices the host's dispatch of
+      the kernels a prefill chunk launches (``obs.profile
+      .prefill_launches``), which makes qwen1.5-0.5b's re-prefill far
+      slower than a restore: its ratio is above 1, so blocks must be
+      promoted, each bitwise its spilled snapshot;
+    - ``promote="always"``: the same, forced.
 
     Every request finishes; at the end only the trie holds blocks and no
     preemption snapshot is left. Counters on every run."""
     from repro_torch.ecm.hopper import predicted_restore_vs_reprefill
     from repro_torch.ecm.machines import H100_SXM
     from repro_torch.models import api
+    from repro_torch.obs.profile import prefill_launches
     n_params = api.num_params(params)
     runs = []
     for mode in ("auto", "always"):
@@ -3398,15 +3420,25 @@ def phase_spill(dev, kind: str, cfg, params, h2d: float) -> dict:
         held = engine.scheduler.allocator.num_held
         gate = ""
         if mode == "auto":
+            chunk = engine.scheduler.prefill_chunk
+            launches = prefill_launches(cfg, engine.layout, chunk, dev)
             measured = predicted_restore_vs_reprefill(
                 16, engine._token_bytes, 2 * n_params,
-                hw=dict(H100_SXM, host_link_bw=h2d))
+                hw=dict(H100_SXM, host_link_bw=h2d),
+                launches_per_chunk=launches, chunk_tokens=chunk)
+            rates_only = predicted_restore_vs_reprefill(
+                16, engine._token_bytes, 2 * n_params)
+            if not ratio > 1.0:
+                fail(f"spill auto: gate ratio {ratio:.4f} does not promote")
             gate = (f"gate ratio (re-prefill / restore, H100_SXM "
                     f"host_link_bw {H100_SXM['host_link_bw'] / 1e9:.3f} "
                     f"GB/s, bf16 tensor-core "
                     f"{H100_SXM['peak_flops'] / 1e12:.0f} TFLOP/s, "
+                    f"{launches} launches per {chunk}-token prefill chunk "
+                    f"at {H100_SXM['dispatch_s'] * 1e6:.1f} us, "
                     f"{engine._token_bytes} B per token, {n_params} "
-                    f"parameters) {ratio:.4f}; with this run's host link "
+                    f"parameters) {ratio:.4f} (on the card's rates alone "
+                    f"{rates_only:.4f}); with this run's host link "
                     f"{h2d / 1e9:.3f} GB/s {measured:.4f}; ")
         log(f"[spill] qwen1.5-0.5b bf16 on {kind}, 224 usable blocks, "
             f"spill_blocks 256, promote {mode}: {gate}"
@@ -3573,11 +3605,20 @@ def phase_obs(dev, kind: str, cfg, params, serve: dict, flat: dict,
     tokens = runs["B"]["engine"].kv_stats["prefill_tokens"]
     reprefill_s = pre.wall_s / tokens
     restore_s = engine._token_bytes / h2d
+    gate = engine._promote_gate("auto")
     res.record("restore_vs_reprefill/qwen1.5-0.5b",
-               engine._promote_gate("auto"), reprefill_s / restore_s,
+               gate, reprefill_s / restore_s,
                basis="wallclock", reprefill_us_per_token=round(
                    1e6 * reprefill_s, 3),
                restore_us_per_token=round(1e6 * restore_s, 3))
+    miss = max(gate, reprefill_s / restore_s) / min(gate,
+                                                    reprefill_s / restore_s)
+    log(f"[obs] restore gate: forecast {gate:.4f}, measured "
+        f"{reprefill_s / restore_s:.4f} (re-prefill "
+        f"{1e6 * reprefill_s:.3f} us per token, restore "
+        f"{1e6 * restore_s:.3f} us per token): off by {miss:.3f}x (limit 10)")
+    if not miss <= 10.0:
+        fail(f"obs: the restore gate's forecast misses by {miss:.1f}x")
     dec = ps["decode_step"]
     steps = engine.kv_stats["decode_steps"]
     bound_ms = 1e3 * max(dec.hbm_bytes / prof.hw["hbm_bw"],
@@ -3608,6 +3649,428 @@ def phase_obs(dev, kind: str, cfg, params, serve: dict, flat: dict,
     merged["calibration_launches"] = cal_launches
     torch.cuda.empty_cache()
     return merged
+
+
+# ------------------------------------------------------------- training ---
+
+TRAIN_KW = dict(seq_len=256, global_batch=8, n_microbatches=4,
+                opt_kahan=True, fused_grad_stats=True)
+TRAIN_STEPS = 6
+TRAIN_PROFILE_STEPS = 2
+# card against CPU at small_config from the same f32 parameters
+# (``train_cpu_parity``): the largest relative difference, per leaf by
+# norm, each quantity may show; measured on an H100 80GB HBM3 at 700 W:
+# losses 4.21e-4 (bf16 products whose f32 sums run in another order flip
+# bf16 roundings now and then, and the steps carry the flips on),
+# gradients 1.21e-2 (a transposed dW reads 1.41, dX x 1.01 0.080), the
+# updates from the same gradients 1.7e-8, the moments bitwise
+TRAIN_CPU_RTOL = {"loss": 2e-3, "grad": 3e-2, "update": 1e-7, "m": 0.0,
+                  "v": 0.0}
+# ``_Bf16Product``'s backward against the plain widened f32 product at
+# the training step's products: measured 3.35e-4 at worst (lm_head's dX,
+# K = 151936), a dW x 1.01 reads 9.9e-3
+DENSE_BWD_RTOL = 1e-3
+
+
+class _TrainProbe:
+    """Holds every call of ``ops.kahan_accumulate`` (B7) and
+    ``ops.fused_reduce`` (B2f) of one training step against its plain
+    twin on the same tensors, on the card: B7's result bitwise
+    ``core.kahan.neumaier_step`` on copies of its inputs; B2f's max|g|
+    equal to the twin's and its sum of squares within the compensated
+    bound of the B2f parity phase (4 ulp of the value plus 16 eps^2
+    sum g^2). The twins launch none of the port's kernels."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops = ops
+        self.acc, self.red = ops.kahan_accumulate, ops.fused_reduce
+        self.n_acc = self.n_red = 0
+        self.worst = 0.0
+
+    def kahan_accumulate(self, s, c, u):
+        from repro_torch.core import kahan
+        want_s, want_c = kahan.neumaier_step(s.clone(), c.clone(),
+                                             u.to(s.dtype))
+        out = self.acc(s, c, u)
+        if not (torch_equal(out[0], want_s) and torch_equal(out[1], want_c)):
+            fail(f"train: B7 call {self.n_acc} ({tuple(s.shape)}) is not "
+                 f"bitwise neumaier_step")
+        self.n_acc += 1
+        return out
+
+    def fused_reduce(self, x, y=None, **kw):
+        from repro_torch.kernels import engine
+        got = self.red(x, y, **kw)
+        sumsq, maxabs = engine.fused_reduce_rows_plain(
+            (x.reshape(1, -1),), outputs=("sumsq", "maxabs"))
+        # sum |g^2| is the sum of squares itself
+        want, have = float(sumsq[0]), float(got["sumsq"])
+        tol = 4 * 2.0 ** -24 * want + 16 * 2.0 ** -48 * want
+        if abs(have - want) > tol or float(got["maxabs"]) != \
+                float(maxabs[0]):
+            fail(f"train: B2f call {self.n_red} ({tuple(x.shape)}): sumsq "
+                 f"{have} vs twin {want} (tol {tol}), maxabs "
+                 f"{float(got['maxabs'])} vs {float(maxabs[0])}")
+        self.worst = max(self.worst, abs(have - want) / max(tol, 1e-300))
+        self.n_red += 1
+        return got
+
+    def __enter__(self):
+        self.ops.kahan_accumulate = self.kahan_accumulate
+        self.ops.fused_reduce = self.fused_reduce
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.kahan_accumulate, self.ops.fused_reduce = self.acc, self.red
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _state_leaves(trainer) -> list:
+    from repro_torch.core import kahan
+    return kahan.tree_leaves({"params": trainer.params,
+                              "opt": trainer.opt_state})
+
+
+def _rel(a, b) -> float:
+    """||a - b|| / ||b|| in f64 on the host (0 when both are 0)."""
+    import torch
+    a = a.detach().to("cpu", torch.float64)
+    b = b.detach().to("cpu", torch.float64)
+    d, n = float(torch.linalg.norm(a - b)), float(torch.linalg.norm(b))
+    return d / n if n else d
+
+
+def _named_leaves(tree, prefix: str = "") -> list:
+    """(path, leaf) of a tree of dicts and lists, keys sorted."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in
+                _named_leaves(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in
+                _named_leaves(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def _worst(got: list, want: list) -> tuple[float, str]:
+    """The largest per-leaf ``_rel`` of two named leaf lists, and where."""
+    return max((_rel(g, w), n) for (n, g), (_, w) in zip(got, want))
+
+
+def dense_backward_parity(dev, cfg) -> dict:
+    """The card's bf16 product backward (``common._Bf16Product``: dX =
+    dY W^T and dW = X^T dY, bf16 tensor-core GEMMs with f32 results,
+    each rounded to bf16) at the products the training step of ``cfg``
+    runs, one microbatch of ``TRAIN_KW`` tokens each, against the plain
+    version on the same inputs: the bf16 operands widened to f32, one
+    f32 GEMM (TF32 off), rounded to bf16. Both sum exact products in f32,
+    so they part only where the order of the sum moves a bf16 rounding.
+    Returns dX's and dW's relative difference per product (by norm)."""
+    import torch
+    from repro_torch.models import common
+    m = (TRAIN_KW["seq_len"] * TRAIN_KW["global_batch"]
+         // TRAIN_KW["n_microbatches"])
+    d, hd = cfg.d_model, cfg.head_dim
+    shapes = {"wq, wo": (d, cfg.num_heads * hd),
+              "wk, wv": (d, cfg.num_kv_heads * hd),
+              "w_gate_up": (d, 2 * cfg.d_ff), "w_down": (cfg.d_ff, d),
+              "lm_head": (d, cfg.vocab_size)}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bf16 = torch.bfloat16
+    out = {}
+    for name, (k, n) in shapes.items():
+        x = torch.randn(m, k, generator=gen, device=dev).to(bf16)
+        w = (torch.randn(k, n, generator=gen, device=dev)
+             / math.sqrt(k)).to(bf16)
+        dy = torch.randn(m, n, generator=gen, device=dev)
+        x.requires_grad_(True)
+        w.requires_grad_(True)
+        common._Bf16Product.apply(x, w).backward(dy)
+        dyw = dy.to(bf16).float()
+        dx = (dyw @ w.detach().float().t()).to(bf16)
+        dw = (x.detach().float().t() @ dyw).to(bf16)
+        if x.grad.dtype != bf16 or w.grad.dtype != bf16:
+            fail(f"train: _Bf16Product gradients {x.grad.dtype}, "
+                 f"{w.grad.dtype}, not bf16")
+        out[f"{name} [{m}, {k}] x [{k}, {n}]"] = (_rel(x.grad, dx),
+                                                  _rel(w.grad, dw))
+        del x, w, dy, dyw, dx, dw
+    worst = max(max(v) for v in out.values())
+    log(f"[train] _Bf16Product backward against the plain widened f32 "
+        f"product, relative difference (dX, dW) per product: "
+        f"{ {k: (round(a, 8), round(b, 8)) for k, (a, b) in out.items()} }; "
+        f"worst {worst:.3g} (limit {DENSE_BWD_RTOL})")
+    if not worst <= DENSE_BWD_RTOL:
+        fail(f"train: the bf16 product's backward parts from its plain "
+             f"version by {worst:.3g}")
+    return out
+
+
+def train_cpu_parity(dev) -> dict:
+    """The training path on the card against the CPU port at
+    ``small_config("qwen1.5-0.5b")``, from the same f32 parameters and
+    the Trainer's step-0 batch:
+
+    - ``grad``: the step's gradients (``TRAIN_KW``'s microbatches, Kahan
+      accumulation on B7), per leaf by relative norm: the card's
+      ``_Bf16Product`` backward against autograd through the widened
+      CPU product. With remat on, the card's must keep their bits;
+    - ``update``, ``m``, ``v``: 3 AdamW updates (Kahan carry, lr 3e-4)
+      of those parameters on the CPU's gradients on both sides: params
+      + carry less the start, and the moments, per leaf;
+    - ``loss``: 3 ``Trainer`` steps with no warmup, so that steps 1 and
+      2 see updates at the full lr.
+
+    Fails past ``TRAIN_CPU_RTOL``; returns each quantity's largest
+    relative difference and its leaf."""
+    from repro_torch.core import kahan
+    from repro_torch.models import api
+    from repro_torch.optim import accumulate, adamw
+    from repro_torch.train.loop import Trainer
+    small = small_config("qwen1.5-0.5b")
+    start = api.init_params(small, device="cpu", seed=SEED, hold_bf16=False)
+    copy = lambda d: kahan.tree_map(lambda x: x.to(d, copy=True), start)
+    got, cpu_grads = {}, None
+    for d in ("cpu", dev):
+        t = Trainer(small, device=d, seed=SEED, warmup=0, **TRAIN_KW)
+        micro = accumulate.split_microbatches(
+            t._device_batch(t.pipeline.batch_for_step(0)),
+            TRAIN_KW["n_microbatches"])
+        grads = {}
+        for remat in ((False, True) if d != "cpu" else (False,)):
+            grads[remat] = accumulate.accumulate_gradients(
+                api.loss_fn(small.with_(remat=remat)), copy(d), micro,
+                kahan=True)[1]
+        if True in grads and not all(
+                torch_equal(a, b) for a, b in zip(
+                    kahan.tree_leaves(grads[False]),
+                    kahan.tree_leaves(grads[True]))):
+            fail("train: remat changes the gradients' bits on the card")
+        cpu_grads = cpu_grads or grads[False]
+        g = kahan.tree_map(lambda x: x.to(d, copy=True), cpu_grads)
+        params = copy(d)
+        state = adamw.init(params, t.opt_cfg)
+        for _ in range(3):
+            params, state = adamw.update(g, state, params, t.opt_cfg)
+        update = kahan.tree_map(
+            lambda p, c, p0: p.double() + c.double() - p0.to(d).double(),
+            params, state.carry, start)
+        t.params = copy(d)
+        t.opt_state = adamw.init(t.params, t.opt_cfg)
+        got[str(d)] = dict(
+            loss=[h["loss"] for h in t.run(3, log_every=0)["history"]],
+            grad=_named_leaves(grads[False]), update=_named_leaves(update),
+            m=_named_leaves(state.m), v=_named_leaves(state.v))
+    c, g = got["cpu"], got[str(dev)]
+    rel = {"loss": (max(abs(x / y - 1) for x, y in zip(g["loss"],
+                                                       c["loss"])), "")}
+    for k in ("grad", "update", "m", "v"):
+        rel[k] = _worst(g[k], c[k])
+    log(f"[train] small_config qwen1.5 (2 L, d 64, vocab 512, 2 KV heads), "
+        f"card vs CPU from the same parameters: losses of 3 steps with no "
+        f"warmup card {g['loss']} vs CPU {c['loss']}; largest relative "
+        f"difference (per leaf by norm) and its leaf {rel}, limits "
+        f"{TRAIN_CPU_RTOL}; card gradients with remat bitwise")
+    bad = {k: v for k, v in rel.items() if not v[0] <= TRAIN_CPU_RTOL[k]}
+    if bad:
+        fail(f"train: card and CPU disagree at small_config: {bad}")
+    return {k: v[0] for k, v in rel.items()}
+
+
+def train_profile(trainer, n_leaves: int) -> dict:
+    """``TRAIN_PROFILE_STEPS`` training steps under ``torch.profiler``: a
+    window counts only when it holds exactly the B7 and B2f launches
+    those steps make (the profiler now and then loses device events,
+    ``kernel_ms``); ``PROFILE_TRIES`` windows at most, then the phase
+    fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    n = TRAIN_PROFILE_STEPS
+    want = {"kahan_acc_kernel": n * n_leaves * (TRAIN_KW["n_microbatches"]
+                                                + 1),
+            "fused_reduce_kernel": n * n_leaves}
+    for attempt in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.run(n, log_every=0)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0) / n
+        kern = _device_kernels(prof)
+        counts = {k: sum(ev.count for ev in kern if k in ev.key)
+                  for k in want}
+        if counts == want:
+            break
+        log(f"[train] profile window, try {attempt + 1}: the profiler lost "
+            f"device events ({counts}, want {want}); tracing again")
+        time.sleep(0.5)
+    else:
+        fail("train: every profile window lost device events")
+    busy = sum(_device_us(ev) for ev in kern) / 1e3 / n
+    per = {k: sum(_device_us(ev) for ev in kern if k in ev.key) / 1e3 / n
+           for k in want}
+    top = sorted(kern, key=_device_us, reverse=True)[:8]
+    return dict(wall_ms=wall_ms, busy_ms=busy, idle=1 - busy / wall_ms,
+                kernels=sum(ev.count for ev in kern) / n,
+                b7_ms=per["kahan_acc_kernel"],
+                b2f_ms=per["fused_reduce_kernel"], tries=attempt + 1,
+                top=[(_device_us(ev) / 1e3 / n, ev.count / n, ev.key[:80])
+                     for ev in top])
+
+
+def phase_train(dev, kind: str, qwen) -> dict:
+    """The training path at full width: qwen1.5-0.5b, 24 layers, 620 M
+    f32 parameters, remat per layer, through the real ``Trainer``
+    (``TRAIN_KW``: seq 256, global batch 8 in 4 microbatches, Kahan
+    accumulation and AdamW carry, fused gradient statistics), random
+    weights from seed ``SEED``.
+
+    - ``TRAIN_STEPS`` steps with the launch counters zeroed just before
+      and read just after: B7 (``kahan_acc``) once per leaf and
+      microbatch plus once per leaf for the carry, B2f (``fused_reduce``)
+      once per leaf per step, nothing else; every loss, gradient norm
+      and max|g| finite. Prints the median step (host clock) and tokens/s,
+      the share of the bf16 peak (6 N tokens per step / step time /
+      989e12) and the peak device memory;
+    - a profiled window of ``TRAIN_PROFILE_STEPS`` steps: device busy ms
+      and idle share per step, kernels per step, B7 and B2f device ms;
+    - one more step under ``_TrainProbe``: every B7 call bitwise its
+      twin, every B2f call within the compensated bound;
+    - the restart contract at full width and 2 layers: 4 steps straight
+      against 2 steps, a checkpoint, a restore into a fresh ``Trainer``
+      and 2 more; params and optimizer state bitwise (the checkpoint,
+      ~5 GB, under ``build/``, removed after);
+    - card against CPU at ``small_config`` (``train_cpu_parity``): the
+      gradients per leaf, the updates and moments of 3 AdamW updates on
+      the same gradients, and the losses of 3 steps with no warmup,
+      within ``TRAIN_CPU_RTOL``; first, ``_Bf16Product``'s backward at
+      the step's products within ``DENSE_BWD_RTOL`` of the plain
+      product (``dense_backward_parity``)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core import kahan
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.train.loop import Trainer
+    t_start = time.perf_counter()
+    bwd = dense_backward_parity(dev, qwen)
+    # earlier phases' garbage (engines in reference cycles) is collected
+    # now, not while this phase's peak is read
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # what earlier phases still hold
+    trainer = Trainer(qwen, device=dev, seed=SEED, **TRAIN_KW)
+    trainer.init_state()
+    leaves = len(kahan.tree_leaves(trainer.params))
+    n_params = api.num_params(trainer.params)
+    tokens = TRAIN_KW["seq_len"] * TRAIN_KW["global_batch"]
+    ops.reset_launches()
+    hist = trainer.run(TRAIN_STEPS, log_every=0)["history"]
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    want = dict.fromkeys(launches, 0)
+    want.update(kahan_acc=TRAIN_STEPS * leaves
+                * (TRAIN_KW["n_microbatches"] + 1),
+                fused_reduce=TRAIN_STEPS * leaves)
+    if launches != want:
+        fail(f"train: launch counters {launches} != {want}")
+    for h in hist:
+        m = h["metrics"]
+        vals = [h["loss"], float(m["grad_norm"]), float(m["grad_maxabs"])]
+        if not all(math.isfinite(v) for v in vals):
+            fail(f"train: step {h['step']}: loss, grad norm, max|g| {vals}")
+    step_ms = statistics.median(1e3 * h["dt"] for h in hist[1:])
+    share = 6 * n_params * tokens / (step_ms / 1e3) / BF16_FLOPS_PER_S
+    log(f"[train] {qwen.name} ({qwen.num_layers} L, d {qwen.d_model}, "
+        f"vocab {qwen.vocab_size}, {n_params} f32 parameters, {leaves} "
+        f"leaves, remat {qwen.remat}) on {kind}: "
+        f"Trainer {TRAIN_KW}, {TRAIN_STEPS} steps: losses "
+        f"{[round(h['loss'], 5) for h in hist]}, grad norms "
+        f"{[round(float(h['metrics']['grad_norm']), 5) for h in hist]}, "
+        f"max|g| {[float(h['metrics']['grad_maxabs']) for h in hist]}")
+    log(f"[train] launch counters {launches} (B7 {leaves} leaves x "
+        f"({TRAIN_KW['n_microbatches']} microbatches + the AdamW carry) x "
+        f"{TRAIN_STEPS} steps, B2f {leaves} x {TRAIN_STEPS})")
+    log(f"[train] step wall ms {[round(1e3 * h['dt'], 3) for h in hist]}; "
+        f"median of steps 1-{TRAIN_STEPS - 1} {step_ms:.3f} ms, "
+        f"{tokens / (step_ms / 1e3):.3f} tokens/s; share of the bf16 peak "
+        f"(6 N tokens / step time / 989e12) {share:.5f}")
+    prof = train_profile(trainer, leaves)
+    log(f"[train] profiled window, {TRAIN_PROFILE_STEPS} steps: wall "
+        f"{prof['wall_ms']:.3f} ms/step, device busy {prof['busy_ms']:.3f} "
+        f"ms/step, device idle share {prof['idle']:.4f} (of the median "
+        f"unprofiled step {1 - prof['busy_ms'] / step_ms:.4f}), "
+        f"{prof['kernels']:.0f} kernels/step; B7 {prof['b7_ms']:.4f} ms/step "
+        f"(bound {5 * 3.70:.2f}), B2f {prof['b2f_ms']:.4f} ms/step (bound "
+        f"0.74); windows traced {prof['tries']}")
+    for ms, cnt, key in prof["top"]:
+        log(f"[train]   {ms:9.3f} ms/step {cnt:8.1f}/step  {key}")
+    with _TrainProbe() as probe:
+        trainer.run(1, log_every=0)
+    torch.cuda.synchronize()
+    if (probe.n_acc, probe.n_red) != (leaves * (TRAIN_KW["n_microbatches"]
+                                                + 1), leaves):
+        fail(f"train: the probed step made {probe.n_acc} B7 and "
+             f"{probe.n_red} B2f calls")
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    log(f"[train] probed step: {probe.n_acc} B7 calls bitwise neumaier_step "
+        f"on the card, {probe.n_red} B2f calls with max|g| equal to the twin "
+        f"and sumsq within the compensated bound (worst at "
+        f"{probe.worst:.3f} of it); peak device memory of the phase "
+        f"{peak:.2f} GiB (max_memory_allocated less the {held / 2 ** 30:.2f} "
+        f"GiB earlier phases still held)")
+    del trainer
+    torch.cuda.empty_cache()
+    # restart contract at full width, 2 layers
+    cfg2 = qwen.with_(num_layers=2)
+    build = HERE / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="train_ckpt_", dir=build)
+    try:
+        t0 = time.perf_counter()
+        straight = Trainer(cfg2, device=dev, seed=SEED, **TRAIN_KW)
+        straight.run(4, log_every=0)
+        first = Trainer(cfg2, device=dev, seed=SEED, ckpt_dir=tmp,
+                        ckpt_every=10 ** 6, **TRAIN_KW)
+        first.run(2, log_every=0)         # publishes step_2 at its end
+        del first
+        resumed = Trainer(cfg2, device=dev, seed=SEED, ckpt_dir=tmp,
+                          ckpt_every=10 ** 6, **TRAIN_KW)
+        if not resumed.maybe_restore() or resumed.step != 2:
+            fail("train: no checkpoint at step 2 to restore")
+        resumed.ckpt = None               # no second checkpoint
+        resumed.run(2, log_every=0)
+        a, b = _state_leaves(straight), _state_leaves(resumed)
+        same = len(a) == len(b) and all(torch_equal(x, y)
+                                         for x, y in zip(a, b))
+        ckpt_gb = sum(f.stat().st_size for f in Path(tmp).rglob("*")
+                      if f.is_file()) / 1e9
+        log(f"[train] restart at d {cfg2.d_model}, 2 layers: 4 steps "
+            f"straight vs "
+            f"2 + checkpoint ({ckpt_gb:.2f} GB) + restore + 2: "
+            f"{len(a)} leaves of params and optimizer state bitwise: {same}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not same:
+            diff = [i for i, (x, y) in enumerate(zip(a, b))
+                    if not torch_equal(x, y)]
+            fail(f"train: resumed state differs from the straight run at "
+                 f"{len(diff)} leaves (first {diff[:5]})")
+        del straight, resumed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    par = train_cpu_parity(dev)
+    log(f"[train] phase {time.perf_counter() - t_start:.1f} s")
+    return dict(launches=launches, step_ms=step_ms,
+                tok_s=tokens / (step_ms / 1e3), share=share, peak_gib=peak,
+                profile=prof, cpu_rel=par, dense_bwd=bwd)
 
 
 def report_c1(q_paths: dict, d_paths: dict) -> None:
@@ -3765,6 +4228,11 @@ def main() -> int:
     del d_params
     torch.cuda.empty_cache()
     report_c1(q_paths, d_paths)
+    # the training path at full width: Kahan microbatch accumulation and
+    # the AdamW carry on B7, the fused gradient statistics on B2f
+    t0 = time.perf_counter()
+    train = phase_train(dev, kind, qwen)
+    wall["qwen1.5-0.5b train"] = time.perf_counter() - t0
 
     def by_path(paths, name):
         return {k: v["launches"][name] for k, v in paths.items()}
@@ -3778,6 +4246,7 @@ def main() -> int:
     red_by = {**by_path(q_paths, "fused_reduce"),
               **by_path(d_paths, "fused_reduce"),
               "flat entry points": k_launch["fused_reduce"],
+              "train": train["launches"]["fused_reduce"],
               "obs calibration": q_paths["qwen1.5-0.5b obs"][
                   "calibration_launches"]["fused_reduce"]}
     kernels = [
@@ -3797,7 +4266,10 @@ def main() -> int:
                          + red_by["deepseek-v2-236b spec n-gram"],
                          **times["fused_reduce_verify"]),
              flat=dict(replaces="src/repro/kernels/engine.py:282",
-                       max_abs_err=flat_err, **times["fused_reduce_flat"])),
+                       max_abs_err=flat_err, **times["fused_reduce_flat"],
+                       train=dict(launches=train["launches"]["fused_reduce"],
+                                  device_ms_per_step=train["profile"][
+                                      "b2f_ms"]))),
         dict(name="paged_latent_attention", route="cuda",
              source="src/repro_torch/csrc/paged_latent_attention.cu",
              replaces="src/repro/kernels/paged_attention.py:354",
@@ -3822,8 +4294,12 @@ def main() -> int:
         dict(name="kahan_acc", route="cuda",
              source="src/repro_torch/csrc/kahan_acc.cu",
              replaces="src/repro/kernels/kahan_acc.py:45",
-             launches=k_launch["kahan_acc"], max_abs_err=acc_err,
-             **times["kahan_acc"]),
+             launches=k_launch["kahan_acc"] + train["launches"]["kahan_acc"],
+             launches_by_path={
+                 "entry point": k_launch["kahan_acc"],
+                 "train": train["launches"]["kahan_acc"]},
+             max_abs_err=acc_err, **times["kahan_acc"],
+             train=dict(device_ms_per_step=train["profile"]["b7_ms"])),
     ]
     for name, r in {**q_paths, **d_paths}.items():
         extra = "" if "acceptance" not in r else (

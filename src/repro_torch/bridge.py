@@ -70,16 +70,20 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def params_from_reference(tree: dict, device=None) -> dict:
+def params_from_reference(tree: dict, device=None, *,
+                          hold_bf16: bool = True) -> dict:
     """Reference parameter tree (numpy leaves) -> the port's tree, with
     the stacked ``dense_layers`` / ``layers`` split into one dict per
-    layer and the weights that only feed bf16 products held as bf16
-    (``models.common.BF16_WEIGHTS``; they are rounded to bf16 before
-    every product anyway, so no result changes). ``device`` defaults to
+    layer and, for serving, the weights that only feed bf16 products
+    held as bf16 (``models.common.BF16_WEIGHTS``; they are rounded to
+    bf16 before every product anyway, so no result changes).
+    ``hold_bf16=False`` keeps every leaf's bits as they are: a training
+    master, whose f32 bits the optimizer updates. ``device`` defaults to
     the card."""
     from repro_torch.models import common, lm
-    return lm.split_layers(common.hold_weights_bf16(
-        _map(tree, lambda a: from_numpy(a, device))))
+    tree = _map(tree, lambda a: from_numpy(a, device))
+    return lm.split_layers(common.hold_weights_bf16(tree) if hold_bf16
+                           else tree)
 
 
 def caches_from_reference(caches, device=None) -> dict:

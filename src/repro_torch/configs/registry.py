@@ -22,7 +22,7 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     """Tiny same-family config for CPU tests (the dense and moe branches
     of ``repro.configs.reduced``)."""
     kw: dict = dict(num_layers=2, d_model=64, vocab_size=256, q_chunk=32,
-                    kv_chunk=32)
+                    kv_chunk=32, remat=False)
     if cfg.family == "dense":
         kw.update(num_heads=4,
                   num_kv_heads=4 if cfg.num_kv_heads == cfg.num_heads else 2,

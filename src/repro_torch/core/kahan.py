@@ -81,10 +81,16 @@ class KahanState(NamedTuple):
 
 
 def tree_map(fn, tree: Tree, *rest: Tree) -> Tree:
-    """``fn`` leafwise over trees of one structure (dicts and lists)."""
+    """``fn`` leafwise over trees of one structure (dicts, lists, tuples
+    and ``NamedTuple`` states; ``None`` holds no leaf, as in JAX)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v, *(r[i] for r in rest))
+                            for i, v in enumerate(tree)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
@@ -96,6 +102,13 @@ def tree_leaves(tree: Tree) -> list:
     out = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_unflatten(like: Tree, leaves) -> Tree:
+    """A tree shaped like ``like`` whose leaves are ``leaves`` in
+    ``tree_leaves``'s order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
 
 
 def _unzip(like: Tree, pairs: Tree) -> tuple[Tree, Tree]:

@@ -1,0 +1,36 @@
+"""Synthetic training batches (twin of ``repro.data.synthetic``).
+
+``make_batch`` draws from numpy's ``default_rng`` exactly as the
+reference does, so a batch is bitwise the reference's; it returns numpy
+arrays (the trainer moves them to its device). The reference's abstract
+``jax.ShapeDtypeStruct`` helpers (the dry-run's inputs) have no analog
+here. The port's families are text-only: the reference's image and
+audio inputs wait for the other families (ROADMAP queue A item 12).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.models.config import ModelConfig
+
+
+def _text_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Text tokens per sequence: all of them in the port's text-only
+    families (the reference's vlm family spends some on image patches)."""
+    return seq_len
+
+
+def make_batch(cfg: ModelConfig, seq_len: int, batch: int, *,
+               kind: str = "train", seed: int = 0) -> dict:
+    """Deterministic batch: ``tokens`` int32 [B, L] and, for ``kind ==
+    "train"``, ``labels`` int32 [B, L] and ``weights`` f32 [B, L] (numpy)."""
+    rng = np.random.default_rng(seed)
+    lt = _text_len(cfg, seq_len)
+    out: dict = {"tokens": rng.integers(0, cfg.vocab_size, size=(batch, lt),
+                                        dtype=np.int32)}
+    if kind == "train":
+        out["labels"] = rng.integers(0, cfg.vocab_size,
+                                     size=(batch, seq_len), dtype=np.int32)
+        out["weights"] = np.ones((batch, seq_len), np.float32)
+    return out

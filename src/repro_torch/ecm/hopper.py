@@ -182,7 +182,9 @@ def predicted_spec_speedup(alpha: float, k: int, *,
 
 def predicted_restore_vs_reprefill(tokens: int, token_bytes: float,
                                    flops_per_token: float,
-                                   hw: dict = H100_SXM) -> float:
+                                   hw: dict = H100_SXM, *,
+                                   launches_per_chunk: float = 0.0,
+                                   chunk_tokens: int = 1) -> float:
     """Time to re-prefill ``tokens`` over the time to restore their KV
     snapshot from host memory; > 1 means restoring wins.
 
@@ -191,19 +193,31 @@ def predicted_restore_vs_reprefill(tokens: int, token_bytes: float,
 
         T_restore   = tokens * token_bytes / host_link_bw
         T_reprefill = max(tokens * flops_per_token / peak_flops,
-                          tokens * token_bytes / hbm_bw)
+                          tokens * token_bytes / hbm_bw,
+                          tokens * launches_per_chunk * dispatch_s
+                          / chunk_tokens)
 
     ``token_bytes`` is the engine's per-token pool bytes
     (``KVCache.token_bytes``), so quantized pools shrink the restore side;
-    ``flops_per_token`` is ~2 * n_params for a dense forward pass. Both
-    sides are linear in ``tokens``, so the ratio does not depend on it.
+    ``flops_per_token`` is ~2 * n_params for a dense forward pass. The
+    third term is the host's: eager PyTorch launches every operator of a
+    prefill chunk of ``chunk_tokens`` tokens, ``launches_per_chunk`` of
+    them (``obs.profile.prefill_launches``), at ``hw["dispatch_s"]``
+    each. At its default of 0 launches the function is the reference's
+    ``repro.ecm.tpu.predicted_restore_vs_reprefill``. Every term is
+    linear in ``tokens``, so the ratio does not depend on it.
     """
     if tokens <= 0 or token_bytes <= 0 or flops_per_token <= 0:
         raise ValueError("tokens, token_bytes and flops_per_token must "
                          "be positive")
+    if launches_per_chunk < 0 or chunk_tokens <= 0:
+        raise ValueError("launches_per_chunk must be >= 0 and "
+                         "chunk_tokens positive")
     t_restore = tokens * token_bytes / hw["host_link_bw"]
     t_reprefill = max(tokens * flops_per_token / hw["peak_flops"],
-                      tokens * token_bytes / hw["hbm_bw"])
+                      tokens * token_bytes / hw["hbm_bw"],
+                      tokens * launches_per_chunk * hw["dispatch_s"]
+                      / chunk_tokens)
     return t_reprefill / t_restore
 
 
@@ -233,8 +247,10 @@ def restore_crossover_flops_per_token(token_bytes: float,
     preempted request beats re-prefilling it, in the compute-bound regime:
     token_bytes * peak_flops / host_link_bw. On the H100 with bf16 pools
     of full-width qwen1.5 (98 304 B per token) that is ~1.96 GFLOP per
-    token, ~978 M parameters: qwen1.5-0.5b's 620 M sit below it, so
-    re-prefill wins and ``promote="auto"`` does not promote."""
+    token, ~978 M parameters: qwen1.5-0.5b's 620 M sit below it, so on
+    the card's rates alone re-prefill would win. The port's re-prefill
+    is launch-bound instead (``predicted_restore_vs_reprefill``'s
+    dispatch term), and there restoring wins by far."""
     if token_bytes <= 0:
         raise ValueError("token_bytes must be positive")
     return token_bytes * hw["peak_flops"] / hw["host_link_bw"]

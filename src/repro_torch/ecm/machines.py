@@ -25,7 +25,15 @@ measured on the card:
   256 MiB pinned copy, median of 10 by CUDA events): 49.704 GB/s on an
   NVIDIA H100 80GB HBM3 at a 700.00 W power limit (device -> host
   50.638 GB/s). A restore moves host -> device, so that direction
-  prices it.
+  prices it;
+- ``dispatch_s``: the host cost of one kernel launch in a stream of
+  launches, 7.5 us: the dispatch floor of ``obs.profile.calibrate()``
+  (64 back-to-back elementwise launches, one synchronize) in
+  ``chip_smoke.py``'s ``[obs]`` phase on an NVIDIA H100 80GB HBM3 at a
+  700.00 W power limit. Eager PyTorch launches every operator of a
+  prefill chunk from the host, so this floor, times the chunk's
+  launches, prices a re-prefill that the card's rates alone put ~100x
+  too fast (``ecm.hopper.predicted_restore_vs_reprefill``).
 """
 
 from __future__ import annotations
@@ -110,4 +118,5 @@ H100_SXM = {
     "hbm_bw": 3.35e12,
     "peak_flops": 989e12,
     "f32_flops": 67e12,
+    "dispatch_s": 7.5e-6,
 }

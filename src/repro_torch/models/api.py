@@ -1,5 +1,6 @@
-"""Public model API used by the serving engine (twin of
-``repro.models.api`` for the dense and moe families).
+"""Public model API used by the serving engine and the trainer (twin of
+``repro.models.api`` for the dense and moe families; training covers the
+dense family).
 
 Entry points run on the card unless the caller passes a device:
 ``init_params(cfg, generator, device=None)`` and ``KVCache.init(...,
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.models import common, lm
+from repro_torch.models.blocks import check_trainable
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.paged import (DEFAULT_BLOCK_SIZE, POOL_KEYS,
                                       PagedLayout, default_num_blocks)
@@ -38,6 +40,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
         generator = torch.Generator(device=dev).manual_seed(seed)
     return lm.split_layers(common.init_params(schema(cfg), generator, dev,
                                               hold_bf16=hold_bf16))
+
+
+def forward_fn(cfg: ModelConfig) -> Callable:
+    """(params, batch) -> (logits [B, L, V] bf16, aux): the training
+    forward (dense GQA models)."""
+    check_trainable(cfg)
+    return lambda p, b: lm.lm_forward(p, b, cfg)
+
+
+def loss_fn(cfg: ModelConfig) -> Callable:
+    """(params, batch) -> (loss, metrics): the weighted cross entropy the
+    trainer differentiates (dense GQA models)."""
+    check_trainable(cfg)
+    return lambda p, b: lm.lm_loss(p, b, cfg)
 
 
 def decode_fn(cfg: ModelConfig) -> Callable:

@@ -1,7 +1,8 @@
 """GQA attention over block-paged KV (the GQA half of
 ``repro.models.attention``).
 
-* Chunked prefill (``gqa_prefill_chunk``) runs the reference's blockwise
+* The training forward (``gqa_forward``) and chunked prefill
+  (``gqa_prefill_chunk``) run the reference's blockwise
   online-softmax ``flash_attention`` in plain PyTorch ops, on the CPU and
   on the card alike: in the reference it is plain JAX, not a Pallas
   kernel.
@@ -163,6 +164,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.stack(outs, dim=3).reshape(b, hkv, groups, lq, dv)
     out = out.reshape(b, hq, lq, dv).permute(0, 2, 1, 3).to(v.dtype)
     return out[:, :lq_orig] if pad_q else out
+
+
+def gqa_forward(p: dict, x: torch.Tensor, cfg: AttnConfig, *,
+                positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence (training) GQA block, x [B, L, d] -> [B, L, d]:
+    ``flash_attention`` over the sequence's own K/V, differentiable under
+    autograd (every op is out of place)."""
+    b, l, _ = x.shape
+    if positions is None:
+        positions = torch.arange(l, device=x.device)[None, :].expand(b, l)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    out = flash_attention(q, k, v, causal=cfg.causal, q_chunk=cfg.q_chunk,
+                          kv_chunk=cfg.kv_chunk, kahan_acc=cfg.kahan_acc)
+    return common.dense(out.reshape(b, l, -1), p["wo"])
 
 
 def _scatter_kv(cache: dict, k: torch.Tensor, v: torch.Tensor,

@@ -1,7 +1,8 @@
 """Per-layer decoder blocks (the attention-family paths of
 ``repro.models.blocks``): pre-norm attention (GQA or MLA) + pre-norm FFN
 (SwiGLU MLP, or MoE). DeepSeek-V2's leading dense layers are MLA blocks
-with a dense FFN (``dense_block_schema``, ``dense_ffn=True``)."""
+with a dense FFN (``dense_block_schema``, ``dense_ffn=True``). The
+training form ``block_apply`` covers dense GQA layers."""
 
 from __future__ import annotations
 
@@ -60,6 +61,35 @@ def _ffn_residual(p: dict, h: torch.Tensor, cfg: ModelConfig,
         y, _ = moe.moe_forward(p["ffn"], x, cfg.moe)
         return h + y
     return h + mlp.mlp_forward(p["ffn"], x)
+
+
+# the reference's per-layer aux outputs (MoE losses); a dense layer's are 0
+AUX_KEYS = ("moe_load_balance", "moe_z_loss", "moe_drop_fraction")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """The port trains dense GQA decoders; MLA attention and MoE layers
+    (their aux losses and the expert products' backward) wait for
+    ROADMAP queue A item 13."""
+    cfg.check_supported()
+    if cfg.mla is not None or cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: repro_torch trains dense GQA decoders; "
+            f"{'MLA attention' if cfg.mla is not None else 'MoE layers'} "
+            "in training wait for ROADMAP queue A item 13")
+
+
+def block_apply(p: dict, h: torch.Tensor, cfg: ModelConfig, *,
+                dense_ffn: bool = False) -> tuple[torch.Tensor, dict]:
+    """Full-sequence (training) forward of one dense GQA layer,
+    h [B, L, d] -> (h, aux) with the reference's aux keys at 0."""
+    check_trainable(cfg)
+    x = common.rms_norm(h, p["ln_attn"]["scale"])
+    h = h + attn.gqa_forward(p["attn"], x, cfg.attn())
+    x = common.rms_norm(h, p["ln_mlp"]["scale"])
+    h = h + mlp.mlp_forward(p["ffn"], x)
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, dict.fromkeys(AUX_KEYS, zero)
 
 
 def block_prefill_chunk(p: dict, h: torch.Tensor, cfg: ModelConfig,

@@ -12,9 +12,10 @@ idempotent, so no product changes.
 accumulation computes: bf16 operands, f32 products and sums, the bias
 added in f32, one rounding of the result to ``compute_dtype``. On the
 card that is a bf16 tensor-core GEMM with an f32 result
-(``torch.mm(..., out_dtype=torch.float32)``); PyTorch's CPU backend has
-no such op, so on the CPU both operands are widened to f32 (bf16 x bf16
-products are exact in f32).
+(``torch.mm(..., out_dtype=torch.float32)``, with a backward of the same
+form for training); PyTorch's CPU backend has no such op, so on the CPU
+both operands are widened to f32 (bf16 x bf16 products are exact in
+f32).
 """
 
 from __future__ import annotations
@@ -145,15 +146,44 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
     return torch.cat([rotated.to(x.dtype), x_pass], dim=-1)
 
 
+class _Bf16Product(torch.autograd.Function):
+    """The card's bf16 product, [M, K] x [K, N] -> f32 [M, N] on the
+    tensor cores, with a backward (``aten::mm.dtype`` has none).
+
+    The gradients are those ``jax.grad`` gives through the reference's
+    ``dense``: the incoming f32 gradient is the widening of the bf16
+    output's gradient (exact in bf16), dX = dY W^T and dW = X^T dY are
+    bf16 tensor-core GEMMs with f32 results, each rounded to its
+    operand's dtype, bf16 (the casts in ``dense`` carry them on to the
+    caller's dtypes)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(torch.bfloat16)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(dy, w.t(), out_dtype=torch.float32).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(x.t(), dy, out_dtype=torch.float32).to(w.dtype)
+        return dx, dw
+
+
 def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
           compute_dtype=torch.bfloat16) -> torch.Tensor:
     """y = x @ w (+ b): operands rounded to ``compute_dtype``, f32
     accumulation, bias added in f32, one rounding to ``compute_dtype``.
     On the card a bf16 ``compute_dtype`` runs one tensor-core GEMM with an
-    f32 result; elsewhere the rounded operands are widened to f32."""
+    f32 result (``_Bf16Product``); elsewhere the rounded operands are
+    widened to f32, which autograd differentiates as it stands."""
     if x.is_cuda and compute_dtype == torch.bfloat16:
-        y = torch.mm(x.reshape(-1, x.shape[-1]).to(compute_dtype),
-                     w.to(compute_dtype), out_dtype=torch.float32)
+        y = _Bf16Product.apply(x.reshape(-1, x.shape[-1]).to(compute_dtype),
+                               w.to(compute_dtype))
         y = y.reshape(*x.shape[:-1], w.shape[-1])
     else:
         y = torch.matmul(x.to(compute_dtype).to(torch.float32),

@@ -35,6 +35,8 @@ class ModelConfig:
     kv_chunk: int = 512
     kahan_attn: bool = False       # compensated prefill accumulator
     kv_dtype: str = "bf16"         # "bf16" | "int8" | "fp8" KV pools
+    remat: bool = True             # training: recompute each layer
+                                   # in backward (``lm.lm_forward``)
 
     def attn(self, *, causal: bool = True) -> AttnConfig:
         return AttnConfig(

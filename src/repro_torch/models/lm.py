@@ -1,4 +1,6 @@
-"""Decoder-only LM assembly for serving (twin of ``repro.models.lm``).
+"""Decoder-only LM assembly for serving and training (twin of
+``repro.models.lm``; training: ``lm_forward`` / ``lm_loss``, dense GQA
+models).
 
 The reference scans stacked layer trees with ``lax.scan``: an optional
 ``dense_layers`` stack (DeepSeek-V2's first_k_dense layers, dense FFN)
@@ -17,9 +19,11 @@ tensors, and the cache-tree moves of ``models.paged`` see every layer.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import common
-from repro_torch.models.blocks import (block_cache_spec, block_decode,
+from repro_torch.models.blocks import (AUX_KEYS, block_apply,
+                                       block_cache_spec, block_decode,
                                        block_prefill_chunk, block_schema,
                                        block_verify_chunk,
                                        dense_block_schema, stack_schema)
@@ -83,6 +87,48 @@ def layer_cache(caches: dict, i: int) -> dict:
 
 def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.to(torch.int64)].to(torch.bfloat16)
+
+
+def lm_forward(params: dict, batch: dict, cfg: ModelConfig
+               ) -> tuple[torch.Tensor, dict]:
+    """Full-sequence training forward: (logits [B, L, V] bf16, aux).
+
+    Embed, cast to bf16, the layers (each recomputed in backward under
+    ``cfg.remat``: ``torch.utils.checkpoint``, which saves nothing inside
+    a layer, the reference's "nothing" policy, and changes no bit), the
+    final norm, then the bf16 head through ``dense`` (not the serving
+    f32 head)."""
+    h = _embed(params, batch["tokens"])
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    aux = dict.fromkeys(AUX_KEYS, zero)
+    for _, p, dense_ffn in _layers(params):
+        if cfg.remat:
+            h, a = checkpoint(block_apply, p, h, cfg, dense_ffn=dense_ffn,
+                              use_reentrant=False)
+        else:
+            h, a = block_apply(p, h, cfg, dense_ffn=dense_ffn)
+        aux = {k: aux[k] + a[k] for k in AUX_KEYS}
+    h = common.rms_norm(h, params["final_norm"]["scale"])
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return common.dense(h, head), aux
+
+
+def lm_loss(params: dict, batch: dict, cfg: ModelConfig
+            ) -> tuple[torch.Tensor, dict]:
+    """Weighted causal-LM cross entropy in f32 (+ the MoE aux losses, 0
+    for a dense model): (loss, metrics) with the reference's metric
+    keys."""
+    logits, aux = lm_forward(params, batch, cfg)
+    labels = batch["labels"].to(torch.int64)
+    weights = batch["weights"]
+    lg = logits.to(torch.float32)
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, labels[..., None])[..., 0]
+    ce = (lse - ll) * weights
+    denom = torch.clamp_min(weights.sum(), 1.0)
+    loss = ce.sum() / denom
+    total = loss + aux["moe_load_balance"] + aux["moe_z_loss"]
+    return total, {"ce_loss": loss, **aux, "tokens": weights.sum()}
 
 
 def _serving_logits(h: torch.Tensor, params: dict,

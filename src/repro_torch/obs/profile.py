@@ -332,6 +332,51 @@ class LaunchCounter(TorchDispatchMode):
         return out
 
 
+def launch_probe_config(cfg):
+    """``cfg`` cut in every width for ``prefill_launches``: d_model 64,
+    d_ff and the leading dense FFN 64, vocab 256; MLA's q_lora and
+    kv_lora 64, its nope and v dims 16 and 8 heads; the experts' d_ff 64
+    and their number max(8, top_k). Widths change no operator of a
+    prefill chunk; depth, top_k, the shared experts, the GQA heads, the
+    paging geometry and the KV format do, and those are kept."""
+    small = cfg.with_(d_model=64, d_ff=64, vocab_size=256,
+                      dense_d_ff=min(cfg.dense_d_ff, 64))
+    if cfg.mla is not None:
+        small = small.with_(mla=cfg.mla._replace(
+            num_heads=8, q_lora=64, kv_lora=64, nope_dim=16, v_dim=16))
+    if cfg.moe is not None:
+        small = small.with_(moe=cfg.moe._replace(
+            d_ff=64, num_experts=max(8, cfg.moe.top_k)))
+    return small
+
+
+def count_prefill_launches(cfg, layout, chunk_tokens: int, device) -> int:
+    """Kernels one full prefill chunk of ``chunk_tokens`` tokens of
+    ``cfg`` launches, counted by ``LaunchCounter``: the chunk runs at
+    position 0 over fresh one-slot caches of ``layout``, on ``device``.
+    A chunk deeper in a prompt launches as many (the gather reads the
+    slot's whole table)."""
+    from repro_torch.models import api, paged
+    dev = _device.resolve(device)
+    params = api.init_params(cfg, device=dev, seed=0)
+    caches = api.KVCache(cfg, layout,
+                         paged.default_num_blocks(layout, 1)).init(1, dev)
+    paged.reset_slot(caches, 0, paged.identity_table(1, layout, dev)[0])
+    tokens = torch.zeros((1, chunk_tokens), dtype=torch.int32, device=dev)
+    with LaunchCounter(dev.type) as counter:
+        api.prefill_chunk_fn(cfg)(params, tokens, caches, 0, 0)
+    return counter.count
+
+
+def prefill_launches(cfg, layout, chunk_tokens: int, device) -> int:
+    """``count_prefill_launches`` on ``launch_probe_config(cfg)``: the
+    launches of a prefill chunk of ``cfg`` without its weights.
+    ``ecm.hopper.predicted_restore_vs_reprefill`` prices re-prefill's
+    dispatch with it."""
+    return count_prefill_launches(launch_probe_config(cfg), layout,
+                                  chunk_tokens, device)
+
+
 # ------------------------------------------------------------- profiler --
 
 class _PhaseStats:

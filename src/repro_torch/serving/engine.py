@@ -512,7 +512,8 @@ class DecodeEngine:
     into free pool blocks when the restore-vs-reprefill forecast favours
     the host link. ``promote`` picks that gate: ``"auto"`` evaluates
     ``repro_torch.ecm.hopper.predicted_restore_vs_reprefill`` on this
-    engine's KV geometry and parameter count with the H100's figures,
+    engine's KV geometry, parameter count and prefill-chunk launches
+    with the H100's figures,
     ``"always"`` / ``"never"`` force it.
 
     ``telemetry`` attaches a ``repro_torch.obs.Telemetry``, shared with
@@ -1089,16 +1090,23 @@ class DecodeEngine:
     def _promote_gate(self, mode: str) -> float:
         """The restore-vs-reprefill ratio ``PrefixCache.promote`` gates on
         (> 1 promotes). ``"auto"`` prices one block of this engine's KV
-        against re-prefilling its tokens on the H100's figures; the ratio
-        does not depend on the token count."""
+        against re-prefilling its tokens on the H100's figures, the
+        dispatch of the kernels a prefill chunk of this model launches
+        included (``obs.profile.prefill_launches``); the ratio does not
+        depend on the token count."""
         if mode == "always":
             return float("inf")
         if mode == "never":
             return 0.0
         from repro_torch.ecm.hopper import predicted_restore_vs_reprefill
+        from repro_torch.obs.profile import prefill_launches
+        chunk = self.scheduler.prefill_chunk
         return predicted_restore_vs_reprefill(
             self.layout.block_size, self._token_bytes,
-            2 * api.num_params(self.params))
+            2 * api.num_params(self.params),
+            launches_per_chunk=prefill_launches(self.cfg, self.layout,
+                                                chunk, self.device),
+            chunk_tokens=chunk)
 
     def _promote_restore(self, blocks: list[int], snaps: list[dict]) -> None:
         """The device half of a spill-tier promote: one batched scatter of

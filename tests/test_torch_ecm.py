@@ -204,12 +204,17 @@ def test_serving_forecasts_by_hand():
 def test_restore_gate_for_qwen_by_hand():
     """Full-width qwen1.5 (619 570 176 parameters, 98 304 bf16 pool bytes
     per token): re-prefill at 989 TFLOP/s against the restore at the
-    measured 49.704 GB/s gives 0.6335, so ``promote="auto"`` does not
-    promote; the crossover sits at ~978 M parameters."""
+    measured 49.704 GB/s gives 0.6335, the crossover sitting at ~978 M
+    parameters; with the dispatch term (4000 launches per 256-token
+    chunk at 7.5 us each) re-prefill costs 117 us per token against a
+    1.98 us restore, so ``promote="auto"`` promotes."""
     n, tb = 619_570_176, 98_304
     want = (2 * n / 989e12) / (tb / 49.704e9)
     got = hopper.predicted_restore_vs_reprefill(16, tb, 2 * n)
     assert got == pytest.approx(want) and got == pytest.approx(0.6335,
                                                                abs=1e-4)
+    got = hopper.predicted_restore_vs_reprefill(
+        16, tb, 2 * n, launches_per_chunk=4000, chunk_tokens=256)
+    assert got == pytest.approx((4000 * 7.5e-6 / 256) / (tb / 49.704e9))
     assert hopper.restore_crossover_flops_per_token(tb) == pytest.approx(
         tb * 989e12 / 49.704e9)

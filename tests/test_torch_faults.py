@@ -682,11 +682,11 @@ def test_swap_miss_raises_symmetrically(setup):
 
 
 def test_restore_vs_reprefill_matches_reference():
-    """The H100 forecast is the reference's function evaluated on the
-    port's figures (the reference names the compute rate
-    ``peak_bf16_flops``; the port's is ``peak_flops``, the bf16 tensor
-    cores, see ``ecm.machines``), and it validates its inputs the same
-    way."""
+    """With no dispatch term (0 launches per chunk) the H100 forecast is
+    the reference's function evaluated on the port's figures (the
+    reference names the compute rate ``peak_bf16_flops``; the port's is
+    ``peak_flops``, the bf16 tensor cores, see ``ecm.machines``), and it
+    validates its inputs the same way."""
     from repro.ecm.tpu import predicted_restore_vs_reprefill as ref_fn
     from repro_torch.ecm.hopper import predicted_restore_vs_reprefill
     from repro_torch.ecm.machines import H100_SXM
@@ -695,15 +695,53 @@ def test_restore_vs_reprefill_matches_reference():
                             (16, 1e4, 2e5), (1, 1e6, 1e3)):
         assert predicted_restore_vs_reprefill(tokens, tb, fpt) == \
             ref_fn(tokens, tb, fpt, hw=as_ref)
-    # at bf16 tensor-core re-prefill, full-width qwen1.5 (98 304 bf16
-    # bytes per token) re-prefills faster than it restores, and so does a
-    # reduced test model; a model past ~978 M parameters at those bytes
-    # per token restores faster
+    # the repaired gate adds the host's dispatch to re-prefill: a prefill
+    # chunk of full-width qwen1.5 (256 tokens, 98 304 bf16 bytes per
+    # token) launches thousands of kernels, so restoring wins by far
+    # where the card's rates alone would re-prefill; a model past ~978 M
+    # parameters restores faster either way
+    from repro_torch.models.paged import PagedLayout
+    from repro_torch.obs.profile import prefill_launches
+    n = prefill_launches(t_get_config("qwen1.5-0.5b"),
+                         PagedLayout.for_context(1024, 16), 256, "cpu")
+    assert n > 1000
+    full = predicted_restore_vs_reprefill(16, 98304, 2 * 619e6,
+                                          launches_per_chunk=n,
+                                          chunk_tokens=256)
+    assert full > 1.0
+    assert full == pytest.approx(n * H100_SXM["dispatch_s"] / 256
+                                 / (98304 / H100_SXM["host_link_bw"]))
     assert predicted_restore_vs_reprefill(16, 98304, 2 * 619e6) < 1.0
-    assert predicted_restore_vs_reprefill(16, 1e4, 2e5) < 1.0
     assert predicted_restore_vs_reprefill(16, 98304, 2 * 1.2e9) > 1.0
+    with pytest.raises(ValueError):
+        predicted_restore_vs_reprefill(16, 98304, 1e9, chunk_tokens=0)
     for bad in (dict(tokens=0, token_bytes=512, flops_per_token=1e9),
                 dict(tokens=64, token_bytes=-1, flops_per_token=1e9),
                 dict(tokens=64, token_bytes=512, flops_per_token=0)):
         with pytest.raises(ValueError):
             predicted_restore_vs_reprefill(**bad)
+
+
+def test_prefill_launches_cut_every_width():
+    """The gate counts a prefill chunk's launches on a copy of the model
+    cut in every width, MLA's and the experts' too: full-width
+    deepseek-v2 (236 B parameters) becomes one of ~12 M at its full
+    depth, and on the reduced MLA + MoE model the cut changes no launch."""
+    from repro_torch.obs.profile import (count_prefill_launches,
+                                         launch_probe_config,
+                                         prefill_launches)
+    full = t_get_config("deepseek-v2-236b")
+    small = launch_probe_config(full)
+    assert (small.num_layers, small.first_k_dense, small.moe.top_k,
+            small.moe.num_shared, small.mla.rope_dim) == \
+        (full.num_layers, full.first_k_dense, full.moe.top_k,
+         full.moe.num_shared, full.mla.rope_dim)
+    n = sum(int(np.prod(s.shape))
+            for s in jax.tree.leaves(tapi.schema(small),
+                                     is_leaf=lambda x: hasattr(x, "shape")))
+    assert n < 2e7, n
+    cfg = t_reduced(full)
+    layout = tpaged.PagedLayout.for_context(64, 8)
+    want = count_prefill_launches(cfg, layout, 16, "cpu")
+    assert want > 100
+    assert prefill_launches(cfg, layout, 16, "cpu") == want

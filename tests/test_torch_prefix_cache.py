@@ -809,19 +809,24 @@ def test_session_promote_gate_never_degrades(setup):
 
 
 def test_promote_gate_auto_prices_the_h100(setup):
-    """'auto' evaluates the H100 forecast on the engine's geometry: the
-    reduced test model is far below the crossover, and so is full-width
-    qwen1.5 now that re-prefill is priced at the bf16 tensor cores'
-    989 TFLOP/s (0.6335: re-prefill wins, nothing is promoted)."""
+    """'auto' evaluates the H100 forecast on the engine's geometry, its
+    parameter count and the kernels one of its prefill chunks launches:
+    the host's dispatch of those launches makes re-prefill slower than
+    a restore, for the reduced test model and for full-width qwen1.5
+    alike. On the card's rates alone (0 launches), full-width qwen1.5
+    would re-prefill (0.6335: bf16 tensor cores at 989 TFLOP/s)."""
     from repro_torch.ecm.hopper import predicted_restore_vs_reprefill
     from repro_torch.ecm.machines import H100_SXM
+    from repro_torch.obs.profile import prefill_launches
     cfg, params = setup
     eng = _engine(cfg, params, prefix_cache=True, spill_blocks=4,
                   promote="auto")
+    launches = prefill_launches(cfg, eng.layout, CHUNK, "cpu")
     want = predicted_restore_vs_reprefill(
-        BLOCK, eng.kv.token_bytes(2), 2 * api.num_params(params))
-    assert eng.prefix_cache.promote_ratio == want < 1.0
-    assert eng.prefix_cache.promote(SYS) == 0
+        BLOCK, eng.kv.token_bytes(2), 2 * api.num_params(params),
+        launches_per_chunk=launches, chunk_tokens=CHUNK)
+    assert eng.prefix_cache.promote_ratio == want > 1.0
+    assert eng.prefix_cache.promote(SYS) == 0      # nothing spilled yet
     full = t_get_config("qwen1.5-0.5b")
     kv = api.KVCache.build(full, max_context=1024, max_slots=8)
     assert kv.token_bytes(8) == 98304

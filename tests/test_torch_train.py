@@ -1,0 +1,223 @@
+"""Port parity of the training path: ``lm_loss``, its gradients, the
+training step and ``Trainer``, on reduced qwen1.5 (2 layers, d_model 64,
+vocab 256, seq 32, batch 4) with the reference's own parameters crossing
+through ``repro_torch.bridge`` as f32 (``hold_bf16=False``).
+
+Why tolerances, and how large: the port computes what the reference
+computes (bf16 operands and cotangents, f32 products and accumulation)
+but sums in another order, so bf16 roundings flip now and then. Under
+``jax.jit`` XLA's CPU backend also drops intermediate bf16 roundings
+(``xla_allow_excess_precision``, on by default), which moves the logits
+~1% away from both the eager reference and the port; the gradient
+parity therefore compiles the reference with that option off. Measured
+on this seed: loss within 2e-5 relative, every gradient leaf within
+1.2e-2 relative norm error (the stated bounds leave ~2.5x room). The
+trainer's losses are held to the jitted reference ``Trainer`` at 2e-3
+(measured 3.8e-4 over 3 steps).
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from _torch_threads import one_intra_op_thread  # noqa: E402,F401
+
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_config, reduced  # noqa: E402
+from repro.data import synthetic  # noqa: E402
+from repro.models import api, common  # noqa: E402
+from repro.train.loop import Trainer as RefTrainer  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.configs import get_config as t_get_config  # noqa: E402
+from repro_torch.configs import reduced as t_reduced  # noqa: E402
+from repro_torch.core.kahan import tree_leaves  # noqa: E402
+from repro_torch.launch import train as launch  # noqa: E402
+from repro_torch.models import api as tapi  # noqa: E402
+from repro_torch.optim import accumulate as tacc  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.train.loop import Trainer  # noqa: E402
+
+LOSS_RTOL = 5e-5
+GRAD_RTOL = 3e-2
+TRAINER_RTOL = 2e-3
+
+
+def _cfgs():
+    return (reduced(get_config("qwen1.5-0.5b")),
+            t_reduced(t_get_config("qwen1.5-0.5b")))
+
+
+def _stack(tree):
+    """Port tree (per-layer lists) -> numpy tree of the reference's
+    stacked shape."""
+    if isinstance(tree, dict):
+        return {k: _stack(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return jax.tree.map(lambda *a: np.stack(a), *map(_stack, tree))
+    return bridge.to_numpy(tree)
+
+
+def _batch(cfg, seed=3):
+    return synthetic.make_batch(cfg, 32, 4, seed=seed)
+
+
+def _tbatch(batch):
+    return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+
+
+@pytest.fixture(scope="module")
+def setup():
+    cfg, tcfg = _cfgs()
+    params = common.init_params(api.schema(cfg), jax.random.key(0))
+    batch = _batch(cfg)
+    grad_fn = jax.jit(jax.value_and_grad(api.loss_fn(cfg), has_aux=True))
+    compiled = grad_fn.lower(params, batch).compile(
+        compiler_options={"xla_allow_excess_precision": False})
+    (loss, metrics), grads = compiled(params, batch)
+    return cfg, tcfg, params, batch, loss, metrics, grads
+
+
+def _bridged(params):
+    return bridge.params_from_reference(jax.tree.map(np.asarray, params),
+                                        "cpu", hold_bf16=False)
+
+
+def test_bridge_keeps_f32_masters_bitwise(setup):
+    _, _, params, *_ = setup
+    held = bridge.params_from_reference(jax.tree.map(np.asarray, params),
+                                        "cpu")
+    f32 = _bridged(params)
+    assert held["layers"][0]["attn"]["wq"].dtype == torch.bfloat16
+    assert all(t.dtype == torch.float32 for t in tree_leaves(f32))
+    got = _stack(f32)
+    for path, want in jax.tree_util.tree_flatten_with_path(params)[0]:
+        node = got
+        for k in path:
+            node = node[k.key]
+        np.testing.assert_array_equal(node.view(np.uint32),
+                                      np.asarray(want).view(np.uint32))
+
+
+def test_lm_loss_and_metrics_match_reference(setup):
+    _, tcfg, params, batch, loss, metrics, _ = setup
+    tloss, tmetrics = tapi.loss_fn(tcfg)(_bridged(params), _tbatch(batch))
+    np.testing.assert_allclose(float(tloss), float(loss), rtol=LOSS_RTOL)
+    assert set(tmetrics) == set(metrics)
+    for k, v in metrics.items():
+        np.testing.assert_allclose(float(tmetrics[k]), float(v),
+                                   rtol=LOSS_RTOL, atol=0)
+    logits, aux = tapi.forward_fn(tcfg)(_bridged(params), _tbatch(batch))
+    assert logits.dtype == torch.bfloat16 and logits.shape == (4, 32, 256)
+    assert set(aux) == {"moe_load_balance", "moe_z_loss",
+                        "moe_drop_fraction"}
+
+
+def test_gradients_match_jax_grad(setup):
+    """Every gradient leaf against ``jax.grad`` by relative norm error,
+    bf16 products and cotangents on both sides."""
+    _, tcfg, params, batch, loss, _, grads = setup
+    (tloss, _), tgrads = tacc.value_and_grad(tapi.loss_fn(tcfg),
+                                             _bridged(params),
+                                             _tbatch(batch))
+    np.testing.assert_allclose(float(tloss), float(loss), rtol=LOSS_RTOL)
+    got = _stack(tgrads)
+    errs = {}
+    for path, want in jax.tree_util.tree_flatten_with_path(grads)[0]:
+        node = got
+        for k in path:
+            node = node[k.key]
+        want = np.asarray(want, np.float32)
+        assert node.dtype == want.dtype and node.shape == want.shape
+        errs[jax.tree_util.keystr(path)] = (
+            np.linalg.norm(node - want) / np.linalg.norm(want))
+    assert len(errs) == 14 and max(errs.values()) < GRAD_RTOL, errs
+
+
+def test_remat_changes_no_bit(setup):
+    _, tcfg, params, batch, *_ = setup
+    outs = []
+    for remat in (False, True):
+        (loss, _), grads = tacc.value_and_grad(
+            tapi.loss_fn(tcfg.with_(remat=remat)), _bridged(params),
+            _tbatch(batch))
+        outs.append((loss, tree_leaves(grads)))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(outs[0][1], outs[1][1]))
+
+
+def test_training_refuses_mla_and_moe():
+    for arch in ("deepseek-v2-236b",):
+        tcfg = t_reduced(t_get_config(arch))
+        with pytest.raises(NotImplementedError, match="queue A item 13"):
+            tapi.loss_fn(tcfg)
+        with pytest.raises(NotImplementedError, match="queue A item 13"):
+            tapi.forward_fn(tcfg)
+
+
+def test_trainer_matches_reference_losses(setup):
+    """3 steps of the port's ``Trainer`` (2 microbatches, Kahan
+    accumulation and carry, fused gradient statistics) from the
+    reference ``Trainer``'s own initial parameters."""
+    cfg, tcfg, *_ = setup
+    kw = dict(seq_len=32, global_batch=4, n_microbatches=2, seed=0)
+    ref = RefTrainer(cfg, **kw)
+    ref.init_state()
+    start = _bridged(ref.params)
+    want = [h["loss"] for h in ref.run(3, log_every=0)["history"]]
+    t = Trainer(tcfg, device="cpu", **kw)
+    t.params = start
+    t.opt_state = adamw.init(t.params, t.opt_cfg)
+    hist = t.run(3, log_every=0)["history"]
+    np.testing.assert_allclose([h["loss"] for h in hist], want,
+                               rtol=TRAINER_RTOL)
+    for h in hist:
+        m = h["metrics"]
+        assert {"grad_norm", "grad_maxabs", "lr_scale", "ce_loss",
+                "tokens"} <= set(m)
+        assert np.isfinite(float(m["grad_norm"]))
+        assert float(m["tokens"]) == 64.0        # per microbatch, averaged
+    assert t.step == 3
+
+
+def test_trainer_runs_on_the_card_unless_told():
+    _, tcfg = _cfgs()
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(tcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch.main(["--arch", "qwen1.5-0.5b", "--steps", "1"])
+
+
+def test_launch_train_main_on_cpu(capsys):
+    out = launch.main(["--arch", "qwen1.5-0.5b", "--device", "cpu",
+                       "--steps", "2", "--seq-len", "16", "--batch", "2"])
+    assert len(out["history"]) == 2
+    assert all(np.isfinite(h["loss"]) for h in out["history"])
+    assert "done: 2 steps" in capsys.readouterr().out
+
+
+def test_dense_backward_on_card():
+    """The card's bf16 tensor-core product differentiates: its gradients
+    are the CPU path's (exact bf16 products, f32 sums) up to the f32
+    summation order, in the dtypes jax.grad gives."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the bf16 GEMM with an f32 result "
+                    "exists on the card only")
+    from repro_torch.models import common as tc
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((64, 256)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((256, 128)).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal((64, 128)).astype(np.float32))
+    grads = []
+    for dev in ("cpu", "cuda"):
+        xx = x.to(dev).to(torch.bfloat16).requires_grad_(True)
+        ww = w.to(dev, copy=True).requires_grad_(True)
+        (tc.dense(xx, ww).float() * c.to(dev)).sum().backward()
+        assert xx.grad.dtype == torch.bfloat16
+        assert ww.grad.dtype == torch.float32
+        grads.append((xx.grad.float().cpu(), ww.grad.cpu()))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, rtol=1e-2, atol=1e-2)
