@@ -27,6 +27,13 @@ Phases (each prints its own lines; any failure exits non-zero):
              two routes (bf16 and f32 on the tensor cores) at head dims
              from 8 to 128, multiples of 16 or not (causal or not, ragged
              lengths, one-row and one-key calls);
+   head    — the serving-head kernel (``csrc/serving_head.cu``) on
+             qwen1.5-0.5b's head (d 1024, V 151936), mamba2-780m's (d
+             1536, V 50280) and the tied layout: every row of an M = 64
+             call bitwise the same row at M = 1, 8, 40 and at other
+             places of the batch (bf16 and f32 hidden states), within
+             1e-5 x sum|h W| of the plain f32 product; times at M = 8,
+             40 and 1 against the bound and cuBLAS;
 4. path    — the kernel entry points of ``repro_torch.kernels`` at
              qwen1.5-0.5b's full widths, each with its launch counters
              zeroed just before and read just after: flash attention of
@@ -50,9 +57,9 @@ Phases (each prints its own lines; any failure exits non-zero):
              a fused_reduce call that launches more than one kernel; the
              verify window's rows: B1 and B3 at B = 8, W = 5, B2 at
              [40, 151936];
-6. small   — reduced qwen1.5 and reduced deepseek-v2 served on the card
-             and on the CPU (plain twins) from the same weights: logits
-             agree;
+6. small   — reduced qwen1.5, deepseek-v2 and mamba2-780m served on the
+             card and on the CPU (plain twins) from the same weights:
+             logits agree, greedy tokens equal;
 7. verify  — the speculative verify window (``verify_fn``) for 8 slots x
              5 tokens against 5 sequential ``decode_fn`` steps on a copy
              of the cache: full-width qwen1.5-0.5b over bf16, int8 and
@@ -149,7 +156,25 @@ Phases (each prints its own lines; any failure exits non-zero):
              the bf16 product's backward at the step's products against
              its plain version; card against CPU at ``small_config``:
              gradients per leaf, remat bitwise, AdamW updates and moments
-             on the same gradients, losses of 3 steps with no warmup.
+             on the same gradients, losses of 3 steps with no warmup;
+19. ssm    — mamba2-780m at full width and depth behind ``DecodeEngine``
+             (the serve phases' settings and traffic), with the SSD state
+             carry naive and compensated (``kahan_ssm_state``), each run
+             twice (bitwise the same); prefill chunk 64 against 256
+             (printed: the dual form's blocks follow the prompt chunk),
+             and on whole 64-token blocks with the SSD block pinned to 64
+             (bitwise, naive carry); launches held to the calls (B2, the
+             serving head); a profiled decode window; prefill device ms
+             per 256-token chunk, compensated against naive; runs after
+             the deepseek-v2 phases, before ``[train]``;
+20. cli    — ``python -m repro_torch.launch.serve`` as subprocesses on the
+             card: every registry arch with the defaults (hybrid and
+             audio refused with the reference's message), qwen1.5 with
+             int8 pools, n-gram speculation, session KV and fault
+             injection, and mamba2 with ``--prefix-cache`` (refused).
+
+Every serve path also holds the serving head's launches to its calls
+(one per prefill chunk, decode step, verify window and draft step).
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``. Imports nothing of ``jax`` or of the
@@ -1111,6 +1136,96 @@ def verify_times(dev, flush) -> dict:
 # drives each entry point of repro_torch.kernels at qwen1.5-0.5b's full
 # widths with its launch counters, and the times.
 
+HEAD_CASES = (("qwen1.5-0.5b lm_head", 1024, 151936, False),
+              ("mamba2-780m lm_head", 1536, 50280, False),
+              ("qwen1.5-0.5b tied embed", 1024, 151936, True))
+HEAD_ROWS = (1, 8, 40, 64)
+# f32 over K = 1024-1536: kernel and cuBLAS each round a K-term sum, so
+# they differ by a few f32 ulps of sum_k |h_k W_kv|, the scale of the sum
+HEAD_TOL = 1e-5
+
+
+def phase_head(dev) -> dict:
+    """The serving-head kernel on the card: logits of qwen1.5-0.5b's head
+    (d 1024, V 151936), mamba2-780m's (d 1536, V 50280) and the tied
+    layout ([V, d] embedding read in place). Fails unless every row of an
+    M = 64 call is bitwise the same row computed at M = 1, 8 and 40 and
+    at another place of the batch, for bf16 and f32 hidden states, and
+    the kernel is within ``HEAD_TOL`` x sum_k |h_k W_kv| of the plain f32
+    product (cuBLAS, TF32 off) everywhere. Then times the decode (M = 8),
+    verify (M = 40) and prefill (M = 1) calls of qwen1.5's head against
+    the bound and against cuBLAS. Returns the M = 8 row for the kernels
+    line, the other rows beside it."""
+    import torch
+    from repro_torch.kernels import serving_head as sh
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    worst, worst_abs = 0.0, 0.0
+    for label, d, v, tied in HEAD_CASES:
+        w = torch.randn((v, d) if tied else (d, v), generator=g,
+                        device=dev) / math.sqrt(d)
+        for hdt in (torch.bfloat16, torch.float32):
+            h = torch.randn((64, d), generator=g, device=dev).to(hdt)
+            full = sh.serving_head_cuda(h, w, tied=tied)
+            same = all(torch.equal(sh.serving_head_cuda(h[:m], w, tied=tied),
+                                   full[:m]) for m in HEAD_ROWS)
+            # the same rows at other places of a batch
+            same = same and torch.equal(
+                sh.serving_head_cuda(h[63:], w, tied=tied), full[63:]) \
+                and torch.equal(sh.serving_head_cuda(h[56:], w, tied=tied),
+                                full[56:]) \
+                and torch.equal(sh.serving_head_cuda(h[24:], w, tied=tied),
+                                full[24:]) \
+                and torch.equal(sh.serving_head_cuda(h.flip(0), w,
+                                                     tied=tied).flip(0), full)
+            plain = sh.serving_head_plain(h, w, tied=tied)
+            scale = sh.serving_head_plain(h.abs(), w.abs(), tied=tied)
+            err = float(((full - plain).abs() / scale).max())
+            abs_err = float((full - plain).abs().max())
+            worst, worst_abs = max(worst, err), max(worst_abs, abs_err)
+            log(f"[head] {label} {str(hdt)[6:]} h: rows bitwise across M "
+                f"{HEAD_ROWS} and batch places {same}; against the plain "
+                f"f32 product: max|diff| {abs_err:.4g}, max|diff| / "
+                f"sum|h W| {err:.3g} (tol {HEAD_TOL})")
+            if not same:
+                fail(f"serving head {label}: a row's logits depend on M "
+                     f"or on its place in the batch")
+            if not err <= HEAD_TOL or not bool(torch.isfinite(full).all()):
+                fail(f"serving head {label}: {err:.3g} x sum|h W| from the "
+                     f"plain product (tol {HEAD_TOL})")
+            del h, full, plain, scale
+        del w
+    try:
+        sh.serving_head_cuda(torch.ones((2, 8), device=dev),
+                             torch.ones((8, 16), device=dev,
+                                        dtype=torch.bfloat16))
+    except ValueError:
+        pass
+    else:
+        fail("serving head: bf16 weights did not raise")
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
+    d, v = 1024, 151936
+    w = torch.randn((d, v), generator=g, device=dev) / math.sqrt(d)
+    rows = {}
+    for m, what in ((8, "decode, M = 8"), (40, "verify window, M = 40"),
+                    (1, "prefill chunk's last row, M = 1")):
+        h = torch.randn((m, d), generator=g, device=dev).to(torch.bfloat16)
+        hf = h.float()
+        rows[m] = time_row(
+            flush, f"serving_head M={m}",
+            lambda: sh.serving_head_cuda(h, w),
+            lambda: sh.serving_head_plain(h, w),
+            lambda: torch.mm(hf, w), ("serving_head_kernel",),
+            sh.bytes_moved(m, d, v, h_bytes=2), 0, 2 * m * d * v,
+            F32_FLOPS_PER_S,
+            f"qwen1.5-0.5b head [{m}, {d}] x [{d}, {v}] f32, bf16 h, "
+            f"{what} (library: torch.mm f32, cuBLAS)")
+    del flush, w
+    torch.cuda.empty_cache()
+    out = dict(rows[8], max_abs_err=worst_abs, max_rel_err=worst,
+               verify=rows[40], prefill=rows[1])
+    return out
+
+
 def _module(name: str):
     """A kernel module of ``repro_torch.kernels`` (the package rebinds
     ``kahan_matmul`` and ``flash_attention`` to the entry functions)."""
@@ -1676,7 +1791,7 @@ def phase_slice_times(dev, fx) -> dict:
 # on an H100 are 1.19e-06 (qwen1.5) and 7.15e-07 (deepseek-v2), so ~8x
 # and ~14x that: a bf16 flip (a jump of order 1e-2) fails the check.
 SMALL_TOL = 1e-5
-SMALL_ARCHS = ("qwen1.5-0.5b", "deepseek-v2-236b")
+SMALL_ARCHS = ("qwen1.5-0.5b", "deepseek-v2-236b", "mamba2-780m")
 
 
 def small_config(arch: str):
@@ -1705,9 +1820,11 @@ def phase_small(dev, arch: str) -> float:
     lc = api.prefill_chunk_fn(cfg)(params_cpu, prompt, caches["cpu"], 0, 0)
     lgp = api.prefill_chunk_fn(cfg)(params_gpu, prompt.to(dev), caches[dev],
                                     0, 0)
+    same_tokens = True
     for step in range(6):
         worst = max(worst, float((lgp.cpu() - lc).abs().max()))
         tok = int(lc[0].argmax())
+        same_tokens = same_tokens and int(lgp[0].argmax()) == tok
         toks.append(tok)
         t = torch.tensor([[tok]], dtype=torch.int32)
         lc = api.decode_fn(cfg)(params_cpu, t, caches["cpu"])
@@ -1715,8 +1832,9 @@ def phase_small(dev, arch: str) -> float:
     tol = SMALL_TOL
     log(f"[small] reduced {arch} ({cfg.num_layers} layers, d={cfg.d_model}, "
         f"vocab 512) card vs CPU, prefill 37 + 6 decode steps: max|logit "
-        f"diff| {worst:.4g} (tol {tol}); tokens {toks}")
-    if not worst <= tol:
+        f"diff| {worst:.4g} (tol {tol}); greedy tokens {toks}, the same "
+        f"on both {same_tokens}")
+    if not worst <= tol or not same_tokens:
         fail(f"card and CPU disagree on the reduced {arch}")
     return worst
 
@@ -1917,7 +2035,8 @@ def phase_verify_parity(dev, cfg, params, label: str) -> float:
             not bool(torch.isfinite(got).all()):
         fail(f"verify {label} {cfg.kv_dtype}: logits {tuple(got.shape)}, "
              f"finite {bool(torch.isfinite(got).all())}")
-    if not control or one_launch != {attn: cfg.num_layers}:
+    want_launch = {attn: cfg.num_layers, "serving_head": 1}
+    if not control or one_launch != want_launch:
         fail(f"verify {label} {cfg.kv_dtype}: the 1-token window is not "
              f"the decode step bitwise (or launched {one_launch})")
     if not same:
@@ -1926,8 +2045,7 @@ def phase_verify_parity(dev, cfg, params, label: str) -> float:
     if any(t[2] > 4 * typical for t in ties):
         fail(f"verify {label} {cfg.kv_dtype}: an argmax differs past a "
              f"near-tie")
-    if per_layer[0] > 1.0 or not lens_ok or \
-            launches != {attn: cfg.num_layers}:
+    if per_layer[0] > 1.0 or not lens_ok or launches != want_launch:
         fail(f"verify {label} {cfg.kv_dtype}: layer 0 entries "
              f"{per_layer[0]} steps, len exact {lens_ok}, launches "
              f"{launches}")
@@ -1991,11 +2109,33 @@ class _RouteLog:
         return flipped
 
 
+class HeadCalls:
+    """Counts the calls of the model's serving head
+    (``models.lm._serving_logits``) on the card while open: one per
+    prefill chunk, decode step, verify window and draft step of any
+    engine, the calls the ``serving_head`` launches are held to."""
+
+    def __init__(self):
+        from repro_torch.models import lm
+        self.lm, self.fn, self.n = lm, lm._serving_logits, 0
+
+        def counted(h, params, cfg):
+            self.n += int(h.is_cuda)
+            return self.fn(h, params, cfg)
+
+        lm._serving_logits = counted
+
+    def close(self) -> None:
+        self.lm._serving_logits = self.fn
+
+
 def serve_run(engine, reqs) -> tuple[float, list, dict]:
     """Submit ``reqs``, zero the launch counters, run ``engine`` until
     every request finishes and read the counters. Returns the wall time
     (s), the host-clock time of each decode (or verify) step (ms; a step
-    ends in its one host transfer) and the counters."""
+    ends in its one host transfer) and the counters. The serving head's
+    calls in the run are left on ``engine.smoke_head_calls`` for
+    ``check_served``."""
     import torch
     from repro_torch.kernels import ops
     step_ms = []
@@ -2010,11 +2150,16 @@ def serve_run(engine, reqs) -> tuple[float, list, dict]:
     for r in reqs:
         engine.submit(r)
     ops.reset_launches()
-    t0 = time.perf_counter()
-    engine.run_until_done()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(ops.launches)
+    heads = HeadCalls()
+    try:
+        t0 = time.perf_counter()
+        engine.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.launches)
+    finally:
+        heads.close()
+    engine.smoke_head_calls = heads.n
     engine._decode_step = decode_step   # the profile window is not timed
     return wall, step_ms, launches
 
@@ -2023,7 +2168,8 @@ def check_served(what: str, engine, reqs, launches: dict, want: dict,
                  new_tokens: int = 32) -> None:
     """Every request done with its full output, no guard trip, finite
     statistics, and the launch counters equal to the calls the path
-    makes."""
+    makes (the serving head: one launch per head call of the run, unless
+    ``want`` says otherwise)."""
     import torch
     if not all(r.done and len(r.output) == new_tokens for r in reqs):
         fail(f"{what}: a request did not finish with its full output")
@@ -2034,6 +2180,7 @@ def check_served(what: str, engine, reqs, launches: dict, want: dict,
                for v in engine.last_logit_stats.values()):
         fail(f"{what}: non-finite logit statistics")
     full = dict.fromkeys(launches, 0)
+    full["serving_head"] = engine.smoke_head_calls
     full.update(want)
     if launches != full:
         fail(f"{what}: launch counters {launches} != {full}")
@@ -2073,7 +2220,9 @@ def phase_serve(dev, kind: str, cfg, what: str, params) -> dict:
         else "paged_attention"
     check_served(f"{cfg.name} {cfg.kv_dtype} serve", engine, reqs, launches,
                  {attn: cfg.num_layers * st["decode_steps"],
-                  "fused_reduce": 2 * (st["decode_steps"] + len(reqs))})
+                  "fused_reduce": 2 * (st["decode_steps"] + len(reqs)),
+                  "serving_head": st["decode_steps"]
+                  + st["prefill_chunks"]})
     prof = profile_decode(engine, cfg)
     log(f"[serve] peak device memory with the profiled window "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
@@ -2264,7 +2413,8 @@ def profile_decode(engine, cfg, n_steps: int = 4, what: str = "decode",
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.serving.engine import Request
-    names = LATENT_KERNELS if cfg.mla is not None else PAGED_KERNELS
+    names = (() if cfg.family == "ssm" else LATENT_KERNELS
+             if cfg.mla is not None else PAGED_KERNELS)
     want = n_steps * cfg.num_layers
     if cfg.mla is not None:
         lib = pa._latent_lib()
@@ -2308,13 +2458,16 @@ def profile_decode(engine, cfg, n_steps: int = 4, what: str = "decode",
                   for n in names}
         reduce_n = sum(ev.count for ev in kern
                        if "fused_reduce_kernel" in ev.key)
+        head_n = sum(ev.count for ev in kern
+                     if "serving_head_kernel" in ev.key)
         if all(c == want for c in counts.values()) and \
-                reduce_n == 2 * n_steps:
+                reduce_n == 2 * n_steps and head_n == n_steps:
             break
         lost += 1
         log(f"[profile] {cfg.name} {what} window, try {attempt + 1}: the "
             f"profiler lost device events ({counts}, want {want} each; "
-            f"fused_reduce_kernel {reduce_n}, want {2 * n_steps}); tracing "
+            f"fused_reduce_kernel {reduce_n}, want {2 * n_steps}; "
+            f"serving_head_kernel {head_n}, want {n_steps}); tracing "
             f"again")
         time.sleep(0.5)
     else:
@@ -2325,21 +2478,27 @@ def profile_decode(engine, cfg, n_steps: int = 4, what: str = "decode",
         f"steps x 8 slots: wall {wall_ms:.3f} ms/step, device busy "
         f"{busy_ms:.3f} ms/step, device idle share "
         f"{1 - busy_ms / wall_ms:.3f}, {per_step_k:.0f} kernels/step; "
-        f"launches of {', '.join(names)}: {counts} (want {want} each), of "
-        f"fused_reduce_kernel {reduce_n} (two calls per step, one kernel "
-        f"each); windows lost to the profiler: {lost}")
-    label = "MLA latent attention" if cfg.mla is not None else \
-        "GQA attention"
-    mine = [ev for ev in kern if any(n in ev.key for n in names)]
-    log(f"[profile] {label} (split + merge): "
-        f"{sum(_device_us(ev) for ev in mine) / 1e3 / n_steps:.4f} "
-        f"ms/step of device time, "
-        f"{sum(ev.count for ev in mine) / n_steps:.1f} kernel "
-        f"launches/step")
+        f"launches of {', '.join(names) or 'attention kernels (none)'}: "
+        f"{counts} (want {want} each), of fused_reduce_kernel {reduce_n} "
+        f"(two calls per step, one kernel each), of serving_head_kernel "
+        f"{head_n} (one per step); windows lost to the profiler: {lost}")
+    head_ms = sum(_device_us(ev) for ev in kern
+                  if "serving_head_kernel" in ev.key) / 1e3 / n_steps
+    if names:
+        label = "MLA latent attention" if cfg.mla is not None else \
+            "GQA attention"
+        mine = [ev for ev in kern if any(n in ev.key for n in names)]
+        log(f"[profile] {label} (split + merge): "
+            f"{sum(_device_us(ev) for ev in mine) / 1e3 / n_steps:.4f} "
+            f"ms/step of device time, "
+            f"{sum(ev.count for ev in mine) / n_steps:.1f} kernel "
+            f"launches/step")
+    log(f"[profile] serving head: {head_ms:.4f} ms/step of device time")
     for ev in sorted(kern, key=_device_us, reverse=True)[:10]:
         log(f"[profile]   {_device_us(ev) / 1e3 / n_steps:8.3f} ms/step "
             f"{ev.count / n_steps:6.1f}/step  {ev.key[:90]}")
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=per_step_k)
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=per_step_k,
+                head_ms=head_ms)
 
 
 # ------------------------------------------------ keyed RNG and sampling --
@@ -2702,6 +2861,7 @@ class _CallCount:
         self.mod, self.stats_fn = engine_mod, engine_mod._logit_stats
         self.model_steps = 0
         self.stats = 0
+        self.heads = HeadCalls()
 
         def counted_stats(*a):
             self.stats += 1
@@ -2724,6 +2884,7 @@ class _CallCount:
 
     def close(self) -> None:
         self.mod._logit_stats = self.stats_fn
+        self.heads.close()
 
 
 def fault_run(dev, cfg, params, calls: _CallCount):
@@ -2800,7 +2961,8 @@ def phase_faults(dev, kind: str, cfg, params, base: dict,
             total[k] = total.get(k, 0) + v
         full = dict.fromkeys(launches, 0)
         full.update(paged_attention=cfg.num_layers * calls.model_steps,
-                    fused_reduce=2 * calls.stats)
+                    fused_reduce=2 * calls.stats,
+                    serving_head=calls.heads.n)
         if launches != full:
             fail(f"faults: launch counters {launches} != {full}")
         primary, degraded = server.primary, server.degraded
@@ -3152,12 +3314,14 @@ def conversation_turns(cfg, seed: int, n_conv: int = 8, turns: int = 3):
 # seeds ``SESSION_CALIB_SEEDS`` (not the phase's ``SESSION_SEED``) on an
 # NVIDIA H100 80GB HBM3, 700.00 W: the largest |warm - cold| logprob of a
 # token emitted before the streams part (seed 105; the six seeds read
-# 0.150-0.238), and the largest decode-written vs prefill-written entry
-# distance of any layer, in storage steps (seed 102, layer 23; 27.6-43.1).
+# 0.151-0.238), and the largest decode-written vs prefill-written entry
+# distance of any layer, in storage steps (seed 102, layer 22; 27.6-43.1).
+# Re-measured after the serving head moved to its own kernel (the
+# readings of the cuBLAS head were 0.2379593849182129 and 43.149).
 # Re-measure them with that script when the served path's numerics change.
 SESSION_SEED = SEED + 5
 SESSION_CALIB_SEEDS = tuple(range(SEED + 100, SEED + 106))
-SESSION_NOISE = 0.2379593849182129
+SESSION_NOISE = 0.23796796798706055
 SESSION_STEPS = 43.149
 
 
@@ -3656,7 +3820,7 @@ def phase_obs(dev, kind: str, cfg, params, serve: dict, flat: dict,
 TRAIN_KW = dict(seq_len=256, global_batch=8, n_microbatches=4,
                 opt_kahan=True, fused_grad_stats=True)
 TRAIN_STEPS = 6
-TRAIN_PROFILE_STEPS = 2
+TRAIN_PROFILE_STEPS = 1
 # card against CPU at small_config from the same f32 parameters
 # (``train_cpu_parity``): the largest relative difference, per leaf by
 # norm, each quantity may show; measured on an H100 80GB HBM3 at 700 W:
@@ -4073,6 +4237,275 @@ def phase_train(dev, kind: str, qwen) -> dict:
                 profile=prof, cpu_rel=par, dense_bwd=bwd)
 
 
+SSM_ARCH = "mamba2-780m"
+SSM_PREFILL_REPS = 2
+
+
+def ssm_prefill_ms(dev, cfg, params) -> tuple[float, float]:
+    """Device ms and CUDA-event ms of one 256-token prefill chunk of
+    ``cfg`` (one slot, continuing its own state): the profiler's device
+    time of every kernel over ``SSM_PREFILL_REPS`` chunks, per chunk."""
+    import torch
+    from repro_torch.models import api
+    kv = api.KVCache.build(cfg, max_context=1024, block_size=16, max_slots=1)
+    caches = kv.init(1, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (1, 256), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(SEED + 9)
+                        ).to(dev)
+    run = lambda: api.prefill_chunk_fn(cfg)(params, tok, caches, 0, 0)  # noqa: E731,E501
+    run()
+    torch.cuda.synchronize()
+    prof = _profiled(run, None, SSM_PREFILL_REPS)
+    busy = sum(_device_us(ev) for ev in _device_kernels(prof)) / 1e3
+    s, e = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(SSM_PREFILL_REPS):
+        run()
+    e.record()
+    torch.cuda.synchronize()
+    return busy / SSM_PREFILL_REPS, s.elapsed_time(e) / SSM_PREFILL_REPS
+
+
+def _parted(a: dict, b: dict) -> dict:
+    """{rid: first output index where the two greedy streams differ}."""
+    return {rid: next((i for i, (x, y) in enumerate(zip(s, b[rid]))
+                       if x != y), min(len(s), len(b[rid])))
+            for rid, s in a.items() if s != b[rid]}
+
+
+def phase_ssm(dev, kind: str) -> dict:
+    """The ssm family's main path: mamba2-780m at full width and depth (48
+    Mamba2 layers, d_model 1536, d_inner 3072, 48 SSD heads of 64, 128
+    states, vocab 50280; random weights seed ``SEED``) behind
+    ``DecodeEngine`` on the serve phases' settings (8 slots, context 1024,
+    block 16, prefill chunk 256; 16 greedy requests of 64-512 prompt
+    tokens, 32 new tokens each), with the SSD state carry uncompensated
+    (the config's default) and compensated (``kahan_ssm_state``). Each is
+    run twice on fresh engines, the counters zeroed just before and read
+    just after each run. Gates: every request finishes with no guard
+    trip; the launches equal the calls (B2 twice per decode step and per
+    first token, the serving head once per decode step and per prefill
+    chunk); the two runs give the same bits (tokens, logprobs, counters).
+
+    Chunk size. The SSD dual form (``_ssd_chunk_scan``) works in blocks
+    of ``SSMConfig.chunk`` (256) or of the prompt chunk, if shorter, and
+    a prompt's tail block is zero-padded within a call and not across
+    calls: another prefill chunk is other block arithmetic (decay weights
+    from cumsum differences, products over another length), so a run at
+    prefill chunk 64 parts from the chunk-256 run (naive carry; printed;
+    ``tools/verify_m_ops.py --case ssm-prefill`` names the op). The gate
+    holds the continuation itself: 8 requests whose prompts are whole
+    multiples of 64 tokens, with the SSD block pinned to 64, make the
+    same block arithmetic at prefill chunk 256 and 64, so their tokens
+    and logprobs must be bitwise equal (naive carry). The compensated
+    carry folds its carry into the cached state at every prefill call
+    (the reference's cache holds one state), so its pair is printed.
+
+    Printed beside the card: decode device busy ms, kernels per step and
+    idle share from a profiled window (the naive config's: decode has no
+    carry); median step and tok/s; prefill device ms per 256-token
+    chunk, compensated against naive (run in turns); peak memory."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serving.engine import DecodeEngine
+    base_cfg = get_config(SSM_ARCH)
+    what = (f"{SSM_ARCH} full width (48 L, d 1536, d_inner 3072, 48 H x "
+            f"64, state 128, vocab 50280, random weights seed {SEED})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(base_cfg, device=dev, seed=SEED)
+
+    def run(cfg, chunk, label, aligned=False):
+        engine = DecodeEngine(cfg, params, device=dev,
+                              **{**SERVE_KW, "prefill_chunk": chunk})
+        reqs = make_requests(cfg)
+        if aligned:        # 8 prompts of whole 64-token blocks
+            reqs = reqs[:8]
+            for r in reqs:
+                r.prompt = r.prompt[:max(64, len(r.prompt) // 64 * 64)]
+        wall, step_ms, launches = serve_run(engine, reqs)
+        st = engine.kv_stats
+        check_served(f"{label} prefill chunk {chunk}", engine, reqs,
+                     launches,
+                     {"fused_reduce": 2 * (st["decode_steps"] + len(reqs)),
+                      "serving_head": st["decode_steps"]
+                      + st["prefill_chunks"]})
+        if st["paged_bytes"]:
+            fail(f"{label}: {st['paged_bytes']} paged bytes for a "
+                 f"constant-state family")
+        emitted = sum(len(r.output) for r in reqs)
+        log(f"[ssm] {what}, {label}, prefill chunk {chunk}, SSD chunk "
+            f"{cfg.ssm.chunk}: {len(reqs)} requests "
+            f"{'(prompts of whole 64-token blocks) ' if aligned else ''}"
+            f"{emitted} tokens in "
+            f"{wall:.3f} s = {emitted / wall:.2f} tok/s; "
+            f"{st['decode_steps']} decode steps, median step "
+            f"{statistics.median(step_ms):.3f} ms; {st['prefill_chunks']} "
+            f"prefill chunks; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        return dict(engine=engine, launches=launches, wall=wall,
+                    step_ms=statistics.median(step_ms),
+                    tok_s=emitted / wall,
+                    streams={r.rid: list(r.output) for r in reqs},
+                    logprobs={r.rid: list(r.logprobs) for r in reqs},
+                    stats=dict(st))
+
+    out = {}
+    for comp in (False, True):
+        cfg = base_cfg.with_(kahan_ssm_state=comp)
+        label = f"{SSM_ARCH} {'compensated' if comp else 'naive'} carry"
+        a, b = run(cfg, 256, label), run(cfg, 256, label)
+        same = (a["streams"] == b["streams"]
+                and a["logprobs"] == b["logprobs"]
+                and a["launches"] == b["launches"]
+                and a["stats"] == b["stats"])
+        free = None
+        if not comp:
+            free = _parted(a["streams"], run(cfg, 64, label)["streams"])
+        pinned = cfg.with_(ssm=cfg.ssm._replace(chunk=64))
+        p256 = run(pinned, 256, label, aligned=True)
+        p64 = run(pinned, 64, label, aligned=True)
+        fixed = _parted(p256["streams"], p64["streams"])
+        exact = p256["streams"] == p64["streams"] and \
+            p256["logprobs"] == p64["logprobs"]
+        log(f"[ssm] {label}: two runs bitwise the same (tokens, logprobs, "
+            f"counters) {same}; "
+            + ("" if free is None else
+               f"prefill chunk 64 against 256 at the config's SSD chunk "
+               f"({cfg.ssm.chunk}): greedy streams equal for "
+               f"{16 - len(free)} of 16 requests (parted at {free}); ")
+            + f"whole 64-token blocks with the SSD chunk pinned to 64, "
+            f"prefill chunk 64 against 256: greedy streams equal for "
+            f"{8 - len(fixed)} of 8 (parted at {fixed}), tokens and "
+            f"logprobs bitwise {exact}")
+        if not same:
+            fail(f"{label}: two runs of the same requests differ")
+        if not comp and not exact:
+            fail(f"{label}: with the same SSD blocks, prefill chunk 64 "
+                 f"and 256 give other bits")
+        # decode has no carry (``mamba2_decode`` steps the state once per
+        # token), so one window serves both configs
+        prof = out[f"{SSM_ARCH} naive carry"]["profile"] if comp else \
+            profile_decode(a["engine"], cfg, what=f"{label} decode")
+        out[label] = dict(launches=a["launches"], tok_s=a["tok_s"],
+                          step_ms=a["step_ms"], profile=prof,
+                          parted_free=None if free is None else len(free),
+                          parted_pinned=len(fixed), pinned_exact=exact)
+        del a, b, p256, p64
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    # prefill device time per 256-token chunk, naive and compensated in
+    # turns (twice each)
+    pre = {False: [], True: []}
+    for comp in (False, True, False, True):
+        pre[comp].append(ssm_prefill_ms(
+            dev, base_cfg.with_(kahan_ssm_state=comp), params))
+    naive = min(x[0] for x in pre[False])
+    comp = min(x[0] for x in pre[True])
+    log(f"[ssm] {SSM_ARCH} prefill, one 256-token chunk on {kind}: device "
+        f"busy naive {naive:.3f} ms, compensated {comp:.3f} ms "
+        f"(compensated / naive {comp / naive:.4f}); CUDA-event ms per "
+        f"chunk naive {[round(x[1], 3) for x in pre[False]]}, compensated "
+        f"{[round(x[1], 3) for x in pre[True]]}; peak device memory of "
+        f"the phase {peak:.2f} GiB (max_memory_allocated less the "
+        f"{held / 2 ** 30:.2f} GiB earlier phases still held)")
+    out["prefill"] = dict(naive_ms=naive, compensated_ms=comp,
+                          ratio=comp / naive, peak_gib=peak)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+CLI_EXTRA = (["--kv-dtype", "int8"], ["--spec-mode", "ngram"],
+             ["--session-kv"], ["--faults"])
+CLI_REFUSED = {"zamba2-1.2b": "engine serves LM families; hybrid uses the "
+                              "prefill/decode API directly",
+               "whisper-tiny": "engine serves LM families; audio uses the "
+                               "prefill/decode API directly"}
+CLI_PREFIX_SSM = ("--prefix-cache: mamba2-780m is an 'ssm'-family model with "
+                  "constant-size recurrent state")
+CLI_PARALLEL = 8
+CLI_TIMEOUT_S = 240
+
+
+def phase_cli(dev) -> dict:
+    """``python -m repro_torch.launch.serve`` as subprocesses on the card
+    (reduced configs, as the reference CLI serves them), ``CLI_PARALLEL``
+    at a time: once per arch of the registry with the defaults, then
+    qwen1.5-0.5b with each of ``CLI_EXTRA``, then ``--arch mamba2-780m
+    --prefix-cache``. Every servable run exits 0 with a summary line of
+    all its requests done (6; 18 over the 3 turns of ``--session-kv``;
+    ``--faults`` also prints that every armed site fired and every
+    surviving request finished); zamba2-1.2b and whisper-tiny exit
+    non-zero with the reference's message, and so does the ssm
+    prefix-cache run; any other outcome fails the phase."""
+    import os
+    from repro_torch.configs import REGISTRY
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(HERE / "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    jobs = [(f"--arch {a}", ["--arch", a]) for a in sorted(REGISTRY)]
+    jobs += [(f"qwen1.5-0.5b {' '.join(x)}", x) for x in CLI_EXTRA]
+    jobs += [("mamba2-780m --prefix-cache",
+              ["--arch", "mamba2-780m", "--prefix-cache"])]
+    t0 = time.perf_counter()
+    results, running, todo = {}, {}, list(jobs)
+    while todo or running:
+        while todo and len(running) < CLI_PARALLEL:
+            name, argv = todo.pop(0)
+            cmd = [sys.executable, "-m", "repro_torch.launch.serve",
+                   "--device", dev.type, *argv]
+            running[name] = (subprocess.Popen(
+                cmd, cwd=str(HERE), env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True), time.perf_counter())
+        time.sleep(0.2)
+        for name, (proc, start) in list(running.items()):
+            late = time.perf_counter() - start > CLI_TIMEOUT_S
+            if proc.poll() is None and not late:
+                continue
+            if late:
+                proc.kill()
+            out, err = proc.communicate()
+            if late:
+                err += f"\n(killed after {CLI_TIMEOUT_S} s)"
+            del running[name]
+            results[name] = (proc.returncode, out, err,
+                             time.perf_counter() - start)
+    bad = []
+    for name, _ in jobs:
+        rc, out, err, secs = results[name]
+        lines = out.strip().splitlines()
+        last = lines[-1] if lines else ""
+        arch = name.split()[1] if name.startswith("--arch") else None
+        if arch in CLI_REFUSED or name == "mamba2-780m --prefix-cache":
+            want = CLI_REFUSED.get(arch, CLI_PREFIX_SSM)
+            ok = rc not in (0, None) and want in err
+            shown = err.strip().splitlines()[-1] if err.strip() else ""
+        else:
+            n = 18 if "--session-kv" in name else 6
+            summary = [x for x in lines if " requests, " in x
+                       and "tok/s" in x]
+            shown = summary[-1] if summary else last
+            ok = rc == 0 and shown.startswith(f"{n} requests, ")
+            if "--faults" in name:
+                ok = ok and last.startswith("faults: all armed sites fired")
+        log(f"[cli] {name}: exit {rc} in {secs:.1f} s: {shown[:240]}")
+        if "--faults" in name:
+            for line in lines[-3:]:
+                log(f"[cli]   {line[:240]}")
+        if not ok:
+            bad.append(name)
+            log(f"[cli] {name}: stderr tail: {err[-1500:]}")
+    log(f"[cli] {len(jobs)} runs in {time.perf_counter() - t0:.1f} s, "
+        f"{CLI_PARALLEL} at a time")
+    if bad:
+        fail(f"the serving CLI failed for {bad}")
+    return {name: results[name][0] for name, _ in jobs}
+
+
 def report_c1(q_paths: dict, d_paths: dict) -> None:
     """The per-step numbers of the C1 repair against its prediction
     (printed, not gated): deepseek-v2 decode device busy <= 20 ms and
@@ -4111,6 +4544,9 @@ def main() -> int:
     acc_err = phase_acc_parity(dev)
     mm_err = phase_matmul_parity(dev)
     flash_err = phase_flash_parity(dev)
+    t0 = time.perf_counter()
+    head = phase_head(dev)
+    head_s = time.perf_counter() - t0
     qwen = get_config("qwen1.5-0.5b")
     k_launch, fx = phase_kernel_path(dev, qwen)
     times = phase_times(dev)
@@ -4129,7 +4565,7 @@ def main() -> int:
     q_what = ("qwen1.5-0.5b full width (24 L, d 1024, 16 H, vocab 151936, "
               f"random weights seed {SEED})")
     q_params = api.init_params(qwen, device=dev, seed=SEED)
-    wall = {}                     # seconds each phase took, host clock
+    wall = {"head": head_s}       # seconds each phase took, host clock
     t0 = time.perf_counter()
     noise = {kvd: phase_verify_parity(dev, qwen.with_(kv_dtype=kvd),
                                       q_params, "qwen1.5-0.5b")
@@ -4228,11 +4664,25 @@ def main() -> int:
     del d_params
     torch.cuda.empty_cache()
     report_c1(q_paths, d_paths)
+    q_busy = q_paths["qwen1.5-0.5b bf16"]["profile"]["busy_ms"]
+    log(f"[head] qwen1.5 bf16 decode device busy with the serving-head "
+        f"kernel: {q_busy:.3f} ms/step (budget 1.05 x 4.888 = "
+        f"{1.05 * 4.888:.3f}), of it the head "
+        f"{q_paths['qwen1.5-0.5b bf16']['profile']['head_ms']:.4f} ms")
+    # the ssm family at full width: mamba2-780m, naive and compensated
+    # state carry
+    t0 = time.perf_counter()
+    s_paths = phase_ssm(dev, kind)
+    wall["mamba2-780m"] = time.perf_counter() - t0
     # the training path at full width: Kahan microbatch accumulation and
     # the AdamW carry on B7, the fused gradient statistics on B2f
     t0 = time.perf_counter()
     train = phase_train(dev, kind, qwen)
     wall["qwen1.5-0.5b train"] = time.perf_counter() - t0
+    # the serving CLI over every registry arch, as subprocesses
+    t0 = time.perf_counter()
+    phase_cli(dev)
+    wall["cli"] = time.perf_counter() - t0
 
     def by_path(paths, name):
         return {k: v["launches"][name] for k, v in paths.items()}
@@ -4243,8 +4693,13 @@ def main() -> int:
                   "qwen1.5-0.5b spec proposer stalls")
     pa_by = by_path(q_paths, "paged_attention")
     lat_by = by_path(d_paths, "paged_latent_attention")
+    ssm_paths = {k: v for k, v in s_paths.items() if "launches" in v}
+    head_by = {**by_path(q_paths, "serving_head"),
+               **by_path(d_paths, "serving_head"),
+               **by_path(ssm_paths, "serving_head")}
     red_by = {**by_path(q_paths, "fused_reduce"),
               **by_path(d_paths, "fused_reduce"),
+              **by_path(ssm_paths, "fused_reduce"),
               "flat entry points": k_launch["fused_reduce"],
               "train": train["launches"]["fused_reduce"],
               "obs calibration": q_paths["qwen1.5-0.5b obs"][
@@ -4300,8 +4755,16 @@ def main() -> int:
                  "train": train["launches"]["kahan_acc"]},
              max_abs_err=acc_err, **times["kahan_acc"],
              train=dict(device_ms_per_step=train["profile"]["b7_ms"])),
+        dict(name="serving_head", route="cuda",
+             source="src/repro_torch/csrc/serving_head.cu",
+             replaces="src/repro/models/lm.py:140",
+             launches=sum(head_by.values()), launches_by_path=head_by,
+             max_abs_err=head["max_abs_err"],
+             **{k: head[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+             verify=head["verify"], prefill=head["prefill"]),
     ]
-    for name, r in {**q_paths, **d_paths}.items():
+    for name, r in {**q_paths, **d_paths, **ssm_paths}.items():
         extra = "" if "acceptance" not in r else (
             f", acceptance rate {r['acceptance']:.4f}, mean accepted length "
             f"{r['accepted_len']:.4f}, near-tie divergences {r['ties']}")

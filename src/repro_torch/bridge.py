@@ -15,9 +15,12 @@ Name map (reference tree -> port tree):
     embed                      -> params["embed"]                [V, d]
     final_norm/scale           -> params["final_norm"]["scale"]  [d]
     lm_head                    -> params["lm_head"]              [d, V]
+    vision_proj/{w1, w2}       -> params["vision_proj"][...]     (vlm)
     layers/<path> [L, ...]     -> params["layers"][i][<path>]    [...]
     dense_layers/<path> [K, ...] -> params["dense_layers"][i][<path>]
-        <path> in ln_attn/scale, ln_mlp/scale,
+        <path> in ln_attn/scale, ln_mlp/scale (and /bias: layernorm),
+                  norm/scale, mixer/{in_proj, conv_w, conv_b, A_log,
+                        D, dt_bias, norm, out_proj}             (Mamba2)
                   attn/{wq, wk, wv, wo, bq, bk, bv}             (GQA)
                   attn/{wq_a, q_norm, wq_b, wkv_a, kv_norm,
                         wk_b, wv_b, wo}                         (MLA)
@@ -34,7 +37,8 @@ onto ONE port dict whose [L, ...] leaves concatenate the stacks along
 the layer axis (dense first): kpool / vpool [L, nb, bs, Hkv, D],
 kscale / vscale [L, nb, bs, Hkv]; c_kv [L, nb, bs, C], k_rope
 [L, nb, bs, R], c_kv_scale / k_rope_scale [L, nb, bs]; block_table
-[L, B, mb], len [L, B]. ``caches_to_reference`` splits it back.
+[L, B, mb], len [L, B]; Mamba2 state ssm [L, B, H, N, P], conv
+[L, B, W-1, conv_dim]. ``caches_to_reference`` splits it back.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Public model API used by the serving engine and the trainer (twin of
-``repro.models.api`` for the dense and moe families; training covers the
-dense family).
+``repro.models.api`` for the dense, moe, ssm and vlm families; training
+covers dense GQA and Mamba2 models). An ssm model's ``KVCache`` holds
+constant-size per-slot state, no pools, so its ``token_bytes`` is 0.
 
 Entry points run on the card unless the caller passes a device:
 ``init_params(cfg, generator, device=None)`` and ``KVCache.init(...,

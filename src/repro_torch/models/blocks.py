@@ -1,15 +1,17 @@
-"""Per-layer decoder blocks (the attention-family paths of
-``repro.models.blocks``): pre-norm attention (GQA or MLA) + pre-norm FFN
-(SwiGLU MLP, or MoE). DeepSeek-V2's leading dense layers are MLA blocks
-with a dense FFN (``dense_block_schema``, ``dense_ffn=True``). The
-training form ``block_apply`` covers dense GQA layers."""
+"""Per-layer blocks (twin of ``repro.models.blocks``): pre-norm
+attention (GQA or MLA) + pre-norm FFN (SwiGLU MLP, or MoE) for the
+attention families, and pre-norm Mamba2 (``ssd``) for the ssm family,
+with rmsnorm or layernorm (``cfg.norm``). DeepSeek-V2's leading dense
+layers are MLA blocks with a dense FFN (``dense_block_schema``,
+``dense_ffn=True``). The training form ``block_apply`` covers dense GQA
+and Mamba2 layers."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models import common, mla, mlp, moe
+from repro_torch.models import common, mla, mlp, moe, ssd
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.paged import PagedLayout
@@ -32,10 +34,17 @@ def _attn_schema(cfg: ModelConfig) -> dict:
             else attn.gqa_schema(cfg.d_model, cfg.attn()))
 
 
+def _recurrent(cfg: ModelConfig) -> bool:
+    return cfg.family in ("ssm", "hybrid")
+
+
 def block_schema(cfg: ModelConfig) -> dict:
     """Schema of ONE layer of the main stack."""
-    return {"ln_attn": common.norm_schema(cfg.d_model),
-            "ln_mlp": common.norm_schema(cfg.d_model),
+    if _recurrent(cfg):
+        return {"norm": common.norm_schema(cfg.d_model, cfg.norm),
+                "mixer": ssd.mamba2_schema(cfg.d_model, cfg.ssm)}
+    return {"ln_attn": common.norm_schema(cfg.d_model, cfg.norm),
+            "ln_mlp": common.norm_schema(cfg.d_model, cfg.norm),
             "attn": _attn_schema(cfg),
             "ffn": (moe.moe_schema(cfg.d_model, cfg.moe) if cfg.moe
                     is not None else mlp.mlp_schema(cfg.d_model, cfg.d_ff))}
@@ -43,10 +52,16 @@ def block_schema(cfg: ModelConfig) -> dict:
 
 def dense_block_schema(cfg: ModelConfig, d_ff: int) -> dict:
     """A dense (non-MoE) block: DeepSeek-V2's first_k_dense layers."""
-    return {"ln_attn": common.norm_schema(cfg.d_model),
-            "ln_mlp": common.norm_schema(cfg.d_model),
+    return {"ln_attn": common.norm_schema(cfg.d_model, cfg.norm),
+            "ln_mlp": common.norm_schema(cfg.d_model, cfg.norm),
             "attn": _attn_schema(cfg),
             "ffn": mlp.mlp_schema(cfg.d_model, d_ff)}
+
+
+def _ssm_cfg(cfg: ModelConfig) -> ssd.SSMConfig:
+    """The mixer config with the model-level ``kahan_ssm_state`` knob
+    threaded through (the forms that scan; decode has no carry)."""
+    return cfg.ssm._replace(kahan_state=cfg.kahan_ssm_state)
 
 
 def _mla_cfg(cfg: ModelConfig) -> mla.MLAConfig:
@@ -56,7 +71,7 @@ def _mla_cfg(cfg: ModelConfig) -> mla.MLAConfig:
 
 def _ffn_residual(p: dict, h: torch.Tensor, cfg: ModelConfig,
                   dense_ffn: bool) -> torch.Tensor:
-    x = common.rms_norm(h, p["ln_mlp"]["scale"])
+    x = common.apply_norm(h, p["ln_mlp"], cfg.norm)
     if cfg.moe is not None and not dense_ffn:
         y, _ = moe.moe_forward(p["ffn"], x, cfg.moe)
         return h + y
@@ -68,9 +83,9 @@ AUX_KEYS = ("moe_load_balance", "moe_z_loss", "moe_drop_fraction")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """The port trains dense GQA decoders; MLA attention and MoE layers
-    (their aux losses and the expert products' backward) wait for
-    ROADMAP queue A item 13."""
+    """The port trains dense GQA decoders and Mamba2 stacks; MLA
+    attention and MoE layers (their aux losses and the expert products'
+    backward) wait for ROADMAP queue A item 13."""
     cfg.check_supported()
     if cfg.mla is not None or cfg.moe is not None:
         raise NotImplementedError(
@@ -81,14 +96,19 @@ def check_trainable(cfg: ModelConfig) -> None:
 
 def block_apply(p: dict, h: torch.Tensor, cfg: ModelConfig, *,
                 dense_ffn: bool = False) -> tuple[torch.Tensor, dict]:
-    """Full-sequence (training) forward of one dense GQA layer,
+    """Full-sequence (training) forward of one dense GQA or Mamba2 layer,
     h [B, L, d] -> (h, aux) with the reference's aux keys at 0."""
     check_trainable(cfg)
-    x = common.rms_norm(h, p["ln_attn"]["scale"])
-    h = h + attn.gqa_forward(p["attn"], x, cfg.attn())
-    x = common.rms_norm(h, p["ln_mlp"]["scale"])
-    h = h + mlp.mlp_forward(p["ffn"], x)
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    if _recurrent(cfg):
+        h = h + ssd.mamba2_forward(
+            p["mixer"], common.apply_norm(h, p["norm"], cfg.norm),
+            _ssm_cfg(cfg))
+        return h, dict.fromkeys(AUX_KEYS, zero)
+    x = common.apply_norm(h, p["ln_attn"], cfg.norm)
+    h = h + attn.gqa_forward(p["attn"], x, cfg.attn())
+    x = common.apply_norm(h, p["ln_mlp"], cfg.norm)
+    h = h + mlp.mlp_forward(p["ffn"], x)
     return h, dict.fromkeys(AUX_KEYS, zero)
 
 
@@ -96,8 +116,16 @@ def block_prefill_chunk(p: dict, h: torch.Tensor, cfg: ModelConfig,
                         cache: dict, slot: int, pos0: int, *,
                         dense_ffn: bool = False) -> torch.Tensor:
     """Prefill one chunk of ONE sequence (h [1, C, d]) through one layer;
-    the layer's cache view is updated in place."""
-    x = common.rms_norm(h, p["ln_attn"]["scale"])
+    the layer's cache view is updated in place (a Mamba2 layer continues
+    the conv window and SSD state of batch slot ``slot``)."""
+    if _recurrent(cfg):
+        x = common.apply_norm(h, p["norm"], cfg.norm)
+        one = {k: v[slot:slot + 1] for k, v in cache.items()}
+        y, new = ssd.mamba2_prefill_chunk(p["mixer"], x, _ssm_cfg(cfg), one)
+        for k, v in new.items():
+            one[k].copy_(v)
+        return h + y
+    x = common.apply_norm(h, p["ln_attn"], cfg.norm)
     if cfg.mla is not None:
         y = mla.mla_prefill_chunk(p["attn"], x, _mla_cfg(cfg), cache, slot,
                                   pos0)
@@ -110,7 +138,10 @@ def block_prefill_chunk(p: dict, h: torch.Tensor, cfg: ModelConfig,
 def block_decode(p: dict, h: torch.Tensor, cfg: ModelConfig, cache: dict,
                  *, dense_ffn: bool = False) -> torch.Tensor:
     """One-token step (h [B, 1, d]) against this layer's cache view."""
-    x = common.rms_norm(h, p["ln_attn"]["scale"])
+    if _recurrent(cfg):
+        x = common.apply_norm(h, p["norm"], cfg.norm)
+        return h + ssd.mamba2_decode(p["mixer"], x, cfg.ssm, cache)
+    x = common.apply_norm(h, p["ln_attn"], cfg.norm)
     if cfg.mla is not None:
         y = mla.mla_decode(p["attn"], x, _mla_cfg(cfg), cache)
     else:
@@ -128,7 +159,7 @@ def block_verify_chunk(p: dict, h: torch.Tensor, cfg: ModelConfig,
         raise NotImplementedError(
             "speculative verify needs a rollback-able paged KV cache; "
             f"the {cfg.family!r} family carries recurrent state")
-    x = common.rms_norm(h, p["ln_attn"]["scale"])
+    x = common.apply_norm(h, p["ln_attn"], cfg.norm)
     if cfg.mla is not None:
         y = mla.mla_verify_chunk(p["attn"], x, _mla_cfg(cfg), cache, slots,
                                  pos0s)
@@ -140,6 +171,8 @@ def block_verify_chunk(p: dict, h: torch.Tensor, cfg: ModelConfig,
 
 def block_cache_spec(cfg: ModelConfig, batch: int, layout: PagedLayout,
                      num_blocks: int | None = None) -> dict:
+    if _recurrent(cfg):
+        return ssd.mamba2_cache_spec(batch, cfg.ssm)
     if cfg.mla is not None:
         return mla.mla_cache_spec(batch, layout, _mla_cfg(cfg),
                                   num_blocks=num_blocks)

@@ -68,11 +68,13 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
 
 # Weights that only ever feed ``dense`` or the MoE expert products at
 # compute_dtype=bf16 (attention q/k/v/o, the MLP, the MoE router and
-# experts, the MLA projections wq_a / wq_b / wkv_a / wo). The reference
+# experts, the MLA projections wq_a / wq_b / wkv_a / wo, the Mamba2
+# mixer's in_proj / out_proj). The reference
 # keeps norms, embeddings, the LM head (an f32 product), biases and the
 # absorbed MLA weights wk_b / wv_b at f32, and so does the port.
 BF16_WEIGHTS = frozenset({"wq", "wk", "wv", "wo", "w_gate_up", "w_down",
-                          "router", "wq_a", "wq_b", "wkv_a"})
+                          "router", "wq_a", "wq_b", "wkv_a",
+                          "in_proj", "out_proj"})
 
 
 def init_params(schema: dict, generator: torch.Generator,
@@ -119,7 +121,27 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, *,
     return (x * weight.to(torch.float32)).to(dtype)
 
 
-def norm_schema(d: int) -> dict:
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               *, eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * weight.to(torch.float32)
+            + bias.to(torch.float32)).to(dtype)
+
+
+def apply_norm(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
+    if kind == "layernorm":
+        return layer_norm(x, p["scale"], p["bias"])
+    return rms_norm(x, p["scale"])
+
+
+def norm_schema(d: int, kind: str = "rmsnorm") -> dict:
+    if kind == "layernorm":
+        return {"scale": ParamSpec((d,), init="ones"),
+                "bias": ParamSpec((d,), init="zeros")}
     return {"scale": ParamSpec((d,), init="ones")}
 
 
@@ -191,6 +213,11 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     if b is not None:
         y = y + b.to(torch.float32)
     return y.to(compute_dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)``: the tanh form."""
+    return F.gelu(x, approximate="tanh")
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:

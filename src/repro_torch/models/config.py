@@ -1,19 +1,51 @@
-"""Model configuration for the port's decoder families (the dense, MoE and
-MLA fields of ``repro.models.config.ModelConfig``)."""
+"""Model configuration covering every family of the registry (twin of
+``repro.models.config``; the reference's TPU layout knobs
+``remat_policy``, ``causal_packing`` and ``sp_residual`` have no field
+here)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import NamedTuple
 
 from repro_torch.models.attention import AttnConfig
 from repro_torch.models.mla import MLAConfig
 from repro_torch.models.moe import MoEConfig
+from repro_torch.models.ssd import SSMConfig
+
+
+class HybridConfig(NamedTuple):
+    """Zamba2-style: Mamba2 backbone + a weight-shared attention block
+    applied after every ``segment_len`` SSM layers, with a per-invocation
+    LoRA adapter on the shared block's QKV projections."""
+    segment_len: int = 6
+    shared_d_ff: int = 8192
+    lora_rank: int = 128
+    num_attn_heads: int = 32
+    num_kv_heads: int = 32
+
+
+class EncDecConfig(NamedTuple):
+    """Whisper-style encoder-decoder. The conv/mel frontend is a stub:
+    inputs are precomputed frame embeddings [B, enc_seq, d_model]."""
+    enc_layers: int = 4
+    enc_seq: int = 1500
+
+
+class VLMConfig(NamedTuple):
+    """LLaVA-style: patch embeddings (stub frontend) projected into the
+    token stream. anyres tiling is folded into num_patches."""
+    vision_dim: int = 1024
+    num_patches: int = 576
+
+
+SERVED_FAMILIES = ("dense", "moe", "ssm", "vlm")
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # the port serves "dense" and "moe"
+    family: str                    # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int
     d_model: int
     vocab_size: int
@@ -31,12 +63,19 @@ class ModelConfig:
     first_k_dense: int = 0         # DeepSeek-V2: leading dense layers
     dense_d_ff: int = 0            # ... their FFN width
     mla: MLAConfig | None = None
+    ssm: SSMConfig | None = None
+    hybrid: HybridConfig | None = None
+    encdec: EncDecConfig | None = None
+    vlm: VLMConfig | None = None
     q_chunk: int = 512
     kv_chunk: int = 512
-    kahan_attn: bool = False       # compensated prefill accumulator
-    kv_dtype: str = "bf16"         # "bf16" | "int8" | "fp8" KV pools
     remat: bool = True             # training: recompute each layer
                                    # in backward (``lm.lm_forward``)
+    kahan_attn: bool = False       # compensated prefill accumulator
+    kahan_ssm_state: bool = False  # compensated SSD state carry
+    kv_dtype: str = "bf16"         # "bf16" | "int8" | "fp8" KV pools
+    # sub-quadratic sequence mixing (gates the long_500k shape cell)
+    subquadratic: bool = False
 
     def attn(self, *, causal: bool = True) -> AttnConfig:
         return AttnConfig(
@@ -50,15 +89,25 @@ class ModelConfig:
         return replace(self, **kw)
 
     def check_supported(self) -> None:
-        """The port serves rmsnorm/swiglu decoders of the dense family and
-        of the moe family (GQA or MLA attention, optional leading dense
-        layers)."""
-        ok = (self.family in ("dense", "moe")
-              and (self.norm, self.act) == ("rmsnorm", "swiglu")
-              and (self.family == "moe") == (self.moe is not None))
+        """The port serves the families the reference's engine serves:
+        dense and vlm (text tokens; the vision projector feeds only
+        ``lm_forward``), moe (GQA or MLA attention, optional leading dense
+        layers) and ssm (Mamba2), with rmsnorm or layernorm and SwiGLU
+        MLPs. The hybrid and audio families raise."""
+        if self.family in ("hybrid", "audio"):
+            raise NotImplementedError(
+                f"{self.name}: the {self.family!r} family (hybrid Mamba2 + "
+                "shared attention, encoder-decoder) waits for ROADMAP queue "
+                "A item 12")
+        ok = (self.family in SERVED_FAMILIES
+              and self.norm in ("rmsnorm", "layernorm")
+              and (self.family == "ssm" or self.act == "swiglu")
+              and (self.family == "moe") == (self.moe is not None)
+              and (self.family == "ssm") == (self.ssm is not None))
         if not ok:
             raise NotImplementedError(
-                f"{self.name}: repro_torch serves the dense and moe "
-                f"rmsnorm/swiglu families; {self.family}/{self.norm}/"
-                f"{self.act} (moe config: {self.moe is not None}) waits for "
-                "ROADMAP queue A item 12")
+                f"{self.name}: repro_torch serves the {SERVED_FAMILIES} "
+                f"families with rmsnorm or layernorm and swiglu; "
+                f"{self.family}/{self.norm}/{self.act} (moe config: "
+                f"{self.moe is not None}, ssm config: "
+                f"{self.ssm is not None}) is not one of them")

@@ -1,6 +1,8 @@
 """Decoder-only LM assembly for serving and training (twin of
-``repro.models.lm``; training: ``lm_forward`` / ``lm_loss``, dense GQA
-models).
+``repro.models.lm``): the dense, moe, ssm (Mamba2) and vlm families
+(a vlm serves text tokens; its projected patches prefix the tokens in
+``lm_forward``); training: ``lm_forward`` / ``lm_loss``, dense GQA and
+Mamba2 models.
 
 The reference scans stacked layer trees with ``lax.scan``: an optional
 ``dense_layers`` stack (DeepSeek-V2's first_k_dense layers, dense FFN)
@@ -21,6 +23,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.serving_head import serving_head
 from repro_torch.models import common
 from repro_torch.models.blocks import (AUX_KEYS, block_apply,
                                        block_cache_spec, block_decode,
@@ -37,7 +40,7 @@ STACKS = ("dense_layers", "layers")
 def lm_schema(cfg: ModelConfig) -> dict:
     """The reference's schema: stack leaves are [L_stack, ...]."""
     s = {"embed": ParamSpec((cfg.vocab_size, cfg.d_model), init="normal"),
-         "final_norm": common.norm_schema(cfg.d_model)}
+         "final_norm": common.norm_schema(cfg.d_model, cfg.norm)}
     if cfg.first_k_dense:
         s["dense_layers"] = stack_schema(
             dense_block_schema(cfg, cfg.dense_d_ff), cfg.first_k_dense)
@@ -46,6 +49,12 @@ def lm_schema(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         s["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
                                  init="fan_in")
+    if cfg.vlm is not None:
+        s["vision_proj"] = {
+            "w1": ParamSpec((cfg.vlm.vision_dim, cfg.d_model),
+                            init="fan_in"),
+            "w2": ParamSpec((cfg.d_model, cfg.d_model), init="fan_in"),
+        }
     return s
 
 
@@ -89,6 +98,21 @@ def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.to(torch.int64)].to(torch.bfloat16)
 
 
+def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig
+                  ) -> torch.Tensor:
+    """Token embeddings, prefixed for a vlm batch that carries
+    ``patch_embeds`` [B, P, vision_dim] by the projected patches (two
+    bf16 products with a tanh GELU between them)."""
+    h = _embed(params, batch["tokens"])
+    if cfg.vlm is not None and "patch_embeds" in batch:
+        vp = params["vision_proj"]
+        v = common.dense(batch["patch_embeds"].to(torch.bfloat16), vp["w1"])
+        v = common.dense(common.gelu(v.to(torch.float32)).to(v.dtype),
+                         vp["w2"])
+        h = torch.cat([v, h], dim=1)     # image tokens prefix the text
+    return h
+
+
 def lm_forward(params: dict, batch: dict, cfg: ModelConfig
                ) -> tuple[torch.Tensor, dict]:
     """Full-sequence training forward: (logits [B, L, V] bf16, aux).
@@ -98,7 +122,7 @@ def lm_forward(params: dict, batch: dict, cfg: ModelConfig
     a layer, the reference's "nothing" policy, and changes no bit), the
     final norm, then the bf16 head through ``dense`` (not the serving
     f32 head)."""
-    h = _embed(params, batch["tokens"])
+    h = _embed_inputs(params, batch, cfg)
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     aux = dict.fromkeys(AUX_KEYS, zero)
     for _, p, dense_ffn in _layers(params):
@@ -108,7 +132,7 @@ def lm_forward(params: dict, batch: dict, cfg: ModelConfig
         else:
             h, a = block_apply(p, h, cfg, dense_ffn=dense_ffn)
         aux = {k: aux[k] + a[k] for k in AUX_KEYS}
-    h = common.rms_norm(h, params["final_norm"]["scale"])
+    h = common.apply_norm(h, params["final_norm"], cfg.norm)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return common.dense(h, head), aux
 
@@ -135,9 +159,13 @@ def _serving_logits(h: torch.Tensor, params: dict,
                     cfg: ModelConfig) -> torch.Tensor:
     """LM-head projection computed AND kept in f32 (greedy serving
     argmaxes the raw logits; bf16 ties would make the argmax depend on
-    the attention formulation)."""
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return common.dense(h, head, compute_dtype=torch.float32)
+    the attention formulation). On the card it runs the serving-head
+    kernel, whose rows do not depend on how many rows share the call, so
+    a verify window's logits are the decode steps' own; the tied
+    embedding is read in place."""
+    if cfg.tie_embeddings:
+        return serving_head(h, params["embed"], tied=True)
+    return serving_head(h, params["lm_head"])
 
 
 def lm_prefill_chunk(params: dict, tokens: torch.Tensor, caches: dict,
@@ -148,7 +176,7 @@ def lm_prefill_chunk(params: dict, tokens: torch.Tensor, caches: dict,
     for i, p, dense_ffn in _layers(params):
         h = block_prefill_chunk(p, h, cfg, layer_cache(caches, i), slot,
                                 pos0, dense_ffn=dense_ffn)
-    h = common.rms_norm(h, params["final_norm"]["scale"])
+    h = common.apply_norm(h, params["final_norm"], cfg.norm)
     return _serving_logits(h[:, -1], params, cfg)
 
 
@@ -160,7 +188,7 @@ def lm_decode(params: dict, tokens: torch.Tensor, caches: dict,
     for i, p, dense_ffn in _layers(params):
         h = block_decode(p, h, cfg, layer_cache(caches, i),
                          dense_ffn=dense_ffn)
-    h = common.rms_norm(h, params["final_norm"]["scale"])
+    h = common.apply_norm(h, params["final_norm"], cfg.norm)
     return _serving_logits(h[:, -1], params, cfg)
 
 
@@ -175,7 +203,7 @@ def lm_verify_chunk(params: dict, tokens: torch.Tensor, caches: dict,
     for i, p, dense_ffn in _layers(params):
         h = block_verify_chunk(p, h, cfg, layer_cache(caches, i), slots,
                                pos0s, dense_ffn=dense_ffn)
-    h = common.rms_norm(h, params["final_norm"]["scale"])
+    h = common.apply_norm(h, params["final_norm"], cfg.norm)
     return _serving_logits(h, params, cfg)
 
 
@@ -183,7 +211,9 @@ def lm_cache_specs(cfg: ModelConfig, batch: int, layout: PagedLayout,
                    num_blocks: int | None = None) -> dict:
     """{leaf: (shape, dtype)} with every leaf stacked over the layers of
     both stacks (dense first): one block id addresses that block in every
-    layer's pool, and the same table drives every layer."""
+    layer's pool, and the same table drives every layer. A Mamba2 stack
+    holds per-slot recurrent state instead: ssm [L, B, H, N, P] f32 and
+    conv [L, B, W-1, conv_dim] bf16, with no pools, tables or lengths."""
     per_layer = block_cache_spec(cfg, batch, layout, num_blocks=num_blocks)
     return {k: ((cfg.num_layers,) + shape, dtype)
             for k, (shape, dtype) in per_layer.items()}

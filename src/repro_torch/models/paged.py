@@ -170,18 +170,34 @@ def scatter_chunk_multi(pool: torch.Tensor, tables: torch.Tensor,
 
 # ------------------------------------------------------ cache-tree state ---
 # Cache trees are dicts of per-layer-stacked leaves: pools [L, nb, bs, ...],
-# block_table [L, B, mb], len [L, B].
+# block_table [L, B, mb], len [L, B]; a Mamba2 stack has recurrent state
+# instead, ssm [L, B, H, N, P] and conv [L, B, W-1, conv_dim].
 
-def keep_slots(caches: dict, old_len: torch.Tensor,
-               keep_mask: torch.Tensor) -> None:
-    """In place: slots flagged in ``keep_mask`` ([B] bool) get back their
-    ``len`` from ``old_len`` ([L, B], saved before a batched step).
+def _per_slot(name: str) -> bool:
+    """Leaves with a batch axis that a batched step advances: ``len`` and
+    recurrent state (Mamba2 ``ssm`` / ``conv``); not pools or tables."""
+    return name not in POOL_KEYS and name != "block_table"
 
-    With in-place pools this is all the reference's ``keep_slots`` leaves
-    to do for attention caches: a mid-prefill slot's stray decode write
-    lands in its own block at a position its next chunk rewrites (or in
-    the null block); only its length must not advance."""
-    caches["len"][:, keep_mask] = old_len[:, keep_mask]
+
+def save_slots(caches: dict, keep_mask: torch.Tensor) -> dict:
+    """Copies of the per-slot leaves (``len``, recurrent state) of the
+    slots flagged in ``keep_mask`` ([B] bool), taken before a batched
+    step, for ``keep_slots``."""
+    return {k: v[:, keep_mask].clone() for k, v in caches.items()
+            if _per_slot(k)}
+
+
+def keep_slots(caches: dict, saved: dict, keep_mask: torch.Tensor) -> None:
+    """In place: slots flagged in ``keep_mask`` get back the per-slot
+    leaves ``save_slots`` copied before a batched step.
+
+    With in-place pools this is all the reference's ``keep_slots`` does:
+    a mid-prefill slot's stray decode write lands in its own block at a
+    position its next chunk rewrites (or in the null block), so only its
+    length must not advance; a Mamba2 slot's state and conv window would
+    be advanced for good, so they are put back too."""
+    for k, v in saved.items():
+        caches[k][:, keep_mask] = v
 
 
 def set_lens(caches: dict, slots: torch.Tensor, new_lens: torch.Tensor
@@ -294,7 +310,11 @@ def poison_blocks(caches: dict, blocks: list[int]) -> None:
 
 
 def reset_slot(caches: dict, slot: int, table_row: torch.Tensor) -> None:
-    """In place: point slot ``slot`` at ``table_row`` in every layer and
-    zero its length; pools are untouched."""
-    caches["block_table"][:, slot, :] = table_row.to(torch.int32)
-    caches["len"][:, slot] = 0
+    """In place: point slot ``slot`` at ``table_row`` in every layer, zero
+    its length and its recurrent state (Mamba2 ``ssm`` / ``conv``); pools
+    are untouched."""
+    for k, v in caches.items():
+        if k == "block_table":
+            v[:, slot, :] = table_row.to(torch.int32)
+        elif _per_slot(k):
+            v[:, slot] = 0

@@ -1233,16 +1233,20 @@ class DecodeEngine:
             self.obs.trace.instant("decode_step",
                                    batch=len(self.scheduler.decoding))
         prefilling = [r.slot for r in self.scheduler.prefilling]
-        old_len = self.caches["len"].clone() if prefilling else None
-        tok_in = torch.from_numpy(self._next_tokens).to(self.device)
-        logits = self._decode(self.params, tok_in, self.caches)
-        rows = logits.reshape(logits.shape[0], -1)
+        saved = None
         if prefilling:
-            # the batched step also advanced mid-prefill slots' lengths
+            # the batched step also advances mid-prefill slots: their
+            # lengths, and a Mamba2 slot's state and conv window, which
+            # would otherwise carry a stray token into the continuation
             mask = torch.zeros(self.max_slots, dtype=torch.bool,
                                device=self.device)
             mask[prefilling] = True
-            paged.keep_slots(self.caches, old_len, mask)
+            saved = paged.save_slots(self.caches, mask)
+        tok_in = torch.from_numpy(self._next_tokens).to(self.device)
+        logits = self._decode(self.params, tok_in, self.caches)
+        rows = logits.reshape(logits.shape[0], -1)
+        if saved is not None:
+            paged.keep_slots(self.caches, saved, mask)
         slots_sorted = sorted(self.scheduler.decoding)
         victim = self._nan_victim(len(slots_sorted))
         if victim is not None:

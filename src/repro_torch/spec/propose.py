@@ -190,7 +190,10 @@ class DraftModelProposer(Proposer):
         distribution at emit index ``len(output) + j``, on its row pulled
         to the host. An all-greedy batch makes one [k_max, B] transfer."""
         k_max = max(ks) if ks else 0
-        old_len = self.caches["len"].clone()
+        keep = torch.ones(self.max_slots, dtype=torch.bool,
+                          device=self.device)
+        keep[[r.slot for r in reqs]] = False
+        saved = paged.save_slots(self.caches, keep)
         toks = torch.zeros((self.max_slots, 1), dtype=torch.int32)
         for r in reqs:
             toks[r.slot, 0] = int(r.output[-1])
@@ -221,9 +224,7 @@ class DraftModelProposer(Proposer):
             picks.append(toks[:, 0])
         # the full-batch draft decode also stepped slots not drafted for
         # (mid-prefill or idle): give them back their lengths
-        keep = torch.ones(self.max_slots, dtype=torch.bool)
-        keep[[r.slot for r in reqs]] = False
-        paged.keep_slots(self.caches, old_len, keep.to(self.device))
+        paged.keep_slots(self.caches, saved, keep)
         host = (torch.stack(picks).cpu().tolist() if picks
                 else [])                                     # [k_max][B]
         drafts = [[host[j][r.slot] for j in range(k)]

@@ -109,7 +109,8 @@ def test_keep_slots_restores_len_only():
     new["kpool"][:, 3] += 1.0
     keep = np.array([False, True, False])
     want = rp.keep_slots(_ref_tree(old), _ref_tree(new), jnp.asarray(keep))
-    tp.keep_slots(new, old["len"].clone(), torch.from_numpy(keep))
+    keep_t = torch.from_numpy(keep)
+    tp.keep_slots(new, tp.save_slots(old, keep_t), keep_t)
     for k in new:
         np.testing.assert_array_equal(np.asarray(want[k]), new[k].numpy())
 
@@ -158,7 +159,8 @@ def test_latent_pool_tree_moves_bitwise():
     new["k_rope_scale"][:, 2] += 1.0
     keep = np.array([True, False, True])
     want = rp.keep_slots(_ref_tree(c), _ref_tree(new), jnp.asarray(keep))
-    tp.keep_slots(new, c["len"].clone(), torch.from_numpy(keep))
+    keep_t = torch.from_numpy(keep)
+    tp.keep_slots(new, tp.save_slots(c, keep_t), keep_t)
     for k in new:
         np.testing.assert_array_equal(np.asarray(want[k]), new[k].numpy())
     want = rp.zero_blocks(want, [2, 5])
