@@ -29,6 +29,16 @@ Name map (reference tree -> port tree):
                        w_down [E, F, d],
                        shared/{w_gate_up, w_down}}              (MoE)
 
+    hybrid: mamba_blocks/<path> [n_seg * seg, ...], mamba_tail/<path>
+        -> lists of per-layer dicts (Mamba2 paths as above);
+        shared/{ln_attn, attn, ln_mlp, ffn}, lora/{a_q, b_q, a_k, b_k,
+        a_v, b_v} [n_seg, ...] as they are (shared/attn/{wq, wk, wv}
+        held as the hybrid's schema says)
+    audio: enc_layers/<path>, dec_layers/<path> -> lists of per-layer
+        dicts (ln_attn, attn, ln_mlp, ffn/{w_up, b_up, w_down, b_down};
+        ln_self, self_attn, ln_cross, cross_attn, ln_mlp, ffn);
+        enc_norm, dec_norm, embed, pos_embed as they are
+
 The reference's stacks are one [L, ...] leaf per name; the port keeps
 one dict per layer (views of one stacked tensor). Caches: the
 reference's tuple of one dict per stack — ``(main,)``, or
@@ -38,7 +48,11 @@ the layer axis (dense first): kpool / vpool [L, nb, bs, Hkv, D],
 kscale / vscale [L, nb, bs, Hkv]; c_kv [L, nb, bs, C], k_rope
 [L, nb, bs, R], c_kv_scale / k_rope_scale [L, nb, bs]; block_table
 [L, B, mb], len [L, B]; Mamba2 state ssm [L, B, H, N, P], conv
-[L, B, W-1, conv_dim]. ``caches_to_reference`` splits it back.
+[L, B, W-1, conv_dim]. ``caches_to_reference`` splits it back. The
+hybrid's ``{mamba: {ssm, conv} [n_seg, seg, ...], attn: paged GQA
+[n_seg, ...], tail: {ssm, conv} [tail, ...] or None}`` and the audio
+family's ``{self: paged GQA [L, ...], cross_k, cross_v [L, B, enc_seq,
+Hkv, D]}`` cross as they are.
 """
 
 from __future__ import annotations
@@ -75,39 +89,52 @@ def _map(tree, fn):
 
 
 def params_from_reference(tree: dict, device=None, *,
-                          hold_bf16: bool = True) -> dict:
+                          hold_bf16: bool = True, cfg=None) -> dict:
     """Reference parameter tree (numpy leaves) -> the port's tree, with
     the stacked ``dense_layers`` / ``layers`` split into one dict per
     layer and, for serving, the weights that only feed bf16 products
     held as bf16 (``models.common.BF16_WEIGHTS``; they are rounded to
-    bf16 before every product anyway, so no result changes).
-    ``hold_bf16=False`` keeps every leaf's bits as they are: a training
-    master, whose f32 bits the optimizer updates. ``device`` defaults to
-    the card."""
-    from repro_torch.models import common, lm
+    bf16 before every product anyway, so no result changes), except the
+    leaves that ``cfg``'s schema keeps f32 (the hybrid's LoRA-folded
+    q / k / v: a hybrid tree needs its ``cfg``). ``hold_bf16=False``
+    keeps every leaf's bits as they are: a training master, whose f32
+    bits the optimizer updates. ``device`` defaults to the card."""
+    from repro_torch.models import api, common, lm
     tree = _map(tree, lambda a: from_numpy(a, device))
-    return lm.split_layers(common.hold_weights_bf16(tree) if hold_bf16
-                           else tree)
+    if hold_bf16:
+        tree = common.hold_weights_bf16(
+            tree, None if cfg is None else api.schema(cfg))
+    return lm.split_layers(tree)
 
 
 def caches_from_reference(caches, device=None) -> dict:
-    """Reference cache tuple (one dict of numpy leaves per stack) -> the
-    port's dict, stacks concatenated along the layer axis, on ``device``
-    (default: the card)."""
+    """Reference caches (numpy leaves) -> the port's, on ``device``
+    (default: the card). An lm family's tuple of one dict per stack
+    becomes one dict, the stacks concatenated along the layer axis; the
+    hybrid's ``{mamba, attn, tail}`` and the audio family's ``{self,
+    cross_k, cross_v}`` trees keep their shape (a missing tail stays
+    None)."""
+    if isinstance(caches, dict):
+        return _map(caches, lambda a: None if a is None
+                    else from_numpy(a, device))
     return {k: from_numpy(np.concatenate([np.asarray(t[k]) for t in caches]),
                           device)
             for k in caches[0]}
 
 
 def caches_to_numpy(caches: dict) -> dict:
-    """Port cache dict -> numpy leaves (bf16 pools widened to f32)."""
-    return {k: to_numpy(v) for k, v in caches.items()}
+    """Port caches -> numpy leaves (bf16 pools widened to f32), nested
+    trees and None leaves as they are."""
+    return _map(caches, lambda t: None if t is None else to_numpy(t))
 
 
-def caches_to_reference(caches: dict, first_k_dense: int = 0) -> tuple:
-    """Port cache dict -> the reference's tuple of per-stack numpy dicts
-    (bf16 pools widened to f32)."""
+def caches_to_reference(caches: dict, first_k_dense: int = 0):
+    """Port caches -> the reference's layout (bf16 pools widened to
+    f32): an lm family's tuple of per-stack numpy dicts, or the hybrid's
+    and audio family's nested tree as it is."""
     flat = caches_to_numpy(caches)
+    if any(isinstance(v, dict) or v is None for v in flat.values()):
+        return flat
     if not first_k_dense:
         return (flat,)
     return ({k: v[:first_k_dense] for k, v in flat.items()},

@@ -29,9 +29,7 @@ def get_config(name: str) -> ModelConfig:
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Tiny same-family config for CPU tests and the serving CLI, every
-    branch of ``repro.configs.reduced`` (the port's ``MLAConfig`` has no
-    chunk knobs, so the reference's q_chunk / kv_chunk of 32 there have
-    no field here)."""
+    branch of ``repro.configs.reduced``."""
     kw: dict = dict(num_layers=2, d_model=64, vocab_size=256, q_chunk=32,
                     kv_chunk=32, remat=False)
     if cfg.family in ("dense", "vlm"):
@@ -43,7 +41,8 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     if cfg.family == "moe":
         if cfg.mla is not None:
             kw.update(mla=MLAConfig(num_heads=4, q_lora=32, kv_lora=16,
-                                    nope_dim=16, rope_dim=8, v_dim=16),
+                                    nope_dim=16, rope_dim=8, v_dim=16,
+                                    q_chunk=32, kv_chunk=32),
                       moe=MoEConfig(num_experts=8, top_k=2, d_ff=32,
                                     num_shared=cfg.moe.num_shared),
                       first_k_dense=cfg.first_k_dense, dense_d_ff=128)

@@ -1,7 +1,13 @@
-"""Public model API used by the serving engine and the trainer (twin of
-``repro.models.api`` for the dense, moe, ssm and vlm families; training
-covers dense GQA and Mamba2 models). An ssm model's ``KVCache`` holds
-constant-size per-slot state, no pools, so its ``token_bytes`` is 0.
+"""Public model API used by the serving engine, the one-shot server and
+the trainer (twin of ``repro.models.api``; training covers dense GQA and
+Mamba2 models). Every family serves through the one-shot
+``prefill_fn`` / ``decode_fn``; the lm families (dense, moe, ssm, vlm)
+also through the engine's chunked ``prefill_chunk_fn``. Cache trees:
+one dict of [L, ...] leaves for the lm families, ``{mamba, attn, tail}``
+for the hybrid and ``{self, cross_k, cross_v}`` for the audio family
+(``KVCache.specs`` / ``init`` build them). An ssm model's ``KVCache``
+holds constant-size per-slot state, no pools, so its ``token_bytes`` is
+0.
 
 Entry points run on the card unless the caller passes a device:
 ``init_params(cfg, generator, device=None)`` and ``KVCache.init(...,
@@ -17,15 +23,22 @@ from typing import Callable
 import torch
 
 from repro_torch import device as _device
-from repro_torch.models import common, lm
+from repro_torch.models import common, encdec, hybrid, lm
 from repro_torch.models.blocks import check_trainable
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.paged import (DEFAULT_BLOCK_SIZE, POOL_KEYS,
-                                      PagedLayout, default_num_blocks)
+                                      PagedLayout, as_layout,
+                                      default_num_blocks)
+
+MAX_DEC_POSITIONS = 32768   # learned decoder positions (audio family)
 
 
 def schema(cfg: ModelConfig) -> dict:
     cfg.check_supported()
+    if cfg.family == "audio":
+        return encdec.encdec_schema(cfg, MAX_DEC_POSITIONS)
+    if cfg.family == "hybrid":
+        return hybrid.hybrid_schema(cfg)
     return lm.lm_schema(cfg)
 
 
@@ -57,16 +70,41 @@ def loss_fn(cfg: ModelConfig) -> Callable:
     return lambda p, b: lm.lm_loss(p, b, cfg)
 
 
+def prefill_fn(cfg: ModelConfig, cache_spec) -> Callable:
+    """One-shot prefill: (params, batch) -> (last position's logits
+    [B, V], fresh caches with identity block tables). ``cache_spec``: the
+    max context (int) or a ``PagedLayout``. ``batch`` holds ``tokens``
+    [B, L] (and a vlm's ``patch_embeds``, an audio model's ``frames``)
+    on the parameters' device. The lm families' logits are the f32
+    serving head's, the hybrid's and audio's bf16, as in the
+    reference."""
+    cfg.check_supported()
+    layout = as_layout(cache_spec)
+    if cfg.family == "audio":
+        return lambda p, b: encdec.encdec_prefill(p, b, cfg, layout)
+    if cfg.family == "hybrid":
+        return lambda p, b: hybrid.hybrid_prefill(p, b, cfg, layout)
+    return lambda p, b: lm.lm_prefill(p, b, cfg, layout)
+
+
 def decode_fn(cfg: ModelConfig) -> Callable:
     """(params, tokens [B, 1], caches) -> logits [B, V]; caches in place."""
     cfg.check_supported()
+    if cfg.family == "audio":
+        return lambda p, t, c: encdec.encdec_decode(p, t, c, cfg)
+    if cfg.family == "hybrid":
+        return lambda p, t, c: hybrid.hybrid_decode(p, t, c, cfg)
     return lambda p, t, c: lm.lm_decode(p, t, c, cfg)
 
 
 def prefill_chunk_fn(cfg: ModelConfig) -> Callable:
     """(params, tokens [1, C], caches, slot, pos0) -> logits [1, V];
     caches in place. The slot's tables must already point at allocated
-    blocks (``paged.reset_slot``)."""
+    blocks (``paged.reset_slot``). The lm families only: the hybrid and
+    audio families serve through the one-shot ``prefill_fn``."""
+    if cfg.family in ("audio", "hybrid"):
+        raise NotImplementedError(
+            f"chunked prefill serves lm families, not {cfg.family!r}")
     cfg.check_supported()
     return lambda p, t, c, slot, pos0: lm.lm_prefill_chunk(p, t, c, slot,
                                                           pos0, cfg)
@@ -89,13 +127,38 @@ def verify_fn(cfg: ModelConfig) -> Callable:
                                                            pos0s, cfg)
 
 
+def cache_specs(cfg: ModelConfig, batch: int, cache_spec, *,
+                num_blocks: int | None = None) -> dict:
+    """The cache tree as {leaf: (shape, dtype)} (nested for the hybrid
+    and audio families; the hybrid's ``tail`` None without a tail).
+    ``num_blocks`` overrides the per-layer pool size."""
+    cfg.check_supported()
+    layout = as_layout(cache_spec)
+    if cfg.family == "audio":
+        return encdec.encdec_cache_specs(cfg, batch, layout,
+                                         num_blocks=num_blocks)
+    if cfg.family == "hybrid":
+        return hybrid.hybrid_cache_specs(cfg, batch, layout,
+                                         num_blocks=num_blocks)
+    return lm.lm_cache_specs(cfg, batch, layout, num_blocks=num_blocks)
+
+
+def _spec_leaves(spec):
+    """(leaf name, (shape, dtype)) over a nested spec tree."""
+    for k, v in (spec or {}).items():
+        if isinstance(v, dict) or v is None:
+            yield from _spec_leaves(v)
+        else:
+            yield k, v
+
+
 def to_device(tree, device):
-    """A parameter tree (nested dicts and per-layer lists) on ``device``."""
+    """A tree (nested dicts, per-layer lists, None) on ``device``."""
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [to_device(v, device) for v in tree]
-    return tree.to(device)
+    return None if tree is None else tree.to(device)
 
 
 def num_params(tree) -> int:
@@ -126,13 +189,20 @@ class KVCache:
         return KVCache(cfg, layout, num_blocks)
 
     def specs(self, batch: int) -> dict:
-        return lm.lm_cache_specs(self.cfg, batch, self.layout,
-                                 num_blocks=self.num_blocks)
+        return cache_specs(self.cfg, batch, self.layout,
+                           num_blocks=self.num_blocks)
 
     def init(self, batch: int, device=None) -> dict:
         dev = _device.resolve(device)
-        return {k: torch.zeros(shape, dtype=dtype, device=dev)
-                for k, (shape, dtype) in self.specs(batch).items()}
+
+        def zeros(spec):
+            if spec is None:
+                return None
+            return {k: (zeros(v) if isinstance(v, dict) else
+                        torch.zeros(v[0], dtype=v[1], device=dev))
+                    for k, v in spec.items()}
+
+        return zeros(self.specs(batch))
 
     def blocks_for(self, num_tokens: int) -> int:
         return self.layout.blocks_for(num_tokens)
@@ -140,9 +210,11 @@ class KVCache:
     def token_bytes(self, batch: int = 1) -> int:
         """Paged-cache bytes per cached token, summed over every pool
         leaf and layer (MLA in bf16: (kv_lora + rope_dim) * 2 = 1152
-        bytes per layer at full width)."""
+        bytes per layer at full width). The hybrid's pools are its
+        shared block's, one per block call; the audio family's its
+        decoder self-attention's (the cross K/V are not pooled)."""
         total = 0
-        for name, (shape, dtype) in self.specs(batch).items():
+        for name, (shape, dtype) in _spec_leaves(self.specs(batch)):
             if name in POOL_KEYS:
                 itemsize = torch.empty((), dtype=dtype).element_size()
                 total += shape[0] * math.prod(shape[3:]) * itemsize

@@ -1,11 +1,11 @@
 """GQA attention over block-paged KV (the GQA half of
 ``repro.models.attention``).
 
-* The training forward (``gqa_forward``) and chunked prefill
-  (``gqa_prefill_chunk``) run the reference's blockwise
-  online-softmax ``flash_attention`` in plain PyTorch ops, on the CPU and
-  on the card alike: in the reference it is plain JAX, not a Pallas
-  kernel.
+* The training forward (``gqa_forward``), the one-shot prefill
+  (``gqa_prefill``) and chunked prefill (``gqa_prefill_chunk``) run the
+  reference's blockwise online-softmax ``flash_attention`` in plain
+  PyTorch ops, on the CPU and on the card alike: in the reference it is
+  plain JAX, not a Pallas kernel.
 * Decode (``gqa_decode``) runs the paged-attention superkernel through
   ``kernels.ops.paged_attention``: its plain twin for CPU tensors, the
   CUDA kernel for CUDA tensors. So on the card decode-written KV is not
@@ -178,6 +178,60 @@ def gqa_forward(p: dict, x: torch.Tensor, cfg: AttnConfig, *,
     out = flash_attention(q, k, v, causal=cfg.causal, q_chunk=cfg.q_chunk,
                           kv_chunk=cfg.kv_chunk, kahan_acc=cfg.kahan_acc)
     return common.dense(out.reshape(b, l, -1), p["wo"])
+
+
+def attend_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 valid_len: torch.Tensor) -> torch.Tensor:
+    """Single-token attention against materialized bf16 K/V rows, plain:
+    q [B, 1, Hq, D], k / v [B, S, Hkv, D], valid_len [B] -> [B, 1, Hq, D]
+    in v's dtype. f32 scores of the widened operands, a masked softmax,
+    then the probabilities rounded to v's dtype against v with f32 sums,
+    as the reference's bf16 path. Whisper's cross-attention decode reads
+    the encoder memory through it."""
+    b, _, hq, d = q.shape
+    _, s_max, hkv, dv = v.shape
+    groups = hq // hkv
+    qg = q.reshape(b, hkv, groups, d).to(torch.float32)
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k.to(torch.float32)) * d ** -0.5
+    mask = (torch.arange(s_max, device=q.device)[None, :]
+            < valid_len[:, None])                               # [B, S]
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32))
+    return out.reshape(b, 1, hq, dv).to(v.dtype)
+
+
+def gqa_prefill(p: dict, x: torch.Tensor, cfg: AttnConfig,
+                layout: PagedLayout) -> tuple[torch.Tensor, dict]:
+    """One-shot prefill, x [B, L, d] -> (out [B, L, d], a fresh
+    block-paged cache): ``flash_attention`` over the sequence's own K/V,
+    whose rows are laid into an identity-table pool (a reshape: the
+    later block gather reads them back bitwise). Under an int8 / fp8
+    ``kv_dtype`` the rows are quantized per (token, head) first and the
+    attention runs over the dequantized values, which is what every
+    later reader of the cache sees."""
+    b, l, _ = x.shape
+    positions = torch.arange(l, device=x.device)[None, :].expand(b, l)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    fmt = qcore.get_format(cfg.kv_dtype)
+    scale_pools = {}
+    k_store, v_store = k, v
+    if fmt is not None:
+        k_store, sk = qcore.quantize_lastdim(k, fmt)
+        v_store, sv = qcore.quantize_lastdim(v, fmt)
+        k = qcore.dequantize_lastdim(k_store, sk, x.dtype)
+        v = qcore.dequantize_lastdim(v_store, sv, x.dtype)
+        scale_pools = {"kscale": paged.pool_from_rows(sk, layout),
+                       "vscale": paged.pool_from_rows(sv, layout)}
+    out = flash_attention(q, k, v, causal=cfg.causal, q_chunk=cfg.q_chunk,
+                          kv_chunk=cfg.kv_chunk, kahan_acc=cfg.kahan_acc)
+    cache = {"kpool": paged.pool_from_rows(k_store, layout),
+             "vpool": paged.pool_from_rows(v_store, layout),
+             "block_table": paged.identity_table(b, layout, x.device),
+             "len": torch.full((b,), l, dtype=torch.int32, device=x.device),
+             **scale_pools}
+    return common.dense(out.reshape(b, l, -1), p["wo"]), cache
 
 
 def _scatter_kv(cache: dict, k: torch.Tensor, v: torch.Tensor,

@@ -4,9 +4,12 @@ attention families, and pre-norm Mamba2 (``ssd``) for the ssm family,
 with rmsnorm or layernorm (``cfg.norm``). DeepSeek-V2's leading dense
 layers are MLA blocks with a dense FFN (``dense_block_schema``,
 ``dense_ffn=True``). The training form ``block_apply`` covers dense GQA
-and Mamba2 layers."""
+and Mamba2 layers; the one-shot prefill ``block_prefill`` every
+serving family."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -22,8 +25,7 @@ def stack_schema(schema: dict, n: int) -> dict:
     out = {}
     for k, v in schema.items():
         if isinstance(v, ParamSpec):
-            out[k] = ParamSpec((n,) + v.shape, init=v.init, scale=v.scale,
-                               dtype=v.dtype)
+            out[k] = dataclasses.replace(v, shape=(n,) + v.shape)
         else:
             out[k] = stack_schema(v, n)
     return out
@@ -85,8 +87,15 @@ AUX_KEYS = ("moe_load_balance", "moe_z_loss", "moe_drop_fraction")
 def check_trainable(cfg: ModelConfig) -> None:
     """The port trains dense GQA decoders and Mamba2 stacks; MLA
     attention and MoE layers (their aux losses and the expert products'
-    backward) wait for ROADMAP queue A item 13."""
+    backward), and the hybrid and audio families' training forms, wait
+    for ROADMAP queue A item 13."""
     cfg.check_supported()
+    if cfg.family in ("hybrid", "audio"):
+        raise NotImplementedError(
+            f"{cfg.name}: repro_torch serves the {cfg.family!r} family "
+            "through api.prefill_fn / decode_fn; its training forms "
+            "(hybrid_forward / encdec_forward) wait for ROADMAP queue A "
+            "item 13")
     if cfg.mla is not None or cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: repro_torch trains dense GQA decoders; "
@@ -110,6 +119,25 @@ def block_apply(p: dict, h: torch.Tensor, cfg: ModelConfig, *,
     x = common.apply_norm(h, p["ln_mlp"], cfg.norm)
     h = h + mlp.mlp_forward(p["ffn"], x)
     return h, dict.fromkeys(AUX_KEYS, zero)
+
+
+def block_prefill(p: dict, h: torch.Tensor, cfg: ModelConfig,
+                  layout: PagedLayout, *, dense_ffn: bool = False
+                  ) -> tuple[torch.Tensor, dict]:
+    """One-shot prefill of one layer (h [B, L, d]): the forward, and this
+    layer's fresh decode cache (block-paged K/V or latents with identity
+    tables, or the Mamba2 state and conv window)."""
+    if _recurrent(cfg):
+        x = common.apply_norm(h, p["norm"], cfg.norm)
+        y, cache = ssd.mamba2_forward(p["mixer"], x, _ssm_cfg(cfg),
+                                      return_state=True)
+        return h + y, cache
+    x = common.apply_norm(h, p["ln_attn"], cfg.norm)
+    if cfg.mla is not None:
+        y, cache = mla.mla_prefill(p["attn"], x, _mla_cfg(cfg), layout)
+    else:
+        y, cache = attn.gqa_prefill(p["attn"], x, cfg.attn(), layout)
+    return _ffn_residual(p, h + y, cfg, dense_ffn), cache
 
 
 def block_prefill_chunk(p: dict, h: torch.Tensor, cfg: ModelConfig,

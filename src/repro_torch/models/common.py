@@ -26,6 +26,11 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+# the reference's norms: f32 RMS / layer norm of each row, rounded to x's
+# dtype; on the card, when autograd records nothing, the row-norm kernel
+# (each row's bits the same at any number of rows), else the plain twin
+from repro_torch.kernels.row_norm import layer_norm, rms_norm  # noqa: F401
+
 
 @dataclass(frozen=True)
 class ParamSpec:
@@ -34,6 +39,9 @@ class ParamSpec:
     init: str = "normal"          # normal | zeros | ones | fan_in
     scale: float = 0.02
     dtype: torch.dtype = torch.float32
+    # a ``BF16_WEIGHTS`` leaf that is changed in f32 before its product
+    # (the hybrid's LoRA-folded q / k / v) keeps its f32 bits when held
+    keep_f32: bool = False
 
 
 def _flatten_schema(schema: dict, prefix: str = "") -> list:
@@ -73,16 +81,24 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
 # keeps norms, embeddings, the LM head (an f32 product), biases and the
 # absorbed MLA weights wk_b / wv_b at f32, and so does the port.
 BF16_WEIGHTS = frozenset({"wq", "wk", "wv", "wo", "w_gate_up", "w_down",
-                          "router", "wq_a", "wq_b", "wkv_a",
+                          "w_up", "router", "wq_a", "wq_b", "wkv_a",
                           "in_proj", "out_proj"})
+
+
+_BY_NAME = ParamSpec(())        # a leaf held by its name alone
+
+
+def _held_bf16(name: str, spec: ParamSpec) -> bool:
+    return name in BF16_WEIGHTS and not spec.keep_f32
 
 
 def init_params(schema: dict, generator: torch.Generator,
                 device, *, hold_bf16: bool = False) -> dict:
     """Materialize a parameter tree from a schema, leaves drawn in sorted
     path order from ``generator`` (which must live on ``device``).
-    ``hold_bf16`` rounds each ``BF16_WEIGHTS`` leaf to bf16 as it is
-    drawn (the draws do not change), so the f32 tree never exists whole."""
+    ``hold_bf16`` rounds each ``BF16_WEIGHTS`` leaf (not ``keep_f32``)
+    to bf16 as it is drawn (the draws do not change), so the f32 tree
+    never exists whole."""
     tree: dict = {}
     for path, spec in _flatten_schema(schema):
         node = tree
@@ -90,47 +106,29 @@ def init_params(schema: dict, generator: torch.Generator,
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         leaf = _init_leaf(spec, generator, device)
-        if hold_bf16 and parts[-1] in BF16_WEIGHTS:
+        if hold_bf16 and _held_bf16(parts[-1], spec):
             leaf = leaf.to(torch.bfloat16)
         node[parts[-1]] = leaf
     return tree
 
 
-def hold_weights_bf16(tree):
-    """The tree (nested dicts and per-layer lists) with every
-    ``BF16_WEIGHTS`` leaf rounded to bf16; other leaves, and leaves
-    already bf16, are passed through as they are."""
-    if isinstance(tree, dict):
-        return {k: (v.to(torch.bfloat16) if k in BF16_WEIGHTS
-                    and isinstance(v, torch.Tensor)
-                    else hold_weights_bf16(v))
-                for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [hold_weights_bf16(v) for v in tree]
-    return tree
+def hold_weights_bf16(tree: dict, schema: dict | None = None) -> dict:
+    """``tree`` (layers stacked) with every ``BF16_WEIGHTS`` leaf rounded
+    to bf16, except those that ``schema`` (the tree's own, when given)
+    marks ``keep_f32``; other leaves, and leaves already bf16, pass
+    through."""
+    out = {}
+    for k, v in tree.items():
+        spec = None if schema is None else schema[k]
+        if isinstance(v, torch.Tensor):
+            held = _held_bf16(k, spec or _BY_NAME)
+            out[k] = v.to(torch.bfloat16) if held else v
+        else:
+            out[k] = hold_weights_bf16(v, spec)
+    return out
 
 
 # ------------------------------------------------------------ primitives ---
-
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, *,
-             eps: float = 1e-6) -> torch.Tensor:
-    dtype = x.dtype
-    x = x.to(torch.float32)
-    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
-    x = x * torch.rsqrt(var + eps)
-    return (x * weight.to(torch.float32)).to(dtype)
-
-
-def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               *, eps: float = 1e-5) -> torch.Tensor:
-    dtype = x.dtype
-    x = x.to(torch.float32)
-    mu = torch.mean(x, dim=-1, keepdim=True)
-    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
-    x = (x - mu) * torch.rsqrt(var + eps)
-    return (x * weight.to(torch.float32)
-            + bias.to(torch.float32)).to(dtype)
-
 
 def apply_norm(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
     if kind == "layernorm":
@@ -166,6 +164,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
     x1, x2 = torch.chunk(x_rot.to(torch.float32), 2, dim=-1)
     rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return torch.cat([rotated.to(x.dtype), x_pass], dim=-1)
+
+
+def sinusoidal_positions(length: int, dim: int,
+                         device="cpu") -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings [length, dim] f32: sin of
+    position x inverse timescale in the first half, cos in the second."""
+    log_timescale = math.log(10000.0) / (dim // 2 - 1)
+    inv = torch.exp(-log_timescale * torch.arange(dim // 2,
+                                                  dtype=torch.float32,
+                                                  device=device))
+    scaled = (torch.arange(length, dtype=torch.float32, device=device)
+              [:, None] * inv[None, :])
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=1)
 
 
 class _Bf16Product(torch.autograd.Function):

@@ -39,8 +39,7 @@ class VLMConfig(NamedTuple):
     num_patches: int = 576
 
 
-SERVED_FAMILIES = ("dense", "moe", "ssm", "vlm")
-
+SERVED_FAMILIES = ("dense", "moe", "ssm", "vlm", "hybrid", "audio")
 
 @dataclass(frozen=True)
 class ModelConfig:
@@ -89,25 +88,25 @@ class ModelConfig:
         return replace(self, **kw)
 
     def check_supported(self) -> None:
-        """The port serves the families the reference's engine serves:
-        dense and vlm (text tokens; the vision projector feeds only
-        ``lm_forward``), moe (GQA or MLA attention, optional leading dense
-        layers) and ssm (Mamba2), with rmsnorm or layernorm and SwiGLU
-        MLPs. The hybrid and audio families raise."""
-        if self.family in ("hybrid", "audio"):
-            raise NotImplementedError(
-                f"{self.name}: the {self.family!r} family (hybrid Mamba2 + "
-                "shared attention, encoder-decoder) waits for ROADMAP queue "
-                "A item 12")
+        """The port's model API covers every family of the registry:
+        dense and vlm, moe (GQA or MLA attention, optional leading dense
+        layers) and ssm (Mamba2) with SwiGLU MLPs, hybrid (Mamba2 + a
+        shared attention block) and audio (encoder-decoder), with rmsnorm
+        or layernorm. The serving engine takes the lm families; the
+        hybrid and audio families serve through the one-shot
+        ``api.prefill_fn`` / ``decode_fn``, as in the reference."""
         ok = (self.family in SERVED_FAMILIES
               and self.norm in ("rmsnorm", "layernorm")
-              and (self.family == "ssm" or self.act == "swiglu")
+              and (self.family in ("ssm", "hybrid", "audio")
+                   or self.act == "swiglu")
               and (self.family == "moe") == (self.moe is not None)
-              and (self.family == "ssm") == (self.ssm is not None))
+              and (self.family in ("ssm", "hybrid")) == (self.ssm is not None)
+              and (self.family == "hybrid") == (self.hybrid is not None)
+              and (self.family == "audio") == (self.encdec is not None))
         if not ok:
             raise NotImplementedError(
                 f"{self.name}: repro_torch serves the {SERVED_FAMILIES} "
-                f"families with rmsnorm or layernorm and swiglu; "
-                f"{self.family}/{self.norm}/{self.act} (moe config: "
-                f"{self.moe is not None}, ssm config: "
+                f"families with rmsnorm or layernorm (and swiglu in the lm "
+                f"families); {self.family}/{self.norm}/{self.act} (moe "
+                f"config: {self.moe is not None}, ssm config: "
                 f"{self.ssm is not None}) is not one of them")

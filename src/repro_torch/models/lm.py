@@ -27,14 +27,18 @@ from repro_torch.kernels.serving_head import serving_head
 from repro_torch.models import common
 from repro_torch.models.blocks import (AUX_KEYS, block_apply,
                                        block_cache_spec, block_decode,
-                                       block_prefill_chunk, block_schema,
+                                       block_prefill, block_prefill_chunk,
+                                       block_schema,
                                        block_verify_chunk,
                                        dense_block_schema, stack_schema)
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.paged import PagedLayout
 
-STACKS = ("dense_layers", "layers")
+# every family's stacked layer trees: the lm stacks, the hybrid's Mamba2
+# segments and tail, the encoder-decoder's two stacks
+STACKS = ("dense_layers", "layers", "mamba_blocks", "mamba_tail",
+          "enc_layers", "dec_layers")
 
 
 def lm_schema(cfg: ModelConfig) -> dict:
@@ -59,7 +63,7 @@ def lm_schema(cfg: ModelConfig) -> dict:
 
 
 def split_layers(params: dict) -> dict:
-    """Stacked ``dense_layers`` / ``layers`` leaves [L, ...] -> lists of
+    """Stacked layer leaves [L, ...] (any of ``STACKS``) -> lists of
     per-layer dicts (views of the stacked tensors)."""
 
     def pick(tree, i):
@@ -166,6 +170,24 @@ def _serving_logits(h: torch.Tensor, params: dict,
     if cfg.tie_embeddings:
         return serving_head(h, params["embed"], tied=True)
     return serving_head(h, params["lm_head"])
+
+
+def lm_prefill(params: dict, batch: dict, cfg: ModelConfig,
+               layout: PagedLayout) -> tuple[torch.Tensor, dict]:
+    """One-shot prefill of a batch (``tokens`` [B, L], and a vlm's
+    ``patch_embeds`` prefixing them) into fresh caches with identity
+    block tables: (last position's f32 logits [B, V], caches), the
+    caches one dict of [L, ...] leaves as ``lm_cache_specs`` lays out,
+    ready for ``lm_decode``."""
+    h = _embed_inputs(params, batch, cfg)
+    per_layer = []
+    for _, p, dense_ffn in _layers(params):
+        h, cache = block_prefill(p, h, cfg, layout, dense_ffn=dense_ffn)
+        per_layer.append(cache)
+    h = common.apply_norm(h, params["final_norm"], cfg.norm)
+    caches = {k: torch.stack([c[k] for c in per_layer])
+              for k in per_layer[0]}
+    return _serving_logits(h[:, -1], params, cfg), caches
 
 
 def lm_prefill_chunk(params: dict, tokens: torch.Tensor, caches: dict,

@@ -7,6 +7,10 @@ add one f32 scale per cached token each, [nb, bs]). Attention runs in
 latent space: ``wk_b`` is absorbed into the query and ``wv_b`` applied to
 the context latents.
 
+* The one-shot prefill (``mla_prefill``) materializes per-head K/V from
+  the latents and runs ``attention.flash_attention`` over them, as the
+  reference does; its latent pools are laid out by
+  ``paged.pool_from_rows`` with identity tables.
 * Chunked prefill (``mla_prefill_chunk``) runs the reference's plain
   masked-softmax ``_latent_attend`` over the gathered (dequantized)
   latents, on the CPU and on the card alike.
@@ -27,6 +31,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import common, paged
+from repro_torch.models.attention import flash_attention
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.paged import PagedLayout
 from repro_torch.quant import core as qcore
@@ -40,6 +45,9 @@ class MLAConfig(NamedTuple):
     rope_dim: int = 64
     v_dim: int = 128
     rope_theta: float = 1e4
+    # the one-shot prefill's flash attention chunks (``mla_prefill``)
+    q_chunk: int = 512
+    kv_chunk: int = 512
     # low-bit latent pools: one scale per cached token for c_kv and
     # k_rope each (the latent vector is the quantization tile)
     kv_dtype: str = "bf16"
@@ -185,6 +193,43 @@ def mla_decode(p: dict, x: torch.Tensor, cfg: MLAConfig, cache: dict
     ctx = _kernel_latent_attend(p, cfg, q_nope, q_rope, cache, table, idx + 1)
     cache["len"].copy_(idx + 1)
     return common.dense(ctx.reshape(b, 1, -1).to(x.dtype), p["wo"])
+
+
+def mla_prefill(p: dict, x: torch.Tensor, cfg: MLAConfig,
+                layout: PagedLayout) -> tuple[torch.Tensor, dict]:
+    """One-shot prefill, x [B, L, d] -> (out [B, L, d], fresh latent
+    pools with identity tables). The prefill attention materializes
+    per-head K/V from the latents (``wk_b`` / ``wv_b`` products) and runs
+    causal flash attention; under an int8 / fp8 ``kv_dtype`` the latents
+    are quantized per token first and the K/V up-projections read the
+    dequantized values, which is what every later reader sees."""
+    b, l, _ = x.shape
+    h = cfg.num_heads
+    positions = torch.arange(l, device=x.device)[None, :].expand(b, l)
+    q_nope, q_rope, c_kv, k_rope = _latents(p, x, cfg, positions)
+    fmt = qcore.get_format(cfg.kv_dtype)
+    scale_pools = {}
+    c_kv_store, k_rope_store = c_kv, k_rope
+    if fmt is not None:
+        c_kv_store, s_ckv = qcore.quantize_lastdim(c_kv, fmt)
+        k_rope_store, s_kr = qcore.quantize_lastdim(k_rope, fmt)
+        c_kv = qcore.dequantize_lastdim(c_kv_store, s_ckv, x.dtype)
+        k_rope = qcore.dequantize_lastdim(k_rope_store, s_kr, x.dtype)
+        scale_pools = {"c_kv_scale": paged.pool_from_rows(s_ckv, layout),
+                       "k_rope_scale": paged.pool_from_rows(s_kr, layout)}
+    k_nope = common.dense(c_kv, p["wk_b"]).reshape(b, l, h, cfg.nope_dim)
+    v = common.dense(c_kv, p["wv_b"]).reshape(b, l, h, cfg.v_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(b, l, h, cfg.rope_dim)],
+                  dim=-1)
+    out = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
+                          kv_chunk=cfg.kv_chunk)
+    cache = {"c_kv": paged.pool_from_rows(c_kv_store, layout),
+             "k_rope": paged.pool_from_rows(k_rope_store, layout),
+             "block_table": paged.identity_table(b, layout, x.device),
+             "len": torch.full((b,), l, dtype=torch.int32, device=x.device),
+             **scale_pools}
+    return common.dense(out.reshape(b, l, -1), p["wo"]), cache
 
 
 def mla_prefill_chunk(p: dict, x: torch.Tensor, cfg: MLAConfig, cache: dict,

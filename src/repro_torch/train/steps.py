@@ -1,9 +1,12 @@
-"""The training step builder (twin of ``repro.train.steps``).
+"""The train step and the one-shot greedy serve steps (twin of
+``repro.train.steps``).
 
-``build_prefill_step`` and ``build_serve_step`` need the reference's
-one-shot ``api.prefill_fn`` and the non-paged decode step, which the port
-has not taken (the serving engine prefills in chunks into paged KV):
-ROADMAP queue A item 13.
+``build_prefill_step`` / ``build_serve_step`` are the reference's
+one-shot server for every family: a batch prefilled at once into fresh
+identity-table caches, then greedy decode steps of the whole batch (the
+hybrid and audio families serve only this way; the serving engine takes
+the lm families in chunks). The decode step updates the caches in place
+and returns them.
 """
 
 from __future__ import annotations
@@ -64,3 +67,30 @@ def build_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
         return new_params, new_state, metrics
 
     return train_step
+
+
+def build_prefill_step(cfg: ModelConfig, cache_size) -> Callable:
+    """(params, batch) -> (next_tokens [B] int32, caches): the greedy
+    argmax of the last position's logits (the first index of a tie, as
+    ``jnp.argmax``)."""
+    prefill = api.prefill_fn(cfg, cache_size)
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        logits, caches = prefill(params, batch)
+        return torch.argmax(logits, dim=-1).to(torch.int32), caches
+
+    return prefill_step
+
+
+def build_serve_step(cfg: ModelConfig) -> Callable:
+    """One greedy decode step: (params, caches, tokens [B, 1]) ->
+    (next_tokens [B, 1] int32, caches), the caches updated in place."""
+    decode = api.decode_fn(cfg)
+
+    @torch.no_grad()
+    def serve_step(params, caches, tokens):
+        logits = decode(params, tokens, caches)
+        return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], caches
+
+    return serve_step

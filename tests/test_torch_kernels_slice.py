@@ -316,4 +316,5 @@ def test_public_surface():
                                "flash_attention_wgmma_f32", "kahan_matmul",
                                "kahan_matmul_q8", "kahan_acc",
                                "kahan_matmul_split",
-                               "kahan_matmul_q8_split", "serving_head"}
+                               "kahan_matmul_q8_split", "serving_head",
+                               "row_norm"}

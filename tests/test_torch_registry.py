@@ -41,7 +41,7 @@ from repro_torch.models import lm as tlm  # noqa: E402
 # the reference's TPU knobs with no field in the port, per config type
 REFERENCE_ONLY = {"ModelConfig": {"remat_policy", "causal_packing",
                                   "sp_residual"},
-                  "MLAConfig": {"q_chunk", "kv_chunk", "causal_packing"},
+                  "MLAConfig": {"causal_packing"},
                   "MoEConfig": {"act"}}
 LOGIT_ATOL = 0.05
 DECODE_ATOL = {"stablelm-3b": 0.1, "llava-next-mistral-7b": 0.1,
@@ -108,9 +108,16 @@ def test_shapes_for(arch):
 
 
 def test_unserved_families_raise():
+    """The hybrid and audio families serve through the one-shot API
+    only: chunked prefill (the engine's path) refuses them with the
+    reference's message, and training waits for queue A item 13."""
     for arch in ("zamba2-1.2b", "whisper-tiny"):
-        with pytest.raises(NotImplementedError, match="queue A item 12"):
-            tapi.init_params(P.reduced(P.get_config(arch)), device="cpu")
+        cfg = P.reduced(P.get_config(arch))
+        with pytest.raises(NotImplementedError,
+                           match="chunked prefill serves lm families"):
+            tapi.prefill_chunk_fn(cfg)
+        with pytest.raises(NotImplementedError, match="queue A item 13"):
+            tapi.loss_fn(cfg)
 
 
 def _served(arch):

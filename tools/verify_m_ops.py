@@ -1,6 +1,7 @@
 """Which op makes a served row depend on how many rows share its call?
 
     python3 tools/verify_m_ops.py [--case decode|ssm-prefill]
+                                  [--arch qwen1.5-0.5b|deepseek-v2-236b]
                                   [--kv-dtype bf16] [--out PATH]
 
 ``--case decode`` (the default): ``chip_smoke.py``'s verify phase
@@ -8,7 +9,8 @@ measures N, the largest logit distance between the speculative verify
 window (its products at M = 8 slots x 5 rows = 40) and the decode steps
 it replaces (M = 8), and shows that the window is bitwise the same
 decode steps run at M = 40. So N is the decode step's dependence on M.
-On qwen1.5-0.5b at full width (random weights of ``chip_smoke.SEED``),
+On qwen1.5-0.5b at full width (or ``--arch deepseek-v2-236b``, full
+width cut to chip_smoke's 3 layers; random weights of ``chip_smoke.SEED``),
 8 slots are prefilled with the verify phase's prompts; then one decode
 step runs twice on copies of that cache, at M = 8 and at M = 40 (slots
 8-39 idle on the null block).
@@ -24,8 +26,9 @@ each product and norm is called with.
 Both record the output of every call of the model's ops in call order:
 ``common.rms_norm``, ``common.dense`` (named by its weight's shape),
 ``common.swiglu``, ``common.apply_rope``, ``ops.paged_attention``,
-``ssd.causal_conv1d``, ``ssd._ssd_chunk_scan`` (its output y) and the
-serving head. For each op they print how many calls differ between the
+``ssd.causal_conv1d``, ``ssd._ssd_chunk_scan`` (its output y),
+``moe.moe_forward`` (an MoE layer's output; its capacity routing depends
+on M too) and the serving head. For each op they print how many calls differ between the
 two runs (the first 8 rows; for ssm-prefill the 256 positions, the
 64-token calls concatenated) and the first such call (layer, 24 or 48
 for the final norm and head, and op); the first differing call is the
@@ -50,7 +53,7 @@ class Recorder:
 
     def __init__(self):
         from repro_torch.kernels import ops
-        from repro_torch.models import common, lm, ssd
+        from repro_torch.models import common, lm, moe, ssd
         self.calls: list = []
         self.saved = []
         for owner, name, label in (
@@ -61,6 +64,7 @@ class Recorder:
                 (ops, "paged_attention", "paged_attention"),
                 (ssd, "causal_conv1d", "causal_conv1d"),
                 (ssd, "_ssd_chunk_scan", "ssd_chunk_scan"),
+                (moe, "moe_forward", "moe_forward"),
                 (lm, "_serving_logits", "serving head")):
             self._wrap(owner, name, label)
 
@@ -86,20 +90,26 @@ class Recorder:
             setattr(owner, name, fn)
 
 
-def compare(a_calls, b_calls, rows_a, rows_b, num_layers) -> dict:
+def compare(a_calls, b_calls, rows_a, rows_b, num_layers,
+            norms_per_layer: int = 2) -> dict:
     """Per op: calls whose rows differ between the two runs, the first
     such (call index, layer), the largest |difference|."""
     import torch
     per_op: dict = {}
     first = None
-    norms = 0        # two norms per layer; the last one is the final norm
+    norms = 0        # the layers' norms in order, then the final norm
     for i, ((tag, a), (tag2, b)) in enumerate(zip(a_calls, b_calls)):
         assert tag == tag2, (i, tag, tag2)
-        layer = min(norms // 2, num_layers)
+        # a norm opens its part of a layer; other ops belong to the layer
+        # of the last norm before them
+        seen = norms if tag == "rms_norm" else max(norms - 1, 0)
+        layer = min(seen // norms_per_layer, num_layers)
         norms += tag == "rms_norm"
         x, y = rows_a(a), rows_b(b)
         d = per_op.setdefault(tag, dict(calls=0, differ=0, first=None,
                                         max_abs=0.0))
+        if x is None or y is None:      # not one row per token (an
+            continue                    # MoE expert's capacity bucket)
         d["calls"] += 1
         if not torch.equal(x, y):
             diff = float((x.float() - y.float()).abs().max())
@@ -120,12 +130,14 @@ def report(what: str, res: dict) -> None:
     print(f"first differing call: {res['first']}")
 
 
-def case_decode(dev, kv_dtype: str) -> dict:
+def case_decode(dev, kv_dtype: str, arch: str) -> dict:
     import torch
     import chip_smoke as cs
     from repro_torch.configs import get_config
     from repro_torch.models import api, paged
-    cfg = get_config("qwen1.5-0.5b").with_(kv_dtype=kv_dtype)
+    cfg = get_config(arch).with_(kv_dtype=kv_dtype)
+    if cfg.mla is not None:
+        cfg = cfg.with_(num_layers=3)           # chip_smoke's deepseek-v2
     params = api.init_params(cfg, device=dev, seed=cs.SEED)
     lens = [100, 37, 250, 480, 17, 300, 64, 129]
     b, m = len(lens), 40
@@ -163,10 +175,13 @@ def case_decode(dev, kv_dtype: str) -> dict:
             runs[rows] = rec.take()
     finally:
         rec.close()
-    res = compare(runs[b], runs[m], lambda t: t.reshape(b, -1),
-                  lambda t: t.reshape(m, -1)[:b], cfg.num_layers)
-    report(f"qwen1.5-0.5b {kv_dtype} decode step, M = {b} against M = {m}",
-           res)
+    # MLA layers add q_norm and kv_norm to the two block norms
+    res = compare(runs[b], runs[m],
+                  lambda t: t.reshape(b, -1) if t.shape[0] == b else None,
+                  lambda t: t.reshape(m, -1)[:b] if t.shape[0] == m
+                  else None, cfg.num_layers,
+                  4 if cfg.mla is not None else 2)
+    report(f"{arch} {kv_dtype} decode step, M = {b} against M = {m}", res)
     return res
 
 
@@ -216,6 +231,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--case", default="decode",
                     choices=("decode", "ssm-prefill"))
+    ap.add_argument("--arch", default="qwen1.5-0.5b",
+                    choices=("qwen1.5-0.5b", "deepseek-v2-236b"))
     ap.add_argument("--kv-dtype", default="bf16")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -232,10 +249,10 @@ def main() -> int:
     print(smi)
     _device.set_numerics()
     dev = torch.device("cuda")
-    res = (case_decode(dev, args.kv_dtype) if args.case == "decode"
-           else case_ssm_prefill(dev))
-    out = dict(device=smi, case=args.case, kv_dtype=args.kv_dtype,
-               result=res)
+    res = (case_decode(dev, args.kv_dtype, args.arch)
+           if args.case == "decode" else case_ssm_prefill(dev))
+    out = dict(device=smi, case=args.case, arch=args.arch,
+               kv_dtype=args.kv_dtype, result=res)
     if args.out:
         Path(args.out).write_text(json.dumps(out, indent=1))
     print(json.dumps(out))
