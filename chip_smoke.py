@@ -42,6 +42,15 @@ Phases (each prints its own lines; any failure exits non-zero):
              no_grad, none under autograd; times at [8, 1024] and
              [2048, 1024] against the bound and F.rms_norm /
              F.layer_norm;
+   gemm    — the M-invariant bf16 product (``csrc/invariant_gemm.cu``)
+             at every product shape of qwen1.5-0.5b and deepseek-v2-236b
+             (the MoE's batched expert products included): the first 8
+             rows bitwise the same at M = 1, 8, 40, 240, 256 and 2048
+             and at another batch place, within K 2^-23 sum|x w| of the
+             plain twin; one launch per ``dense`` call under no_grad,
+             none under autograd; times at M = 8, 40, 256 and 2048
+             against the bound and ``torch.mm`` / ``torch.bmm`` with an
+             f32 result;
 4. path    — the kernel entry points of ``repro_torch.kernels`` at
              qwen1.5-0.5b's full widths, each with its launch counters
              zeroed just before and read just after: flash attention of
@@ -110,19 +119,22 @@ Phases (each prints its own lines; any failure exits non-zero):
              then behind ``SpecDecodeEngine`` (n-gram spec_k 4,
              self-draft spec_k 3) with every request sampled, each run
              twice and bitwise the same, with the host time of
-             ``rejection_sample`` and of drafting per step;
+             ``rejection_sample`` and of drafting per step (these two at
+             ``REPEAT_LAYERS`` = 8 of the 24 layers, full width);
 12. faults — a ``FailoverServer`` over a bf16 ``DecodeEngine`` with
              ``alloc_fail``, ``kv_corrupt`` and ``logit_nan`` at fixed
              steps, a deadline and a cancellation, run twice with one
              seed (the same firings; guard-tripped requests finish on the
              degraded engine with the bf16 streams; nothing held at the
              end), and a ``SpecDecodeEngine`` with ``proposer_stall``;
-13. prefix — a warm-up request with a 256-token system prompt, then 16
+13. prefix — (8 of the 24 layers, full width) a warm-up request with a
+             256-token system prompt, then 16
              requests of it + 32-224 tokens on a prefix-caching engine
              and on a cold one: every request hits 256 tokens (a chunk
              boundary), tokens and logprobs bitwise; a copy-on-write hit
-             under the near-tie rule of its own prefill reading; int8 /
-             fp8 hit pairs, bitwise;
+             (its remainder prefilled at M = 40 over the M = 256 system
+             chunk, the cold run at M = 240) bitwise its cold run; int8 /
+             fp8 hit and copy-on-write pairs, bitwise;
 14. session — 8 conversations x 3 turns, warm, then replayed cold: hits
              per turn, streams under the near-tie rule, logprobs before
              parting and decode-written vs prefill-written entries (in
@@ -131,7 +143,8 @@ Phases (each prints its own lines; any failure exits non-zero):
 15. preempt — the serve phases' 16 requests on half the blocks with
              ``preempt="lru"`` over bf16, int8 and fp8: streams bitwise
              the serve phases'; snapshot and pinned host-link copy rates;
-16. spill  — prefix cache + session KV + ``spill_blocks`` under pool
+16. spill  — (8 of the 24 layers, full width) prefix cache + session
+             KV + ``spill_blocks`` under pool
              pressure, run with ``promote="auto"`` (the H100 gate, ratio
              printed; it prices the host's dispatch of a prefill chunk's
              launches, which puts qwen1.5-0.5b's ratio far above 1, so
@@ -166,7 +179,21 @@ Phases (each prints its own lines; any failure exits non-zero):
              its plain version; card against CPU at ``small_config``:
              gradients per leaf, remat bitwise, AdamW updates and moments
              on the same gradients, losses of 3 steps with no warmup;
-19. ssm    — mamba2-780m at full width and depth behind ``DecodeEngine``
+   train-families — the training forms of every other family at full
+             width (olmoe-1b-7b 2 of 16 layers, deepseek-v2-236b its dense
+             MLA layer, zamba2-1.2b and whisper-tiny whole,
+             llava-next-mistral-7b 2 of 32 layers with its 576 image
+             patches), each through ``Trainer`` with ``[train]``'s
+             settings: 3 steps with B7 and B2f held to the leaves, finite
+             losses, step ms, peak memory, a profiled step, a probed step
+             (B7 bitwise its twin, B2f in bound), card vs CPU at
+             ``small_config`` (losses and the bf16 product weights'
+             gradient) beside a control (the bf16 products' dW negated)
+             that must part, zamba2's restart bitwise there; first,
+             ``_Bf16BatchedProduct``'s backward at olmoe's expert
+             products against its plain version (a dW x 1.1 control);
+19. ssm    — mamba2-780m at full width (24 of its 48 layers) behind
+             ``DecodeEngine``
              (the serve phases' settings and traffic), with the SSD state
              carry naive and compensated (``kahan_ssm_state``), each run
              twice (bitwise the same); prefill chunk 64 against 256
@@ -190,8 +217,9 @@ Phases (each prints its own lines; any failure exits non-zero):
              window, peak memory; card vs CPU at ``small_config``
              within ``ONESHOT_CARD_TOL``, the control past it; and
              (after the qwen1.5 and deepseek-v2 phases) ``lm_prefill``
-             + ``build_serve_step`` on the serve phases' 16 prompts,
-             one at a time, streams against the bf16 engine's under
+             + ``build_serve_step`` on the serve phases' first 8
+             prompts, one at a time, streams against the bf16 engine's
+             under
              the near-tie rule (deepseek-v2's of one-chunk prompts),
              the head and B1 / B3 held to the calls;
 21. cli    — ``python -m repro_torch.launch.serve`` as subprocesses on the
@@ -201,8 +229,9 @@ Phases (each prints its own lines; any failure exits non-zero):
              injection, and mamba2 with ``--prefix-cache`` (refused).
 
 Every serve path also holds the serving head's launches to its calls
-(one per prefill chunk, decode step, verify window and draft step), and
-the row norm's to the norm calls on the card (``HeadCalls``).
+(one per prefill chunk, decode step, verify window and draft step), the
+row norm's to the norm calls on the card, and the M-invariant GEMM's to
+the bf16 products it takes (``HeadCalls``).
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``. Imports nothing of ``jax`` or of the
@@ -547,8 +576,15 @@ def phase_build():
             fail(f"a {kern} kernel of {lib}.cu has no HGMMA instruction")
     # registers and spills of the tensor-core kernels from the libraries
     # themselves, so a run that finds them already built checks them too
+    counts = {fn: n for fn, n in sass_counts("invariant_gemm",
+                                             "HMMA").items()
+              if "invariant_gemm_kernel" in fn}
+    log(f"[build] invariant_gemm: {sum(counts.values())} HMMA (mma.sync) "
+        f"instructions in the SASS of its {len(counts)} product kernels")
+    if len(counts) != 2 or not all(counts.values()):
+        fail("an invariant_gemm product kernel has no HMMA instruction")
     for lib in sorted({lib for lib, _ in TENSOR_CORE_KERNELS}) + [
-            "row_norm"]:        # and the row norm's registers of x
+            "row_norm", "invariant_gemm"]:   # the norm's registers of x
         usage = res_usage(lib)
         if not usage:
             fail(f"cuobjdump -res-usage listed no {lib} kernel")
@@ -1409,6 +1445,199 @@ def phase_norm(dev) -> dict:
                                 prefill=rows[("layer", 2048)]))
 
 
+# every bf16 product shape of qwen1.5-0.5b and deepseek-v2-236b at full
+# width, [K, N] (B > 1: the MoE's batched expert products)
+GEMM_SHAPES = (
+    ("qwen1.5 q/k/v/o", 1, 1024, 1024),
+    ("qwen1.5 gate_up", 1, 1024, 5632),
+    ("qwen1.5 down", 1, 2816, 1024),
+    ("deepseek-v2 wq_a", 1, 5120, 1536),
+    ("deepseek-v2 wq_b", 1, 1536, 24576),
+    ("deepseek-v2 wkv_a", 1, 5120, 576),
+    ("deepseek-v2 wk_b / wv_b", 1, 512, 16384),
+    ("deepseek-v2 wo", 1, 16384, 5120),
+    ("deepseek-v2 dense gate_up", 1, 5120, 24576),
+    ("deepseek-v2 dense down", 1, 12288, 5120),
+    ("deepseek-v2 router", 1, 5120, 160),
+    ("deepseek-v2 shared gate_up", 1, 5120, 6144),
+    ("deepseek-v2 shared down", 1, 3072, 5120),
+    ("deepseek-v2 experts gate_up", 160, 5120, 3072),
+    ("deepseek-v2 experts down", 160, 1536, 5120),
+)
+GEMM_ROWS = (1, 8, 40, 240, 256, 2048)
+# the kernel and the twin (cuBLAS f32 on the widened operands) each round
+# a K-term sum of exact bf16 x bf16 products in their own order: their
+# difference is read in units of sqrt(K) 2^-24 sum_k |x_k w_k|, the size
+# of a random walk of K f32 roundings. Readings on an NVIDIA H100 80GB
+# HBM3 at 700 W: at most 0.31 over the 15 shapes (deepseek-v2's experts
+# down), so the limit is ~3x that. The control, the kernel with the
+# last 32-wide K chunk left out, must read past it at every shape (it
+# read 381 or more).
+GEMM_TOL = 1.0
+# flash attention's served products at a head shape, alone and among 8
+# sequences: (label, heads, q/k head dim, v head dim, q_chunk, kv_chunk)
+GEMM_ATTN_SHAPES = (("qwen1.5 attention", 16, 64, 64, 512, 512),
+                    ("deepseek-v2 MLA prefill", 128, 192, 128, 512, 512))
+GEMM_ATTN_LEN = 600
+GEMM_TIMED = ("qwen1.5 q/k/v/o", "qwen1.5 gate_up", "qwen1.5 down",
+              "deepseek-v2 wq_b", "deepseek-v2 wo",
+              "deepseek-v2 shared gate_up", "deepseek-v2 experts gate_up")
+GEMM_TIME_ROWS = (8, 40, 256, 2048)
+
+
+def phase_gemm(dev) -> dict:
+    """The M-invariant bf16 product (``csrc/invariant_gemm.cu``) on the
+    card at every product shape of qwen1.5-0.5b and deepseek-v2-236b
+    (``GEMM_SHAPES``). Fails unless the first 8 rows of a call at every M
+    in ``GEMM_ROWS`` are bitwise the same rows at M = 8 (and a row block
+    at another place of the batch is bitwise its rows in the full call),
+    the kernel is within ``GEMM_TOL`` x sqrt(K) 2^-24 sum_k |x_k w_k| of
+    the plain twin everywhere, and the control (the last K chunk left
+    out) reads past that limit at every shape; unless a sequence's flash
+    attention (score and PV products on the kernel) is bitwise the same
+    alone and among 8 sequences (``GEMM_ATTN_SHAPES``). Checks the
+    dispatch of ``invariant_gemm.product``: the kernel under no_grad,
+    cuBLAS's ``_Bf16Product`` under autograd. Then times the shapes of
+    ``GEMM_TIMED`` at ``GEMM_TIME_ROWS`` against the bound and
+    ``torch.mm`` / ``torch.bmm`` with an f32 result (cuBLAS). Returns
+    qwen1.5 gate_up at M = 8 for the kernels line, the other rows beside
+    it."""
+    import torch
+    from repro_torch.kernels import invariant_gemm as ig
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention, common
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    bf = torch.bfloat16
+    worst, worst_abs, control = 0.0, 0.0, math.inf
+    for label, b, k, n in GEMM_SHAPES:
+        rows = max(GEMM_ROWS)
+        w = (torch.randn((b, k, n), generator=g, device=dev)
+             / math.sqrt(k)).to(bf)
+        x = torch.randn((b, rows, k), generator=g, device=dev).to(bf)
+        if b == 1:
+            w, x = w[0], x[0]
+
+        def run(m):
+            return ig.invariant_gemm_cuda(x[..., :m, :], w)
+
+        base = run(8)[..., :8, :]
+        same = all(torch.equal(run(m)[..., :8, :], base[..., :min(m, 8), :]
+                               if m < 8 else base) for m in GEMM_ROWS)
+        full = run(256)
+        same = same and torch.equal(
+            ig.invariant_gemm_cuda(x[..., 200:240, :].contiguous(), w),
+            full[..., 200:240, :])
+        if not same:
+            fail(f"invariant gemm {label} [{b}, {k}, {n}]: a row's bits "
+                 f"depend on M or on its place in the batch")
+        plain = ig.invariant_gemm_plain(x[..., :256, :], w)
+        scale = ig.invariant_gemm_plain(x[..., :256, :].abs(), w.abs()) * (
+            math.sqrt(k) * 2.0 ** -24)
+        err = float(((full - plain).abs() / scale).max())
+        dropped = ig.invariant_gemm_cuda(
+            x[..., :256, :k - ig.BK].contiguous(), w[..., :k - ig.BK, :])
+        ctl = float(((dropped - plain).abs() / scale).max())
+        abs_err = float((full - plain).abs().max())
+        worst, worst_abs = max(worst, err), max(worst_abs, abs_err)
+        control = min(control, ctl)
+        splits, cps = ig.split_plan(b, k, n)
+        log(f"[gemm] {label} [{b}, M, {k}] x [{k}, {n}] (K split {splits} "
+            f"x {cps} chunks): rows bitwise across M {GEMM_ROWS} and a "
+            f"batch place; against the twin at M = 256: max|diff| "
+            f"{abs_err:.4g}, {err:.4g} x sqrt(K) 2^-24 sum|x w| (limit "
+            f"{GEMM_TOL}); the control (last K chunk left out) {ctl:.4g}")
+        if not err <= GEMM_TOL or not bool(torch.isfinite(full).all()):
+            fail(f"invariant gemm {label}: {err:.3g} x sqrt(K) 2^-24 "
+                 f"sum|x w| from the plain twin (limit {GEMM_TOL})")
+        if not ctl > GEMM_TOL:
+            fail(f"invariant gemm {label}: the control (a K chunk left "
+                 f"out) reads {ctl:.3g}, within the limit {GEMM_TOL}")
+        del w, x, base, full, plain, scale, dropped
+        torch.cuda.empty_cache()
+    # a sequence's attention alone and among 8: the K split of the score
+    # and PV products is planned for the heads, not the sequences
+    for label, heads, dqk, dv, qc, kc in GEMM_ATTN_SHAPES:
+        q = torch.randn((8, GEMM_ATTN_LEN, heads, dqk), generator=g,
+                        device=dev).to(bf)
+        kk = torch.randn((8, GEMM_ATTN_LEN, heads, dqk), generator=g,
+                         device=dev).to(bf)
+        v = torch.randn((8, GEMM_ATTN_LEN, heads, dv), generator=g,
+                        device=dev).to(bf)
+        ops.reset_launches()
+        with torch.no_grad():
+            outs = [attention.flash_attention(q[:bb], kk[:bb], v[:bb],
+                                              q_chunk=qc, kv_chunk=kc)
+                    for bb in (1, 8)]
+        launched = ops.launches["invariant_gemm"]
+        same = torch.equal(outs[0][0], outs[1][0])
+        log(f"[gemm] {label} ({heads} heads, dims {dqk} / {dv}, "
+            f"{GEMM_ATTN_LEN} positions, chunks {qc} / {kc}): sequence 0 "
+            f"alone and among 8 bitwise the same {same} "
+            f"({launched} invariant_gemm launches)")
+        if not same or launched == 0:
+            fail(f"invariant gemm {label}: a sequence's attention depends "
+                 f"on the sequences beside it ({launched} launches)")
+        del q, kk, v, outs
+    log(f"[gemm] worst reading {worst:.4g} (limit {GEMM_TOL}), the "
+        f"controls' least {control:.4g}")
+    # the dispatch: the kernel under no_grad, cuBLAS under autograd
+    x = torch.randn((8, 1024), generator=g, device=dev).to(bf)
+    w = (torch.randn((1024, 1024), generator=g, device=dev) / 32).to(bf)
+    ops.reset_launches()
+    with torch.no_grad():
+        k_out = common.dense(x, w)
+    launched = ops.launches["invariant_gemm"]
+    wg = w.float().requires_grad_(True)
+    common.dense(x, wg).float().sum().backward()
+    if launched != 1 or ops.launches["invariant_gemm"] != 1 or \
+            not torch.equal(k_out, ig.invariant_gemm_cuda(x, w).to(bf)) or \
+            wg.grad is None:
+        fail(f"invariant gemm dispatch: {launched} launches under no_grad "
+             f"(want 1), {ops.launches['invariant_gemm'] - launched} under "
+             f"autograd (want 0)")
+    for bad in ((x.float(), w), (x, w[:100])):
+        try:
+            ig.invariant_gemm_cuda(*bad)
+        except ValueError:
+            pass
+        else:
+            fail(f"invariant gemm: {[tuple(t.shape) for t in bad]} "
+                 f"{[t.dtype for t in bad]} did not raise")
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
+    timed = {}
+    for label, b, k, n in GEMM_SHAPES:
+        if label not in GEMM_TIMED:
+            continue
+        w = (torch.randn((b, k, n), generator=g, device=dev)
+             / math.sqrt(k)).to(bf)
+        w = w if b > 1 else w[0]
+        for m in GEMM_TIME_ROWS:
+            if b > 1 and m > 256:
+                continue       # a capacity bucket is 8-256 rows here
+            x = torch.randn((b, m, k) if b > 1 else (m, k), generator=g,
+                            device=dev).to(bf)
+            lib = ((lambda x=x, w=w: torch.bmm(x, w, out_dtype=torch.float32))
+                   if b > 1 else
+                   (lambda x=x, w=w: torch.mm(x, w, out_dtype=torch.float32)))
+            timed[(label, m)] = time_row(
+                flush, f"invariant_gemm {label} M={m}",
+                lambda x=x, w=w: ig.invariant_gemm_cuda(x, w),
+                lambda x=x, w=w: ig.invariant_gemm_plain(x, w), lib,
+                ("invariant_gemm",), ig.bytes_moved(m, k, n, b),
+                ig.flops(m, k, n, b), 0, BF16_FLOPS_PER_S,
+                f"[{b}, {m}, {k}] x [{k}, {n}] bf16 -> f32 (library: "
+                f"torch.{'bmm' if b > 1 else 'mm'} out_dtype f32, cuBLAS)",
+                plain_reps=3)
+            del x
+        del w
+    del flush
+    torch.cuda.empty_cache()
+    main = timed[("qwen1.5 gate_up", 8)]
+    return dict(main, max_abs_err=worst_abs, max_rel_err=worst,
+                control=control,
+                rows={f"{label} M={m}": r for (label, m), r in timed.items()})
+
+
 def _module(name: str):
     """A kernel module of ``repro_torch.kernels`` (the package rebinds
     ``kahan_matmul`` and ``flash_attention`` to the entry functions)."""
@@ -2128,9 +2357,10 @@ def phase_verify_parity(dev, cfg, params, label: str) -> float:
         finally:
             calls.close()
         norm_calls.append(calls.norms)
+        gemm_calls.append(calls.gemms)
         return out, {k: v for k, v in ops.launches.items() if v}
 
-    norm_calls = []
+    norm_calls, gemm_calls = [], []
 
     # control: one token through both paths at M = 8
     cv, cd = copy(base), copy(base)
@@ -2226,7 +2456,8 @@ def phase_verify_parity(dev, cfg, params, label: str) -> float:
         fail(f"verify {label} {cfg.kv_dtype}: logits {tuple(got.shape)}, "
              f"finite {bool(torch.isfinite(got).all())}")
     want_launch = {attn: cfg.num_layers, "serving_head": 1,
-                   "row_norm": norm_calls[0]}
+                   "row_norm": norm_calls[0],
+                   "invariant_gemm": gemm_calls[0]}
     if norm_calls[0] == 0 or norm_calls[1] != norm_calls[0]:
         fail(f"verify {label} {cfg.kv_dtype}: norm calls on the card "
              f"{norm_calls} (one per norm of the model in each window)")
@@ -2310,16 +2541,25 @@ class HeadCalls:
     the ``serving_head`` launches are held to; and in ``norms`` the calls
     of the model's norms (``models.common.rms_norm`` / ``layer_norm``)
     that the row-norm kernel takes (a CUDA tensor, autograd recording
-    nothing), the calls the ``row_norm`` launches are held to."""
+    nothing), the calls the ``row_norm`` launches are held to; in
+    ``gemms`` the bf16 products (``invariant_gemm.product``, the one
+    dispatcher of ``common.dense``, ``moe._expert_matmul`` and flash
+    attention's score and PV products) that the M-invariant GEMM takes,
+    the calls the ``invariant_gemm`` launches are held to."""
 
     def __init__(self):
-        from repro_torch.kernels import row_norm
+        from repro_torch.kernels import invariant_gemm, row_norm
         from repro_torch.models import common, lm
         self.saved = [(lm, "_serving_logits", lm._serving_logits),
                       (common, "rms_norm", common.rms_norm),
-                      (common, "layer_norm", common.layer_norm)]
-        self.n = self.norms = 0
-        head, rms, layer = (fn for _, _, fn in self.saved)
+                      (common, "layer_norm", common.layer_norm),
+                      (invariant_gemm, "product", invariant_gemm.product)]
+        self.n = self.norms = self.gemms = 0
+        head, rms, layer, product = (fn for _, _, fn in self.saved)
+
+        def counted_product(x, w, **kw):
+            self.gemms += int(invariant_gemm.use_kernel(x, w))
+            return product(x, w, **kw)
 
         def counted(h, params, cfg):
             self.n += int(h.is_cuda)
@@ -2336,6 +2576,7 @@ class HeadCalls:
         lm._serving_logits = counted
         common.rms_norm = counted_rms
         common.layer_norm = counted_layer
+        invariant_gemm.product = counted_product
 
     def close(self) -> None:
         for owner, name, fn in self.saved:
@@ -2374,6 +2615,7 @@ def serve_run(engine, reqs) -> tuple[float, list, dict]:
         heads.close()
     engine.smoke_head_calls = heads.n
     engine.smoke_norm_calls = heads.norms
+    engine.smoke_gemm_calls = heads.gemms
     engine._decode_step = decode_step   # the profile window is not timed
     return wall, step_ms, launches
 
@@ -2396,6 +2638,7 @@ def check_served(what: str, engine, reqs, launches: dict, want: dict,
     full = dict.fromkeys(launches, 0)
     full["serving_head"] = engine.smoke_head_calls
     full["row_norm"] = engine.smoke_norm_calls
+    full["invariant_gemm"] = engine.smoke_gemm_calls
     full.update(want)
     if launches != full:
         fail(f"{what}: launch counters {launches} != {full}")
@@ -3177,7 +3420,8 @@ def phase_faults(dev, kind: str, cfg, params, base: dict,
         full = dict.fromkeys(launches, 0)
         full.update(paged_attention=cfg.num_layers * calls.model_steps,
                     fused_reduce=2 * calls.stats,
-                    serving_head=calls.heads.n, row_norm=calls.heads.norms)
+                    serving_head=calls.heads.n, row_norm=calls.heads.norms,
+                    invariant_gemm=calls.heads.gemms)
         if launches != full:
             fail(f"faults: launch counters {launches} != {full}")
         primary, degraded = server.primary, server.degraded
@@ -3267,6 +3511,10 @@ def phase_faults(dev, kind: str, cfg, params, base: dict,
 # ----------------------- prefix caching, session KV, preemption, spill ----
 
 SYS_TOKENS = 256                    # one prefill chunk: 16 blocks
+# layers of the qwen1.5 repeats (sampled speculation, prefix, spill): a
+# cut of depth, full width, so the smoke run has room for
+# [train-families] in its time
+REPEAT_LAYERS = 8
 SERVE_KW = dict(max_slots=8, max_context=1024, block_size=16,
                 prefill_chunk=256)
 
@@ -3397,63 +3645,49 @@ def prefix_pair(dev, cfg, params, n: int) -> tuple:
     return warm, cold, wrun, crun, saved
 
 
-def cow_prefill_noise(dev, cfg, params, prompt: list, hit: int,
-                      stream: list) -> list:
-    """The copy-on-write hit's own M-dependence, read without the prefix
-    cache: ``prompt`` prefilled as one chunk (the cold run, M = len) and
-    as the warm run builds it, the system prompt's chunk (M =
-    ``SYS_TOKENS``) with the remainder from ``hit`` on written over it
-    (M = len - hit); each then decodes ``stream`` (the cold run's tokens)
-    at M = 1. Returns the largest |logit diff| of each row, less the
-    row's mean diff: the prefill's row, then each decode step's."""
+def cow_pair(cfg, warm, cold, rid: int) -> tuple:
+    """A copy-on-write hit: the system prompt's first 200 tokens and 40
+    of its own (diverging inside block 12), 32 new tokens, on the warm
+    prefix-caching engine and on the cold one, both counted. The hit's
+    remainder is prefilled at M = 40 over rows of the M = 256 system
+    chunk, the cold run's chunk at M = 240: the streams and logprobs must
+    be bitwise equal, every product, norm and attention row keeping its
+    bits at any M. Returns the two counted runs."""
     import torch
-    from repro_torch.models import api, paged
-    kv = api.KVCache.build(cfg, max_context=SERVE_KW["max_context"],
-                           block_size=SERVE_KW["block_size"], max_slots=1)
-    blocks = torch.arange(1, 1 + kv.layout.max_blocks, dtype=torch.int32)
-    chunk, decode = api.prefill_chunk_fn(cfg), api.decode_fn(cfg)
-
-    def run(chunks):
-        caches = kv.init(1, device=dev)
-        paged.reset_slot(caches, 0, blocks.to(dev))
-        for toks, pos0 in chunks:
-            lg = chunk(params, torch.tensor([toks], dtype=torch.int32,
-                                            device=dev), caches, 0, pos0)
-        rows = [lg.float()]
-        for t in stream[:-1]:
-            rows.append(decode(params, torch.tensor(
-                [[t]], dtype=torch.int32, device=dev), caches).float())
-        return torch.cat(rows)
-
-    diff = run([(prompt, 0)]) - run([(system_prompt(cfg), 0),
-                                     (prompt[hit:], hit)])
-    # a shift common to a row's logits moves none of its gaps
-    return (diff - diff.mean(-1, keepdim=True)).abs().amax(-1).tolist()
+    from repro_torch.serving.engine import Request
+    g = torch.Generator().manual_seed(SEED + 4)
+    cow_p = system_prompt(cfg)[:200] + random_tokens(g, cfg, 40, 40)
+    wq = Request(rid=rid, prompt=list(cow_p), max_new_tokens=32)
+    cq = Request(rid=rid, prompt=list(cow_p), max_new_tokens=32)
+    cow0 = warm.kv_stats["prefix_cow_blocks"]
+    runs = [counted_run(f"prefix {cfg.kv_dtype} copy-on-write warm", warm,
+                        [wq], cfg),
+            counted_run(f"prefix {cfg.kv_dtype} copy-on-write cold", cold,
+                        [cq], cfg)]
+    if wq.prefix_hit != 200 or warm.kv_stats["prefix_cow_blocks"] != cow0 + 1:
+        fail(f"prefix {cfg.kv_dtype} copy-on-write: hit {wq.prefix_hit}, "
+             f"copies {warm.kv_stats['prefix_cow_blocks'] - cow0}")
+    check_bitwise(f"prefix {cfg.kv_dtype} copy-on-write", [wq], [cq])
+    return runs
 
 
-def phase_prefix(dev, kind: str, cfg, params, noise: float) -> dict:
+def phase_prefix(dev, kind: str, cfg, params) -> dict:
     """Prefix caching at full width: a warm-up request carries a
     256-token system prompt (one prefill chunk, 16 blocks); then 16
     requests of that prompt + 32-224 unique tokens (32 new each, 8
     slots) on the prefix-caching engine and on a cold one. Each hit
     starts its prefill at a chunk boundary of its cold run, so tokens
     and logprobs must be bitwise equal, and every request must hit the
-    256 tokens. A request diverging mid-block (a copy-on-write hit) is
-    held to its cold run under the near-tie rule at 4 x the larger of N
-    and its own prefill reading (``cow_prefill_noise``, the rows up to
-    where the streams part): its remainder is
-    prefilled at M = 40 over rows of the M = 256 system-prompt chunk,
-    where the cold run's chunk has M = 240, and products still depend on
-    M (N, the verify window's noise, is 0 since the row norm repair).
-    int8 and fp8 pools run
-    the hit pair at 4 requests, bitwise. Counters on every run."""
-    import torch
-    from repro_torch.serving.engine import Request
+    256 tokens. A request diverging mid-block (a copy-on-write hit,
+    ``cow_pair``) must be bitwise its cold run too. int8 and fp8 pools
+    run the hit pair at 4 requests and the copy-on-write pair, bitwise.
+    Counters on every run."""
     t0 = time.perf_counter()
     warm, cold, wrun, crun, saved = prefix_pair(dev, cfg, params, 16)
     runs = [wrun, crun]
     w, c = merge_runs([wrun]), merge_runs([crun])
-    log(f"[prefix] qwen1.5-0.5b bf16 on {kind}: 16 requests of the "
+    log(f"[prefix] qwen1.5-0.5b ({cfg.num_layers} L) bf16 on {kind}: 16 "
+        f"requests of the "
         f"{SYS_TOKENS}-token system prompt + 32-224 tokens, 32 new each: "
         f"every request hit {SYS_TOKENS} tokens "
         f"(prefix_hit_tokens {16 * SYS_TOKENS}), tokens and logprobs "
@@ -3464,49 +3698,18 @@ def phase_prefix(dev, kind: str, cfg, params, noise: float) -> dict:
         f"cold {c['tok_s']:.3f} tok/s, median step {c['step_ms']:.3f} ms; "
         f"prefill chunks {warm.kv_stats['prefill_chunks']} warm (warm-up "
         f"included) vs {cold.kv_stats['prefill_chunks']} cold")
-    # a copy-on-write hit: diverges inside block 12
-    g = torch.Generator().manual_seed(SEED + 4)
-    cow_p = system_prompt(cfg)[:200] + random_tokens(g, cfg, 40, 40)
-    wq = Request(rid=50, prompt=list(cow_p), max_new_tokens=32)
-    cq = Request(rid=50, prompt=list(cow_p), max_new_tokens=32)
-    cow0 = warm.kv_stats["prefix_cow_blocks"]
-    probe = GapProbe(warm)
-    runs.append(counted_run("prefix copy-on-write warm", warm, [wq], cfg))
-    probe.detach()
-    runs.append(counted_run("prefix copy-on-write cold", cold, [cq], cfg))
-    if wq.prefix_hit != 200 or warm.kv_stats["prefix_cow_blocks"] != cow0 + 1:
-        fail(f"prefix copy-on-write: hit {wq.prefix_hit}, copies "
-             f"{warm.kv_stats['prefix_cow_blocks'] - cow0}")
-    # the reading up to the token where the streams part (all of them if
-    # they do not): the rows the parting token's choice rests on
-    rows = cow_prefill_noise(dev, cfg, params, cow_p, 200, cq.output)
-    part = next((i for i, (a, b) in enumerate(zip(wq.output, cq.output))
-                 if a != b), len(rows) - 1)
-    m_noise = max(rows[:part + 1])
-    log(f"[prefix] copy-on-write prefill reading: the same {len(cow_p)} "
-        f"tokens prefilled at M = 240 and as 256 system-prompt tokens + 40 "
-        f"from 200, then the cold stream decoded: max |logit diff - its "
-        f"row's mean| {m_noise:.4g} over rows 0-{part} ({max(rows):.4g} "
-        f"over all "
-        f"{len(rows)}); near-tie limit 4 x max(N {noise:.4g}, it) = "
-        f"{4 * max(noise, m_noise):.4g}")
-    ties = check_streams("prefix copy-on-write", [wq],
-                         {50: cq.output}, probe, max(noise, m_noise),
-                         tag="prefix", ref="the cold run")
-    lp = [abs(a - b) for a, b, x, y in zip(wq.logprobs, cq.logprobs,
-                                          wq.output, cq.output) if x == y]
-    log(f"[prefix] copy-on-write request: {len(cow_p)} tokens diverging "
-        f"from the system prompt at 200 (inside block 12): hit 200, one "
-        f"block copied, remainder prefilled at M = 40 (cold M = 240); "
-        f"stream vs cold: {ties} near-tie divergences, max |logprob diff| "
-        f"{max(lp) if lp else 0.0:.4g} before any")
+    runs += cow_pair(cfg, warm, cold, 50)
+    log(f"[prefix] copy-on-write request: 240 tokens diverging from the "
+        f"system prompt at 200 (inside block 12): hit 200, one block "
+        f"copied, remainder prefilled at M = 40 (cold M = 240); tokens and "
+        f"logprobs bitwise the cold run's")
     for kvd in ("int8", "fp8"):
         qcfg = cfg.with_(kv_dtype=kvd)
         qw, qc, a, b, qsaved = prefix_pair(dev, qcfg, params, 4)
-        runs += [a, b]
+        runs += [a, b] + cow_pair(qcfg, qw, qc, 50)
         log(f"[prefix] {kvd} pools: 4 hit requests bitwise the cold "
             f"engine's, {4 * SYS_TOKENS} hit tokens, {qsaved} prefill "
-            f"tokens saved")
+            f"tokens saved; the copy-on-write request bitwise its cold run")
     log(f"[prefix] {time.perf_counter() - t0:.1f} s")
     return merge_runs(runs)
 
@@ -3581,18 +3784,19 @@ def conversation_turns(cfg, seed: int, n_conv: int = 8, turns: int = 3):
 # sound runs, taken by ``tools/session_noise.py`` on conversations of
 # seeds ``SESSION_CALIB_SEEDS`` (not the phase's ``SESSION_SEED``) on an
 # NVIDIA H100 80GB HBM3, 700.00 W: the largest |warm - cold| logprob of a
-# token emitted before the streams part (seed 102; the six seeds read
-# 0.117-0.190), and the largest decode-written vs prefill-written entry
-# distance of any layer, in storage steps (seed 103, layer 21; 26.6-39.3).
+# token emitted before the streams part (seed 100; the six seeds read
+# 0.119-0.230), and the largest decode-written vs prefill-written entry
+# distance of any layer, in storage steps (seed 100, layer 23;
+# 29.6-40.0).
 # Re-measured after the norms moved to the row-norm kernel (the readings
-# before were 0.23796796798706055 and 43.149). The one-shot streams use
-# the same readings (``[prefix]``'s copy-on-write hit reads its own,
-# ``cow_prefill_noise``). Re-measure
-# them with that script when the served path's numerics change.
+# before were 0.23796796798706055 and 43.149), and again after the
+# products moved to the M-invariant GEMM (before: 0.1902933120727539 and
+# 39.262). The one-shot streams use the same readings. Re-measure them
+# with that script when the served path's numerics change.
 SESSION_SEED = SEED + 5
 SESSION_CALIB_SEEDS = tuple(range(SEED + 100, SEED + 106))
-SESSION_NOISE = 0.1902933120727539
-SESSION_STEPS = 39.262
+SESSION_NOISE = 0.230194091796875
+SESSION_STEPS = 40.015
 
 
 def session_pairs(dev, cfg, params, seed: int) -> dict:
@@ -4109,21 +4313,26 @@ DENSE_BWD_RTOL = 1e-3
 class _TrainProbe:
     """Holds every call of ``ops.kahan_accumulate`` (B7) and
     ``ops.fused_reduce`` (B2f) of one training step against its plain
-    twin on the same tensors, on the card: B7's result bitwise
+    twin on the same tensors, on the card (B7: the first ``b7_checked``
+    calls, every call when None): B7's result bitwise
     ``core.kahan.neumaier_step`` on copies of its inputs; B2f's max|g|
     equal to the twin's and its sum of squares within the compensated
     bound of the B2f parity phase (4 ulp of the value plus 16 eps^2
     sum g^2). The twins launch none of the port's kernels."""
 
-    def __init__(self):
+    def __init__(self, b7_checked: int | None = None):
         from repro_torch.kernels import ops
         self.ops = ops
         self.acc, self.red = ops.kahan_accumulate, ops.fused_reduce
         self.n_acc = self.n_red = 0
+        self.b7_checked = b7_checked      # None: every B7 call
         self.worst = 0.0
 
     def kahan_accumulate(self, s, c, u):
         from repro_torch.core import kahan
+        if self.b7_checked is not None and self.n_acc >= self.b7_checked:
+            self.n_acc += 1
+            return self.acc(s, c, u)
         want_s, want_c = kahan.neumaier_step(s.clone(), c.clone(),
                                              u.to(s.dtype))
         out = self.acc(s, c, u)
@@ -4196,8 +4405,8 @@ def _worst(got: list, want: list) -> tuple[float, str]:
 
 
 def dense_backward_parity(dev, cfg) -> dict:
-    """The card's bf16 product backward (``common._Bf16Product``: dX =
-    dY W^T and dW = X^T dY, bf16 tensor-core GEMMs with f32 results,
+    """The card's bf16 product backward (``invariant_gemm._Bf16Product``:
+    dX = dY W^T and dW = X^T dY, bf16 tensor-core GEMMs with f32 results,
     each rounded to bf16) at the products the training step of ``cfg``
     runs, one microbatch of ``TRAIN_KW`` tokens each, against the plain
     version on the same inputs: the bf16 operands widened to f32, one
@@ -4205,7 +4414,7 @@ def dense_backward_parity(dev, cfg) -> dict:
     so they part only where the order of the sum moves a bf16 rounding.
     Returns dX's and dW's relative difference per product (by norm)."""
     import torch
-    from repro_torch.models import common
+    from repro_torch.kernels import invariant_gemm
     m = (TRAIN_KW["seq_len"] * TRAIN_KW["global_batch"]
          // TRAIN_KW["n_microbatches"])
     d, hd = cfg.d_model, cfg.head_dim
@@ -4223,7 +4432,7 @@ def dense_backward_parity(dev, cfg) -> dict:
         dy = torch.randn(m, n, generator=gen, device=dev)
         x.requires_grad_(True)
         w.requires_grad_(True)
-        common._Bf16Product.apply(x, w).backward(dy)
+        invariant_gemm._Bf16Product.apply(x, w).backward(dy)
         dyw = dy.to(bf16).float()
         dx = (dyw @ w.detach().float().t()).to(bf16)
         dw = (x.detach().float().t() @ dyw).to(bf16)
@@ -4385,8 +4594,6 @@ def phase_train(dev, kind: str, qwen) -> dict:
       within ``TRAIN_CPU_RTOL``; first, ``_Bf16Product``'s backward at
       the step's products within ``DENSE_BWD_RTOL`` of the plain
       product (``dense_backward_parity``)."""
-    import shutil
-    import tempfile
     import torch
     from repro_torch.core import kahan
     from repro_torch.kernels import ops
@@ -4464,41 +4671,14 @@ def phase_train(dev, kind: str, qwen) -> dict:
     torch.cuda.empty_cache()
     # restart contract at full width, 2 layers
     cfg2 = qwen.with_(num_layers=2)
-    build = HERE / "build"
-    build.mkdir(exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="train_ckpt_", dir=build)
-    try:
-        t0 = time.perf_counter()
-        straight = Trainer(cfg2, device=dev, seed=SEED, **TRAIN_KW)
-        straight.run(4, log_every=0)
-        first = Trainer(cfg2, device=dev, seed=SEED, ckpt_dir=tmp,
-                        ckpt_every=10 ** 6, **TRAIN_KW)
-        first.run(2, log_every=0)         # publishes step_2 at its end
-        del first
-        resumed = Trainer(cfg2, device=dev, seed=SEED, ckpt_dir=tmp,
-                          ckpt_every=10 ** 6, **TRAIN_KW)
-        if not resumed.maybe_restore() or resumed.step != 2:
-            fail("train: no checkpoint at step 2 to restore")
-        resumed.ckpt = None               # no second checkpoint
-        resumed.run(2, log_every=0)
-        a, b = _state_leaves(straight), _state_leaves(resumed)
-        same = len(a) == len(b) and all(torch_equal(x, y)
-                                         for x, y in zip(a, b))
-        ckpt_gb = sum(f.stat().st_size for f in Path(tmp).rglob("*")
-                      if f.is_file()) / 1e9
-        log(f"[train] restart at d {cfg2.d_model}, 2 layers: 4 steps "
-            f"straight vs "
-            f"2 + checkpoint ({ckpt_gb:.2f} GB) + restore + 2: "
-            f"{len(a)} leaves of params and optimizer state bitwise: {same}; "
-            f"{time.perf_counter() - t0:.1f} s")
-        if not same:
-            diff = [i for i, (x, y) in enumerate(zip(a, b))
-                    if not torch_equal(x, y)]
-            fail(f"train: resumed state differs from the straight run at "
-                 f"{len(diff)} leaves (first {diff[:5]})")
-        del straight, resumed
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    same, n_leaves, ckpt_gb = restart_bitwise(dev, cfg2, TRAIN_KW)
+    log(f"[train] restart at d {cfg2.d_model}, 2 layers: 4 steps "
+        f"straight vs 2 + checkpoint ({ckpt_gb:.2f} GB) + restore + 2: "
+        f"{n_leaves} leaves of params and optimizer state bitwise: {same}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not same:
+        fail("train: resumed state differs from the straight run")
     torch.cuda.empty_cache()
     par = train_cpu_parity(dev)
     log(f"[train] phase {time.perf_counter() - t_start:.1f} s")
@@ -4507,7 +4687,432 @@ def phase_train(dev, kind: str, qwen) -> dict:
                 profile=prof, cpu_rel=par, dense_bwd=bwd)
 
 
+# the training forms of every family beyond dense GQA and Mamba2 at full
+# width, the depth cut so each trains on one card (~28-30 B of state per
+# parameter: f32 master, gradient, Kahan sum and carry, AdamW m, v and
+# carry, bf16 copies): (arch, config overrides, sequence length)
+TRAIN_FAMILIES = (
+    ("olmoe-1b-7b", dict(num_layers=2), 256),          # 2 of 16 layers
+    ("deepseek-v2-236b", dict(num_layers=1), 256),     # its dense layer
+    ("zamba2-1.2b", {}, 256),
+    ("whisper-tiny", {}, 256),
+    # 576 image patches prefix each sequence: 256 text tokens after them
+    ("llava-next-mistral-7b", dict(num_layers=2), 576 + 256),
+)
+TRAIN_FAMILY_STEPS = 3
+# the small_config runs (card against CPU, the restart): seq 64 (a vlm's
+# patches added) x batch 4 in 2 microbatches, so the CPU side stays short
+TRAIN_FAMILY_SMALL_KW = dict(TRAIN_KW, seq_len=64, global_batch=4,
+                             n_microbatches=2)
+# B7 calls of the probed step held bitwise to their twin (the first ones:
+# every leaf of the first microbatch and more; [train] checks them all)
+TRAIN_FAMILY_B7_CHECKED = 64
+# card against CPU at small_config (``family_cpu_parity``), from the
+# same f32 parameters with every product weight at its own fan-in
+# (``fan_in_scaled``): the largest relative difference of the losses of
+# 3 steps, and of the gradient of the bf16 product weights
+# (``common.BF16_WEIGHTS`` leaves as one vector, by norm), per arch; and
+# every bf16 product backward of the card's gradient held, on its own
+# saved tensors, to the plain widened f32 product within
+# ``DENSE_BWD_RTOL``. The control, the card's product backwards with dW
+# x ``TRAIN_FAMILY_CONTROL``, must read past both limits. Readings on an
+# NVIDIA H100 80GB HBM3 at 700 W (deterministic: every kernel of the
+# path keeps its bits run to run): losses 3.8e-5 to 2.26e-3 (olmoe,
+# whose top-k routing moves after an update); gradients olmoe 4.6e-3,
+# deepseek-v2 3.8e-3, zamba2 0.048, whisper 7.1e-3, llava 5.2e-3; product
+# backwards at most 1.9e-4; the control 0.100-0.105 on the gradient and
+# 0.100 on the product backwards. Each gradient limit sits between its
+# reading and the control. zamba2's reading is rounding growth, not a
+# product's fault: every product's output on the card is within 2e-7 of
+# its twin on the same operands and every product backward within
+# 2e-4, while the card's and the CPU's own kernels for the norms and
+# the SSD scan round differently and the difference grows through the
+# layers (``tools/train_grad_witness.py --card``: the product outputs
+# part by 2e-4 at the second Mamba2 layer and by 0.018 at the last).
+# Losses at init sit near ln(vocab) and move little in 3 steps at lr
+# 3e-4, so the gradients are the gates that see a backward fault.
+TRAIN_FAMILY_RTOL = {"loss": 3e-3}
+TRAIN_FAMILY_GRAD_RTOL = {"olmoe-1b-7b": 3e-2, "deepseek-v2-236b": 3e-2,
+                          "zamba2-1.2b": 7e-2, "whisper-tiny": 3e-2,
+                          "llava-next-mistral-7b": 3e-2}
+TRAIN_FAMILY_CONTROL = 1.1
+
+
+def fan_in_scaled(tree: dict) -> dict:
+    """``tree`` (f32, in place) with every bf16 product weight
+    (``common.BF16_WEIGHTS``: a [K, N] matrix or a [E, K, N] expert
+    stack) scaled to standard deviation 1 / sqrt(K). The init draws a
+    layer-stacked leaf at 1 / sqrt(its leading axis), the layer count,
+    as the reference does: at small_config's 2 layers every product
+    weight has std 0.71, attention saturates, and whisper's gradient moves
+    by a third when only the f32 sum order of its products changes
+    (``tools/train_grad_witness.py``), which no card-vs-CPU limit below 1
+    can hold. At each matrix's own fan-in the same change moves it by
+    ~2e-3."""
+    from repro_torch.models import common
+    for name, leaf in _named_leaves(tree):
+        if name.rsplit("/", 1)[-1] in common.BF16_WEIGHTS and leaf.dim() > 1:
+            leaf.mul_(1.0 / (math.sqrt(leaf.shape[-2]) * float(leaf.std())))
+    return tree
+
+
+class _ProductProbe:
+    """While open, every backward of the card's bf16 products
+    (``_Bf16Product``, ``_Bf16BatchedProduct``) is held, on its own saved
+    x, w and incoming dY, to the plain version (the bf16 operands widened
+    to f32, one f32 product, rounded to bf16): ``worst`` is the largest
+    relative difference (by norm) of dX or dW over the calls. Open it
+    inside ``_ScaledDW`` to probe the scaled backward."""
+
+    def __init__(self):
+        from repro_torch.kernels import invariant_gemm as ig
+        self.saved = [(cls, cls.backward) for cls in (
+            ig._Bf16Product, ig._Bf16BatchedProduct)]
+        self.worst, self.calls = 0.0, 0
+
+    def __enter__(self):
+        import torch
+        bf16 = torch.bfloat16
+        for cls, bwd in self.saved:
+            def probed(ctx, dy, bwd=bwd):
+                dx, dw = bwd(ctx, dy)
+                x, w = (t.float() for t in ctx.saved_tensors)
+                dyw = dy.to(bf16).float()
+                for got, want in ((dx, lambda: dyw @ w.transpose(-1, -2)),
+                                  (dw, lambda: x.transpose(-1, -2) @ dyw)):
+                    if got is not None:
+                        self.worst = max(self.worst,
+                                         _rel(got, want().to(bf16)))
+                self.calls += 1
+                return dx, dw
+            cls.backward = staticmethod(probed)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, bwd in self.saved:
+            cls.backward = staticmethod(bwd)
+
+
+class _ScaledDW:
+    """While open, the card's bf16 product backwards (``_Bf16Product``,
+    ``_Bf16BatchedProduct``) return dW x ``factor``: the controls of
+    ``family_cpu_parity`` and ``batched_backward_parity`` (1.1)."""
+
+    def __init__(self, factor: float):
+        from repro_torch.kernels import invariant_gemm as ig
+        self.factor = factor
+        self.saved = [(cls, cls.backward) for cls in (
+            ig._Bf16Product, ig._Bf16BatchedProduct)]
+
+    def __enter__(self):
+        for cls, bwd in self.saved:
+            def scaled(ctx, dy, bwd=bwd):
+                dx, dw = bwd(ctx, dy)
+                return dx, None if dw is None else dw * self.factor
+            cls.backward = staticmethod(scaled)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, bwd in self.saved:
+            cls.backward = staticmethod(bwd)
+
+
+def batched_backward_parity(dev) -> dict:
+    """``invariant_gemm._Bf16BatchedProduct``'s backward (dX = dY W^T,
+    dW = X^T dY, bf16 tensor-core ``bmm``s with f32 results rounded to bf16) at the
+    expert products of olmoe-1b-7b's training step (64 experts, a
+    microbatch's 512 tokens x top-8 at capacity 80; d 2048, expert d_ff
+    1024) against the plain widened f32 product on the same inputs,
+    within ``DENSE_BWD_RTOL``; the control (dW x 1.1) must part past
+    it."""
+    import torch
+    from repro_torch.kernels.invariant_gemm import _Bf16BatchedProduct
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    bf16 = torch.bfloat16
+    out = {}
+    for name, (e, c, k, n) in (("w_gate_up", (64, 80, 2048, 2048)),
+                               ("w_down", (64, 80, 1024, 2048))):
+        x = torch.randn(e, c, k, generator=gen, device=dev).to(bf16)
+        w = (torch.randn(e, k, n, generator=gen, device=dev)
+             / math.sqrt(k)).to(bf16)
+        dy = torch.randn(e, c, n, generator=gen, device=dev)
+        dyw = dy.to(bf16).float()
+        want_dx = torch.bmm(dyw, w.float().transpose(1, 2)).to(bf16)
+        want_dw = torch.bmm(x.float().transpose(1, 2), dyw).to(bf16)
+        got = []
+        for factor in (None, 1.1):
+            xg, wg = x.clone().requires_grad_(True), \
+                w.clone().requires_grad_(True)
+            if factor is None:
+                _Bf16BatchedProduct.apply(xg, wg).backward(dy)
+            else:
+                with _ScaledDW(factor):
+                    _Bf16BatchedProduct.apply(xg, wg).backward(dy)
+            got.append((_rel(xg.grad, want_dx), _rel(wg.grad, want_dw)))
+        out[f"{name} [{e}, {c}, {k}] x [{e}, {k}, {n}]"] = got
+    worst = max(max(v[0]) for v in out.values())
+    ctl = min(v[1][1] for v in out.values())
+    log(f"[train-families] _Bf16BatchedProduct backward against the plain "
+        f"widened f32 product at olmoe's expert products, relative "
+        f"difference ((dX, dW), control (dX, dW x 1.1)) per product: "
+        f"{ {k: [(round(a, 8), round(b, 8)) for a, b in v] for k, v in out.items()} }; "
+        f"worst {worst:.3g} (limit {DENSE_BWD_RTOL}), the control's dW "
+        f"{ctl:.3g}")
+    if not worst <= DENSE_BWD_RTOL:
+        fail(f"train-families: the batched product's backward parts from "
+             f"its plain version by {worst:.3g}")
+    if not ctl > DENSE_BWD_RTOL:
+        fail("train-families: the batched backward's control does not part")
+    return dict(worst=worst, control=ctl)
+
+
+def family_cpu_parity(dev, arch: str) -> dict:
+    """``small_config(arch)`` trained on the card against the CPU port
+    from the same f32 parameters (``fan_in_scaled``) and batches
+    (``TRAIN_FAMILY_SMALL_KW``): the losses of ``TRAIN_FAMILY_STEPS``
+    ``Trainer`` steps with no warmup within ``TRAIN_FAMILY_RTOL``, the
+    step-0 gradient of the bf16 product weights (Kahan accumulation of
+    the microbatches on B7) within ``TRAIN_FAMILY_GRAD_RTOL``, and every
+    product backward of the card's gradient within ``DENSE_BWD_RTOL`` of
+    its plain version (``_ProductProbe``); the control (dW x
+    ``TRAIN_FAMILY_CONTROL``) must part past both limits. The whole
+    gradient and the worst leaf are printed. Returns the readings."""
+    import contextlib
+    import torch
+    from repro_torch.core import kahan
+    from repro_torch.models import api, common
+    from repro_torch.optim import accumulate, adamw
+    from repro_torch.train.loop import Trainer
+    small = small_config(arch)
+    kw = dict(TRAIN_FAMILY_SMALL_KW, seq_len=TRAIN_FAMILY_SMALL_KW[
+        "seq_len"] + (small.vlm.num_patches if small.vlm is not None else 0))
+    start = fan_in_scaled(api.init_params(small, device="cpu", seed=SEED,
+                                          hold_bf16=False))
+    copy = lambda d: kahan.tree_map(lambda x: x.to(d, copy=True), start)
+    got = {}
+    for d, control in (("cpu", False), (dev, False), (dev, True)):
+        t = Trainer(small, device=d, seed=SEED, warmup=0, **kw)
+        micro = accumulate.split_microbatches(
+            t._device_batch(t.pipeline.batch_for_step(0)),
+            kw["n_microbatches"])
+        key = f"{d}{' control' if control else ''}"
+        with contextlib.ExitStack() as stack:
+            if control:
+                stack.enter_context(_ScaledDW(TRAIN_FAMILY_CONTROL))
+            probe = stack.enter_context(_ProductProbe())
+            grads = accumulate.accumulate_gradients(api.loss_fn(small),
+                                                    copy(d), micro)[1]
+        got[key] = dict(grad=_named_leaves(grads), local=probe.worst,
+                        calls=probe.calls)
+        if control:
+            continue
+        t.params = copy(d)
+        t.opt_state = adamw.init(t.params, t.opt_cfg)
+        got[key]["loss"] = [h["loss"] for h in t.run(
+            TRAIN_FAMILY_STEPS, log_every=0)["history"]]
+    c, g, k = got["cpu"], got[str(dev)], got[f"{dev} control"]
+
+    def vec(named, products: bool):
+        return torch.cat([
+            t.detach().reshape(-1).to("cpu", torch.float64)
+            for n, t in named
+            if not products or n.rsplit("/", 1)[-1] in common.BF16_WEIGHTS])
+
+    rel = {"loss": max(abs(x / y - 1) for x, y in zip(g["loss"], c["loss"])),
+           "grad": _rel(vec(g["grad"], True), vec(c["grad"], True)),
+           "local": g["local"]}
+    ctl = {"grad": _rel(vec(k["grad"], True), vec(c["grad"], True)),
+           "local": k["local"]}
+    whole = _rel(vec(g["grad"], False), vec(c["grad"], False))
+    leaf = _worst(g["grad"], c["grad"])
+    limit = TRAIN_FAMILY_GRAD_RTOL[arch]
+    log(f"[train-families] {arch} small_config (d {small.d_model}, "
+        f"{small.num_layers} L, vocab {small.vocab_size}; product weights "
+        f"at their own fan-in; seq {kw['seq_len']} x batch "
+        f"{kw['global_batch']} in {kw['n_microbatches']}) card vs CPU from "
+        f"the same parameters: losses of {TRAIN_FAMILY_STEPS} steps card "
+        f"{g['loss']} vs CPU {c['loss']}, relative {rel['loss']:.3g} (limit "
+        f"{TRAIN_FAMILY_RTOL['loss']}); the bf16 product weights' gradient "
+        f"{rel['grad']:.3g} (limit {limit}); the card's {g['calls']} product "
+        f"backwards against their plain version on their own tensors, "
+        f"worst {rel['local']:.3g} (limit {DENSE_BWD_RTOL}); the control "
+        f"(dW x {TRAIN_FAMILY_CONTROL} on the card) {ctl['grad']:.3g} and "
+        f"{ctl['local']:.3g}; printed: the whole gradient {whole:.3g}, the "
+        f"worst leaf {leaf[0]:.3g} at {leaf[1]}")
+    if not (rel["loss"] <= TRAIN_FAMILY_RTOL["loss"]
+            and rel["grad"] <= limit and rel["local"] <= DENSE_BWD_RTOL
+            and g["calls"] > 0):
+        fail(f"train-families {arch}: card and CPU disagree at "
+             f"small_config: {rel} ({g['calls']} product backwards)")
+    if not (ctl["grad"] > limit and ctl["local"] > DENSE_BWD_RTOL):
+        fail(f"train-families {arch}: the control ({ctl}) does not part "
+             f"past the limits {limit} and {DENSE_BWD_RTOL}")
+    torch.cuda.empty_cache()
+    return dict(loss=rel["loss"], grad=rel["grad"], local=rel["local"],
+                control=ctl, whole=whole, worst_leaf=leaf[0])
+
+
+def restart_bitwise(dev, cfg, kw: dict) -> tuple[bool, int, float]:
+    """The restart contract: ``cfg`` trained 4 steps straight against 2
+    steps, a checkpoint (under ``build/``, removed after), a restore into
+    a fresh ``Trainer`` and 2 more. Returns whether params and optimizer
+    state are bitwise equal, the leaves compared and the checkpoint's
+    GB."""
+    import shutil
+    import tempfile
+    from repro_torch.train.loop import Trainer
+    build = HERE / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="train_ckpt_", dir=build)
+    try:
+        straight = Trainer(cfg, device=dev, seed=SEED, **kw)
+        straight.run(4, log_every=0)
+        first = Trainer(cfg, device=dev, seed=SEED, ckpt_dir=tmp,
+                        ckpt_every=10 ** 6, **kw)
+        first.run(2, log_every=0)         # publishes step_2 at its end
+        del first
+        resumed = Trainer(cfg, device=dev, seed=SEED, ckpt_dir=tmp,
+                          ckpt_every=10 ** 6, **kw)
+        if not resumed.maybe_restore() or resumed.step != 2:
+            fail(f"restart {cfg.name}: no checkpoint at step 2 to restore")
+        resumed.ckpt = None               # no second checkpoint
+        resumed.run(2, log_every=0)
+        a, b = _state_leaves(straight), _state_leaves(resumed)
+        same = len(a) == len(b) and all(torch_equal(x, y)
+                                         for x, y in zip(a, b))
+        ckpt_gb = sum(f.stat().st_size for f in Path(tmp).rglob("*")
+                      if f.is_file()) / 1e9
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return same, len(a), ckpt_gb
+
+
+def phase_train_families(dev, kind: str) -> tuple[dict, dict]:
+    """The training forms of every family beyond dense GQA and Mamba2 at
+    full width (``TRAIN_FAMILIES``: MoE with GQA, MLA with deepseek-v2's
+    dense layer, the hybrid, the encoder-decoder, the vlm with its image
+    patches), one at a time through the real ``Trainer`` (``TRAIN_KW``:
+    global batch 8 in 4 microbatches, Kahan accumulation and AdamW
+    carry, fused gradient statistics), weights drawn on the card from
+    seed ``SEED``:
+
+    - ``TRAIN_FAMILY_STEPS`` steps with the launch counters zeroed just
+      before and read just after: B7 once per leaf and microbatch plus
+      once per leaf for the carry, B2f once per leaf, nothing else; the
+      losses, gradient norms and max|g| finite; the median step, tokens/s
+      and peak device memory;
+    - one profiled step: device busy ms, idle share, kernels per step,
+      B7 and B2f device ms;
+    - one step under ``_TrainProbe``: every B7 call bitwise its twin,
+      every B2f call within the compensated bound;
+    - card against CPU at ``small_config`` beside its control
+      (``family_cpu_parity``); zamba2's restart bitwise there
+      (``restart_bitwise``).
+    Each model is freed before the next. First, ``_Bf16BatchedProduct``'s
+    backward at olmoe's expert products against its plain version
+    (``batched_backward_parity``). Returns the per-arch readings and the
+    batched backward's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import kahan
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.train.loop import Trainer
+    batched = batched_backward_parity(dev)
+    out = {}
+    for arch, cut, seq in TRAIN_FAMILIES:
+        t_start = time.perf_counter()
+        cfg = get_config(arch).with_(**cut)
+        kw = dict(TRAIN_KW, seq_len=seq)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        trainer = Trainer(cfg, device=dev, seed=SEED, **kw)
+        trainer.init_state()
+        leaves = len(kahan.tree_leaves(trainer.params))
+        n_params = api.num_params(trainer.params)
+        tokens = kw["seq_len"] * kw["global_batch"]
+        ops.reset_launches()
+        hist = trainer.run(TRAIN_FAMILY_STEPS, log_every=0)["history"]
+        torch.cuda.synchronize()
+        launches = dict(ops.launches)
+        want = dict.fromkeys(launches, 0)
+        want.update(kahan_acc=TRAIN_FAMILY_STEPS * leaves
+                    * (kw["n_microbatches"] + 1),
+                    fused_reduce=TRAIN_FAMILY_STEPS * leaves)
+        if launches != want:
+            fail(f"train-families {arch}: launch counters {launches} != "
+                 f"{want}")
+        for h in hist:
+            m = h["metrics"]
+            vals = [h["loss"], float(m["grad_norm"]),
+                    float(m["grad_maxabs"])]
+            if not all(math.isfinite(v) for v in vals):
+                fail(f"train-families {arch}: step {h['step']}: loss, grad "
+                     f"norm, max|g| {vals}")
+        step_ms = statistics.median(1e3 * h["dt"] for h in hist[1:])
+        log(f"[train-families] {arch} full width ({cut or 'full depth'}: "
+            f"{cfg.num_layers} L, d {cfg.d_model}, {n_params} f32 "
+            f"parameters, {leaves} leaves, seq {seq} x batch "
+            f"{kw['global_batch']} in {kw['n_microbatches']} microbatches) "
+            f"on {kind}: losses {[round(h['loss'], 5) for h in hist]}, "
+            f"grad norms "
+            f"{[round(float(h['metrics']['grad_norm']), 5) for h in hist]}; "
+            f"launch counters {launches}; step wall ms "
+            f"{[round(1e3 * h['dt'], 3) for h in hist]}, median of steps "
+            f"1-{TRAIN_FAMILY_STEPS - 1} {step_ms:.3f} ms, "
+            f"{tokens / (step_ms / 1e3):.3f} tokens/s")
+        prof = train_profile(trainer, leaves)
+        log(f"[train-families] {arch} profiled step: wall "
+            f"{prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} "
+            f"ms, idle share {prof['idle']:.4f}, {prof['kernels']:.0f} "
+            f"kernels; B7 {prof['b7_ms']:.4f} ms ({leaves * 5} calls), B2f "
+            f"{prof['b2f_ms']:.4f} ms ({leaves} calls); windows traced "
+            f"{prof['tries']}")
+        for ms, cnt, key in prof["top"][:5]:
+            log(f"[train-families]   {ms:9.3f} ms/step {cnt:8.1f}/step  "
+                f"{key}")
+        with _TrainProbe(b7_checked=TRAIN_FAMILY_B7_CHECKED) as probe:
+            trainer.run(1, log_every=0)
+        torch.cuda.synchronize()
+        if (probe.n_acc, probe.n_red) != (leaves * (kw["n_microbatches"]
+                                                    + 1), leaves):
+            fail(f"train-families {arch}: the probed step made "
+                 f"{probe.n_acc} B7 and {probe.n_red} B2f calls")
+        peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        log(f"[train-families] {arch} probed step: the first "
+            f"{min(probe.n_acc, TRAIN_FAMILY_B7_CHECKED)} of {probe.n_acc} "
+            f"B7 calls bitwise neumaier_step, {probe.n_red} B2f calls within the "
+            f"compensated bound (worst {probe.worst:.3f} of it); peak device "
+            f"memory {peak:.2f} GiB")
+        del trainer, hist
+        gc.collect()
+        torch.cuda.empty_cache()
+        par = family_cpu_parity(dev, arch)
+        restart = None
+        if arch == "zamba2-1.2b":
+            restart, n, _ = restart_bitwise(dev, small_config(arch),
+                                            TRAIN_FAMILY_SMALL_KW)
+            log(f"[train-families] {arch} small_config restart: 4 steps "
+                f"straight vs 2 + checkpoint + restore + 2: {n} leaves "
+                f"bitwise {restart}")
+            if not restart:
+                fail(f"train-families {arch}: the resumed state differs "
+                     f"from the straight run")
+        out[arch] = dict(launches=launches, step_ms=step_ms,
+                         tok_s=tokens / (step_ms / 1e3), peak_gib=peak,
+                         n_params=n_params, leaves=leaves, profile=prof,
+                         cpu_rel=par, restart=restart,
+                         seconds=time.perf_counter() - t_start)
+        log(f"[train-families] {arch} {out[arch]['seconds']:.1f} s")
+    return out, batched
+
+
 SSM_ARCH = "mamba2-780m"
+# mamba2's depth in ``[ssm]``: a cut (full width, 24 of its 48 layers) so
+# the smoke run has room for [train-families] in its time
+SSM_LAYERS = 24
 SSM_PREFILL_REPS = 2
 
 
@@ -4545,8 +5150,8 @@ def _parted(a: dict, b: dict) -> dict:
 
 
 def phase_ssm(dev, kind: str) -> dict:
-    """The ssm family's main path: mamba2-780m at full width and depth (48
-    Mamba2 layers, d_model 1536, d_inner 3072, 48 SSD heads of 64, 128
+    """The ssm family's main path: mamba2-780m at full width, ``SSM_LAYERS``
+    of its 48 Mamba2 layers (d_model 1536, d_inner 3072, 48 SSD heads of 64, 128
     states, vocab 50280; random weights seed ``SEED``) behind
     ``DecodeEngine`` on the serve phases' settings (8 slots, context 1024,
     block 16, prefill chunk 256; 16 greedy requests of 64-512 prompt
@@ -4580,8 +5185,9 @@ def phase_ssm(dev, kind: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models import api
     from repro_torch.serving.engine import DecodeEngine
-    base_cfg = get_config(SSM_ARCH)
-    what = (f"{SSM_ARCH} full width (48 L, d 1536, d_inner 3072, 48 H x "
+    base_cfg = get_config(SSM_ARCH).with_(num_layers=SSM_LAYERS)
+    what = (f"{SSM_ARCH} full width ({SSM_LAYERS} of 48 L, d 1536, d_inner "
+            f"3072, 48 H x "
             f"64, state 128, vocab 50280, random weights seed {SEED})")
     gc.collect()
     torch.cuda.empty_cache()
@@ -4870,6 +5476,7 @@ def oneshot_run(cfg, params, batch, cache: int, steps: int = ONESHOT_STEPS,
         calls.close()
     full = dict.fromkeys(launches, 0)
     full.update(serving_head=calls.n, row_norm=calls.norms,
+                invariant_gemm=calls.gemms,
                 **(want_attn or {}))
     if launches != full or not calls.norms:
         fail(f"{cfg.name} one-shot: launch counters {launches} != {full}")
@@ -5237,17 +5844,24 @@ def oneshot_full_cpu(cfg, params, batch, cache: int, full, step) -> dict:
     return out
 
 
+# the serve phases' first prompts the lm one-shot server runs, one at a
+# time (16 before the smoke run had to make room for [train-families])
+ONESHOT_LM_PROMPTS = 8
+
+
 def oneshot_lm(dev, cfg, params, base: dict, noise: float) -> dict:
-    """The lm families' one-shot server on the serve phases' 16 prompts,
-    one at a time: ``lm_prefill`` + 31 ``build_serve_step`` steps, the
+    """The lm families' one-shot server on the serve phases' first
+    ``ONESHOT_LM_PROMPTS`` prompts, one at a time: ``lm_prefill`` + 31 ``build_serve_step`` steps, the
     streams against the bf16 ``DecodeEngine``'s. The serving head (one
     per prefill and step) and the attention kernel (one per layer and
-    step: B1, or B3 for MLA) are held to the calls. A gated stream may
-    part from the engine's only at a near-tie: the one-shot row's top-2
-    gap within 4 x the larger of N (``noise``) and ``SESSION_NOISE`` (the
-    one-shot prefill runs the whole prompt at one M, the engine in chunks
-    of 256, and decode at M = 1 against 8: the warm-vs-cold prefill
-    difference the session readings measure). Every stream is gated,
+    step: B1, or B3 for MLA) are held to the calls. A GQA model's
+    streams must equal the engine's: served, its products are
+    M-invariant and its flash attention walks keys in blocks of
+    ``kv_chunk`` as the engine's chunks do, so the one-shot prefill is
+    the engine's bitwise (``tools/verify_m_ops.py --case oneshot``).
+    An MLA model's (another prefill formulation than the engine's) may
+    part only at a near-tie: the one-shot row's top-2 gap within 4 x the
+    larger of N (``noise``) and ``SESSION_NOISE``. Every stream is gated,
     except, for an MoE model, those whose prompt takes more than one of
     the engine's chunks: capacity routing depends on the tokens that
     share a call, which are the same on both paths only for a prompt of
@@ -5256,7 +5870,7 @@ def oneshot_lm(dev, cfg, params, base: dict, noise: float) -> dict:
     import torch
     from repro_torch.kernels import ops
     from repro_torch.train import steps as tsteps
-    reqs = make_requests(cfg)
+    reqs = make_requests(cfg)[:ONESHOT_LM_PROMPTS]
 
     def gated(r) -> bool:
         return cfg.moe is None or len(r.prompt) <= SERVE_KW["prefill_chunk"]
@@ -5293,23 +5907,28 @@ def oneshot_lm(dev, cfg, params, base: dict, noise: float) -> dict:
     full = dict.fromkeys(launches, 0)
     full.update({"serving_head": len(reqs) + steps,
                  "row_norm": rows.norms,
+                 "invariant_gemm": rows.gemms,
                  attn: cfg.num_layers * steps})
     rule = max(noise, SESSION_NOISE)
-    far = [p for p in partings if p[2] > 4 * rule and p[3]]
-    log(f"[oneshot] {cfg.name} lm_prefill + build_serve_step, 16 prompts "
+    exact = cfg.mla is None             # GQA: the engine's prefill bitwise
+    far = [p for p in partings if p[3] and (exact or p[2] > 4 * rule)]
+    n = len(reqs)
+    log(f"[oneshot] {cfg.name} lm_prefill + build_serve_step, {n} prompts "
         f"one at a time, {steps} steps at median "
         f"{statistics.median(step_ms):.3f} ms: launches "
         f"{ {k: v for k, v in launches.items() if v} } (want "
         f"{ {k: v for k, v in full.items() if v} }); streams against the "
-        f"bf16 DecodeEngine's: {16 - len(partings)} of 16 equal, partings "
+        f"bf16 DecodeEngine's: {n - len(partings)} of {n} equal, partings "
         f"(request, token, one-shot top-2 gap, gated) {partings}; "
-        f"{sum(map(gated, reqs))} of 16 streams gated, past 4 x max(N, "
-        f"SESSION_NOISE) = {4 * rule:.4g}: {far}")
+        f"{sum(map(gated, reqs))} of {n} streams gated, "
+        + ("every parting" if exact else
+           f"past 4 x max(N, SESSION_NOISE) = {4 * rule:.4g}")
+        + f" fails: {far}")
     if launches != full:
         fail(f"{cfg.name} one-shot: launch counters {launches} != {full}")
     if far:
-        fail(f"{cfg.name} one-shot: a stream parts from the engine's past a "
-             f"near-tie: {far}")
+        fail(f"{cfg.name} one-shot: a stream parts from the engine's"
+             f"{'' if exact else ' past a near-tie'}: {far}")
     return dict(launches=launches, partings=partings,
                 step_ms=statistics.median(step_ms))
 
@@ -5431,39 +6050,52 @@ def main() -> int:
     from repro_torch.models import api
     dev = torch.device("cuda")
     _device.set_numerics()
+    wall = {}               # seconds per phase, host clock
+    t0 = time.perf_counter()
     kind, _ = phase_device()
     phase_build()
+    wall["build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     attn_err = phase_attention_parity(dev)
     lat_err = phase_latent_parity(dev)
     red_err = phase_reduce_parity(dev)
     acc_err = phase_acc_parity(dev)
     mm_err = phase_matmul_parity(dev)
     flash_err = phase_flash_parity(dev)
+    wall["parity"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     head = phase_head(dev)
-    head_s = time.perf_counter() - t0
+    wall["head"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     norm = phase_norm(dev)
-    norm_s = time.perf_counter() - t0
+    wall["norm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gemm = phase_gemm(dev)
+    wall["gemm"] = time.perf_counter() - t0
     qwen = get_config("qwen1.5-0.5b")
+    t0 = time.perf_counter()
     k_launch, fx = phase_kernel_path(dev, qwen)
+    wall["path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     times = phase_times(dev)
     times.update(phase_slice_times(dev, fx))
+    wall["times"] = time.perf_counter() - t0
     flat_err = fx["flat_err"]
     log(f"[times] profiler tries that lost device events (profiled again): "
         f"{len(DROPPED_WINDOWS)} {DROPPED_WINDOWS}; rows timed by CUDA "
         f"events instead: {len(EVENT_TIMED)} {EVENT_TIMED}")
     del fx
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     for arch in SMALL_ARCHS:
         phase_small(dev, arch)
+    wall["small"] = time.perf_counter() - t0
     # qwen1.5-0.5b at full width and depth: the verify window against the
     # decode steps over each pool format, the three non-spec serve paths,
     # then the two speculative ones (their streams held to the bf16 one)
     q_what = ("qwen1.5-0.5b full width (24 L, d 1024, 16 H, vocab 151936, "
               f"random weights seed {SEED})")
     q_params = api.init_params(qwen, device=dev, seed=SEED)
-    wall = {"head": head_s, "norm": norm_s}   # seconds per phase, host clock
     t0 = time.perf_counter()
     noise = {kvd: phase_verify_parity(dev, qwen.with_(kv_dtype=kvd),
                                       q_params, "qwen1.5-0.5b")
@@ -5497,10 +6129,16 @@ def main() -> int:
         dev, kind, qwen, q_what, q_params, base,
         q_paths["qwen1.5-0.5b bf16"]["profile"])
     wall["qwen1.5-0.5b sampled"] = time.perf_counter() - t0
+    # the phases that hold a run against a run of their own (sampled
+    # speculation twice, prefix hits against a cold engine, the spill
+    # tier) take the first REPEAT_LAYERS of the 24 layers
+    q_cut = qwen.with_(num_layers=REPEAT_LAYERS)
+    q_cut_params = dict(q_params, layers=q_params["layers"][:REPEAT_LAYERS])
+    q_cut_what = q_what.replace("24 L", f"{REPEAT_LAYERS} of 24 L")
     for proposer, k in (("n-gram", VERIFY_K), ("self-draft", DRAFT_K)):
         t0 = time.perf_counter()
         q_paths[f"qwen1.5-0.5b sampled spec {proposer}"] = \
-            phase_spec_sampled(dev, kind, qwen, q_what, q_params,
+            phase_spec_sampled(dev, kind, q_cut, q_cut_what, q_cut_params,
                                "ngram" if proposer == "n-gram" else "draft",
                                k)
         wall[f"qwen1.5-0.5b sampled spec {proposer}"] = \
@@ -5512,8 +6150,8 @@ def main() -> int:
     wall["qwen1.5-0.5b faults"] = time.perf_counter() - t0
     # prefix caching, session KV, preemption to host and the spill tier
     t0 = time.perf_counter()
-    q_paths["qwen1.5-0.5b prefix"] = phase_prefix(dev, kind, qwen, q_params,
-                                                  noise["bf16"])
+    q_paths["qwen1.5-0.5b prefix"] = phase_prefix(dev, kind, q_cut,
+                                                  q_cut_params)
     wall["qwen1.5-0.5b prefix"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     q_paths["qwen1.5-0.5b session"] = phase_session(dev, kind, qwen,
@@ -5525,7 +6163,8 @@ def main() -> int:
         q_paths[f"qwen1.5-0.5b preempt {kvd}"] = r
     wall["qwen1.5-0.5b preempt x3"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    q_paths["qwen1.5-0.5b spill"] = phase_spill(dev, kind, qwen, q_params,
+    q_paths["qwen1.5-0.5b spill"] = phase_spill(dev, kind, q_cut,
+                                                q_cut_params,
                                                 h2d)
     wall["qwen1.5-0.5b spill"] = time.perf_counter() - t0
     # telemetry and the ECM attribution profiler on the bf16 serve path
@@ -5591,6 +6230,11 @@ def main() -> int:
     t0 = time.perf_counter()
     train = phase_train(dev, kind, qwen)
     wall["qwen1.5-0.5b train"] = time.perf_counter() - t0
+    # the training forms of every other family at full width
+    t0 = time.perf_counter()
+    families, batched_bwd = phase_train_families(dev, kind)
+    wall["train families"] = time.perf_counter() - t0
+    log(f"[train-families] batched product backward: {batched_bwd}")
     # the serving CLI over every registry arch, as subprocesses
     t0 = time.perf_counter()
     phase_cli(dev)
@@ -5620,11 +6264,17 @@ def main() -> int:
                **by_path(d_paths, "row_norm"),
                **by_path(ssm_paths, "row_norm"),
                **by_path(one_by, "row_norm")}
+    gemm_by = {**by_path(q_paths, "invariant_gemm"),
+               **by_path(d_paths, "invariant_gemm"),
+               **by_path(ssm_paths, "invariant_gemm"),
+               **by_path(one_by, "invariant_gemm")}
     red_by = {**by_path(q_paths, "fused_reduce"),
               **by_path(d_paths, "fused_reduce"),
               **by_path(ssm_paths, "fused_reduce"),
               "flat entry points": k_launch["fused_reduce"],
               "train": train["launches"]["fused_reduce"],
+              **{f"train {a}": r["launches"]["fused_reduce"]
+                 for a, r in families.items()},
               "obs calibration": q_paths["qwen1.5-0.5b obs"][
                   "calibration_launches"]["fused_reduce"]}
     kernels = [
@@ -5647,7 +6297,9 @@ def main() -> int:
                        max_abs_err=flat_err, **times["fused_reduce_flat"],
                        train=dict(launches=train["launches"]["fused_reduce"],
                                   device_ms_per_step=train["profile"][
-                                      "b2f_ms"]))),
+                                      "b2f_ms"],
+                                  families={a: r["profile"]["b2f_ms"]
+                                            for a, r in families.items()}))),
         dict(name="paged_latent_attention", route="cuda",
              source="src/repro_torch/csrc/paged_latent_attention.cu",
              replaces="src/repro/kernels/paged_attention.py:354",
@@ -5672,12 +6324,17 @@ def main() -> int:
         dict(name="kahan_acc", route="cuda",
              source="src/repro_torch/csrc/kahan_acc.cu",
              replaces="src/repro/kernels/kahan_acc.py:45",
-             launches=k_launch["kahan_acc"] + train["launches"]["kahan_acc"],
+             launches=k_launch["kahan_acc"] + train["launches"]["kahan_acc"]
+             + sum(r["launches"]["kahan_acc"] for r in families.values()),
              launches_by_path={
                  "entry point": k_launch["kahan_acc"],
-                 "train": train["launches"]["kahan_acc"]},
+                 "train": train["launches"]["kahan_acc"],
+                 **{f"train {a}": r["launches"]["kahan_acc"]
+                    for a, r in families.items()}},
              max_abs_err=acc_err, **times["kahan_acc"],
-             train=dict(device_ms_per_step=train["profile"]["b7_ms"])),
+             train=dict(device_ms_per_step=train["profile"]["b7_ms"],
+                        families={a: r["profile"]["b7_ms"]
+                                  for a, r in families.items()})),
         dict(name="serving_head", route="cuda",
              source="src/repro_torch/csrc/serving_head.cu",
              replaces="src/repro/models/lm.py:140",
@@ -5694,6 +6351,14 @@ def main() -> int:
              **{k: norm[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")},
              prefill=norm["prefill"], layer_norm=norm["layer_norm"]),
+        dict(name="invariant_gemm", route="cuda",
+             source="src/repro_torch/csrc/invariant_gemm.cu",
+             replaces="src/repro/models/common.py:161",
+             launches=sum(gemm_by.values()), launches_by_path=gemm_by,
+             max_abs_err=gemm["max_abs_err"],
+             **{k: gemm[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+             rows=gemm["rows"]),
     ]
     for name, r in {**q_paths, **d_paths, **ssm_paths}.items():
         extra = "" if "acceptance" not in r else (

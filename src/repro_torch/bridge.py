@@ -98,7 +98,9 @@ def params_from_reference(tree: dict, device=None, *,
     leaves that ``cfg``'s schema keeps f32 (the hybrid's LoRA-folded
     q / k / v: a hybrid tree needs its ``cfg``). ``hold_bf16=False``
     keeps every leaf's bits as they are: a training master, whose f32
-    bits the optimizer updates. ``device`` defaults to the card."""
+    bits the optimizer updates, for any family (MoE experts [E, ...],
+    MLA, the hybrid's LoRA and shared block, the encoder-decoder's two
+    stacks, the vlm's projection). ``device`` defaults to the card."""
     from repro_torch.models import api, common, lm
     tree = _map(tree, lambda a: from_numpy(a, device))
     if hold_bf16:

@@ -27,7 +27,8 @@ the tile route (wgmma) under those names, the split route under
 ``flash_attention_wgmma`` (bf16) and ``flash_attention_wgmma_f32`` (the
 same source's f32 kernel) are the two routes of one entry point; one
 ``serving_head`` call is one kernel launch, and so is one ``row_norm``
-call (RMS or layer norm).
+call (RMS or layer norm); one ``invariant_gemm`` call is the product
+kernel and, when its K split has more than one part, the fold kernel.
 ``reset_launches`` zeroes every count.
 """
 
@@ -44,7 +45,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused_reduce", "paged_attention", "paged_latent_attention",
            "flash_attention_wgmma", "kahan_matmul", "kahan_acc",
-           "serving_head", "row_norm")
+           "serving_head", "row_norm", "invariant_gemm")
 KERNELS = SOURCES + ("flash_attention_wgmma_f32", "kahan_matmul_split",
                      "kahan_matmul_q8", "kahan_matmul_q8_split")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

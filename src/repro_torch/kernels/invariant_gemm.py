@@ -1,0 +1,224 @@
+"""The bf16 product: plain twin, CUDA kernel wrapper, autograd forms and
+the one dispatcher that picks among them.
+
+The product ``x @ w`` with bf16 operands and an f32 result, [M, K] x
+[K, N] or batched [B, M, K] x [B, K, N] (the MoE's experts, flash
+attention's heads), the function ``models.common.dense``,
+``moe._expert_matmul`` and flash attention's score and PV products
+compute.
+
+* ``invariant_gemm_plain`` is the widened-f32 ``torch.matmul`` of the
+  bf16-rounded operands, the form the port runs on the CPU.
+* ``invariant_gemm_cuda`` launches ``csrc/invariant_gemm.cu``: tensor-core
+  tiles whose K walk, and whose K split (``split_plan``: a count and a
+  fold order set by (K, N) and a batch count fixed by the model, never
+  by M or by how many sequences share the call), make each output row
+  bitwise the same at any M, in any place of the batch. cuBLAS picks its
+  kernel by M, which made a row's bits depend on the rows beside it
+  (ROADMAP queue C item 2). It agrees with the twin to the f32 rounding
+  of a K-term sum, not bitwise.
+* ``_Bf16Product`` / ``_Bf16BatchedProduct``: the card's training form,
+  cuBLAS tensor-core products with a backward.
+
+``product`` is the one dispatcher: the kernel for a CUDA tensor when
+autograd records nothing for the call (``use_kernel``, the row norm's
+rule: every served product), the autograd form under autograd on the
+card (training), the twin on the CPU. There is no fallback: a build or
+launch failure raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+# the kernel for a CUDA tensor unless autograd records the call (the row
+# norm's rule)
+from repro_torch.kernels.row_norm import (  # noqa: F401
+    _use_kernel as use_kernel)
+
+BM, BN, BK = 64, 64, 32          # the kernel's tile and K chunk
+TARGET_CTAS = 132                 # an H100's SMs
+MAX_SPLITS = 32
+# the batched twin widens this many weight elements at a time (a chunk of
+# experts), so a full-width MoE layer (a [160, 5120, 3072] ``w_gate_up``)
+# never makes more than a ~1 GiB f32 copy of its weights per call; chunks
+# of whole batch entries give the same bits
+PLAIN_CHUNK_ELEMS = 1 << 28
+
+
+def _lib():
+    lib = _build.load("invariant_gemm")
+    if not getattr(lib, "_typed", False):
+        fn = lib.repro_invariant_gemm
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def split_plan(batch: int, k: int, n: int) -> tuple[int, int]:
+    """(S, chunks per part): the K split of every call with these (B, K,
+    N), whatever M is. Enough parts that one row block's B x ceil(N /
+    BN) x S CTAs cover the card's SMs, at most ``MAX_SPLITS``, every part
+    at least one K chunk and none empty. ``batch`` is a count the model
+    fixes (1, the experts, the heads), never the sequences of a call."""
+    tiles = batch * -(-n // BN)
+    kc = -(-k // BK)
+    want = min(kc, MAX_SPLITS, max(1, -(-TARGET_CTAS // tiles)))
+    cps = -(-kc // want)
+    return -(-kc // cps), cps
+
+
+def invariant_gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """f32 ``x @ w`` of the bf16-rounded operands, widened to f32; a
+    batched w [B, K, N] is widened ``PLAIN_CHUNK_ELEMS`` at a time."""
+    def widened(t):
+        return t.to(torch.bfloat16).to(torch.float32)
+    if w.dim() != 3:
+        return torch.matmul(widened(x), widened(w))
+    step = max(1, PLAIN_CHUNK_ELEMS // (w.shape[1] * w.shape[2]))
+    return torch.cat([torch.matmul(widened(x[i:i + step]),
+                                   widened(w[i:i + step]))
+                      for i in range(0, w.shape[0], step)])
+
+
+def invariant_gemm_cuda(x: torch.Tensor, w: torch.Tensor, *,
+                        plan_batch: int | None = None) -> torch.Tensor:
+    """Launch ``csrc/invariant_gemm.cu``: bf16 x [M, K] (or [B, M, K]) and
+    w [K, N] (or [B, K, N]) on the card -> f32 [M, N] (or [B, M, N]), each
+    row's bits independent of M. ``plan_batch`` (default B) is the batch
+    count the K split is planned for: a caller whose B grows with the
+    sequences of the call (flash attention's b x heads) passes the part
+    the model fixes (the heads), so a sequence's bits do not depend on
+    how many share the call."""
+    if not (x.is_cuda and w.is_cuda and x.device == w.device):
+        raise ValueError("invariant_gemm_cuda takes CUDA tensors on one "
+                         f"device, got {x.device} and {w.device}")
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise ValueError(f"invariant_gemm_cuda takes bf16 operands, got "
+                         f"{x.dtype} and {w.dtype}")
+    batched = x.dim() == 3
+    if x.dim() not in (2, 3) or w.dim() != x.dim() or \
+            x.shape[-1] != w.shape[-2] or (batched
+                                           and x.shape[0] != w.shape[0]):
+        raise ValueError(f"invariant_gemm_cuda takes [M, K] x [K, N] or "
+                         f"[B, M, K] x [B, K, N], got {tuple(x.shape)} and "
+                         f"{tuple(w.shape)}")
+    xb = x if batched else x[None]
+    wb = w if batched else w[None]
+    b, m, k = xb.shape
+    n = wb.shape[2]
+    if min(b, m, k, n) < 1 or max(m, k, n) >= 2 ** 31 or \
+            -(-m // BM) > 65535 or b * m * max(k, n) >= 2 ** 62:
+        raise ValueError(f"invariant_gemm_cuda: unsupported shape B={b}, "
+                         f"M={m}, K={k}, N={n}")
+    splits, cps = split_plan(b if plan_batch is None else plan_batch, k, n)
+    if b * splits > 65535:
+        raise ValueError(f"invariant_gemm_cuda: B={b} x {splits} parts is "
+                         "past the grid's z limit")
+    xb, wb = xb.contiguous(), wb.contiguous()
+    aligned = int(k % 8 == 0 and n % 8 == 0 and xb.data_ptr() % 16 == 0
+                  and wb.data_ptr() % 16 == 0)
+    y = torch.empty((b, m, n), dtype=torch.float32, device=x.device)
+    scratch = (torch.empty((splits, b, m, n), dtype=torch.float32,
+                           device=x.device) if splits > 1 else None)
+    lib = _lib()
+    err = lib.repro_invariant_gemm(
+        xb.data_ptr(), wb.data_ptr(), y.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), b, m, n, k, splits,
+        cps, aligned, torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError("invariant_gemm kernel launch failed: "
+                           + lib.repro_error_string(err).decode())
+    _build.launches["invariant_gemm"] += 1
+    return y if batched else y[0]
+
+
+class _Bf16Product(torch.autograd.Function):
+    """The card's bf16 product under autograd, [M, K] x [K, N] -> f32
+    [M, N] on the tensor cores (cuBLAS), with a backward
+    (``aten::mm.dtype`` has none).
+
+    The gradients are those ``jax.grad`` gives through the reference's
+    ``dense``: the incoming f32 gradient is the widening of the bf16
+    output's gradient (exact in bf16), dX = dY W^T and dW = X^T dY are
+    bf16 tensor-core GEMMs with f32 results, each rounded to its
+    operand's dtype, bf16 (the casts in ``dense`` carry them on to the
+    caller's dtypes)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(torch.bfloat16)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(dy, w.t(), out_dtype=torch.float32).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(x.t(), dy, out_dtype=torch.float32).to(w.dtype)
+        return dx, dw
+
+
+class _Bf16BatchedProduct(torch.autograd.Function):
+    """The batched form, [E, C, d] x [E, d, f] -> f32 [E, C, f]
+    (``aten::bmm.dtype`` has no backward either): ``_Bf16Product`` per
+    batch entry, dX = dY W^T and dW = X^T dY as bf16 tensor-core
+    ``bmm``s with f32 results, each rounded to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.bmm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(torch.bfloat16)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.bmm(dy, w.transpose(1, 2),
+                           out_dtype=torch.float32).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.bmm(x.transpose(1, 2), dy,
+                           out_dtype=torch.float32).to(w.dtype)
+        return dx, dw
+
+
+def product(x: torch.Tensor, w: torch.Tensor, *,
+            plan_batch: int | None = None) -> torch.Tensor:
+    """f32 ``x @ w`` of the bf16-rounded operands: x [..., K] with w
+    [K, N], or x [B, M, K] with w [B, K, N]. On the card the kernel when
+    autograd records nothing for the call (``plan_batch`` as in
+    ``invariant_gemm_cuda``), else ``_Bf16Product`` /
+    ``_Bf16BatchedProduct``; on the CPU the twin."""
+    batched = w.dim() == 3
+    kernel = use_kernel(x, w)
+    if not (kernel or x.is_cuda):
+        return invariant_gemm_plain(x, w)
+    xb = (x if batched else x.reshape(-1, x.shape[-1])).to(torch.bfloat16)
+    wb = w.to(torch.bfloat16)
+    if kernel:
+        y = invariant_gemm_cuda(xb, wb, plan_batch=plan_batch)
+    else:
+        y = (_Bf16BatchedProduct if batched else _Bf16Product).apply(xb, wb)
+    return y if batched else y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def bytes_moved(m: int, k: int, n: int, batch: int = 1) -> int:
+    """Least HBM traffic of one call: x and w read once (bf16), y written
+    once (f32)."""
+    return batch * (2 * m * k + 2 * k * n + 4 * m * n)
+
+
+def flops(m: int, k: int, n: int, batch: int = 1) -> int:
+    return 2 * batch * m * k * n

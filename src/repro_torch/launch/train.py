@@ -3,7 +3,9 @@
 
 Wraps ``train.loop.Trainer`` (checkpoints, the compensated optimizer,
 deterministic restartable data, the straggler monitor) on one device:
-``--device cuda`` (the default) or ``--device cpu``. Configs are reduced
+``--device cuda`` (the default) or ``--device cpu``. Every registry arch
+trains (dense, MoE with GQA or MLA, Mamba2, the hybrid, the
+encoder-decoder, the vlm with its image patches). Configs are reduced
 by default, as in the reference; ``--full`` trains at full width.
 """
 

@@ -1,6 +1,6 @@
 """Public model API used by the serving engine, the one-shot server and
-the trainer (twin of ``repro.models.api``; training covers dense GQA and
-Mamba2 models). Every family serves through the one-shot
+the trainer (twin of ``repro.models.api``; every family trains through
+``loss_fn`` / ``forward_fn``). Every family serves through the one-shot
 ``prefill_fn`` / ``decode_fn``; the lm families (dense, moe, ssm, vlm)
 also through the engine's chunked ``prefill_chunk_fn``. Cache trees:
 one dict of [L, ...] leaves for the lm families, ``{mamba, attn, tail}``
@@ -58,15 +58,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 
 def forward_fn(cfg: ModelConfig) -> Callable:
     """(params, batch) -> (logits [B, L, V] bf16, aux): the training
-    forward (dense GQA models)."""
+    forward of any family (the lm families' aux holds the MoE losses,
+    the hybrid's and audio's is empty)."""
     check_trainable(cfg)
+    if cfg.family == "audio":
+        return lambda p, b: encdec.encdec_forward(p, b, cfg)
+    if cfg.family == "hybrid":
+        return lambda p, b: hybrid.hybrid_forward(p, b, cfg)
     return lambda p, b: lm.lm_forward(p, b, cfg)
 
 
 def loss_fn(cfg: ModelConfig) -> Callable:
     """(params, batch) -> (loss, metrics): the weighted cross entropy the
-    trainer differentiates (dense GQA models)."""
+    trainer differentiates, plus a MoE model's aux losses, with the
+    reference's metric keys for each family."""
     check_trainable(cfg)
+    if cfg.family == "audio":
+        return lambda p, b: encdec.encdec_loss(p, b, cfg)
+    if cfg.family == "hybrid":
+        return lambda p, b: hybrid.hybrid_loss(p, b, cfg)
     return lambda p, b: lm.lm_loss(p, b, cfg)
 
 

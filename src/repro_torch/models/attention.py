@@ -3,9 +3,10 @@
 
 * The training forward (``gqa_forward``), the one-shot prefill
   (``gqa_prefill``) and chunked prefill (``gqa_prefill_chunk``) run the
-  reference's blockwise online-softmax ``flash_attention`` in plain
-  PyTorch ops, on the CPU and on the card alike: in the reference it is
-  plain JAX, not a Pallas kernel.
+  reference's blockwise online-softmax ``flash_attention`` in PyTorch
+  ops (in the reference it is plain JAX, not a Pallas kernel); on the
+  served path on the card its score and PV products run the M-invariant
+  bf16 kernel, so a row's attention keeps its bits at any chunk length.
 * Decode (``gqa_decode``) runs the paged-attention superkernel through
   ``kernels.ops.paged_attention``: its plain twin for CPU tensors, the
   CUDA kernel for CUDA tensors. So on the card decode-written KV is not
@@ -27,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import kahan
-from repro_torch.kernels import ops
+from repro_torch.kernels import invariant_gemm, ops
 from repro_torch.kernels.paged_attention import NEG_INF
 from repro_torch.models import common, paged
 from repro_torch.models.common import ParamSpec
@@ -90,10 +91,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     offset..offset+Lq-1; ``q_offset`` and ``kv_len`` take an int, a 0-d
     tensor or a per-batch [B] tensor. Scores and PV products are f32
     products of the bf16 operands, as in the reference's einsums with
-    f32 accumulation."""
+    f32 accumulation: on the card with bf16 q / k / v and autograd
+    recording nothing (serving), the M-invariant bf16 kernel through
+    ``invariant_gemm.product``, its K split planned for the heads alone
+    so a sequence's bits do not depend on how many share the call, over
+    key blocks of ``kv_chunk`` whatever Lk is; elsewhere f32 einsums of
+    the widened operands over blocks of min(``kv_chunk``, Lk), the
+    reference's."""
     b, lq_orig, hq, d = q.shape
     _, lk_orig, hkv, dv = v.shape
     dev = q.device
+    kernel = (q.dtype == k.dtype == v.dtype == torch.bfloat16
+              and invariant_gemm.use_kernel(q, k, v))
     if hkv < hq:
         groups = hq // hkv
         k = torch.repeat_interleave(k, groups, dim=2)
@@ -102,7 +111,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     groups = hq // hkv
     scale = d ** -0.5
     qc = min(q_chunk, lq_orig)
-    kc = min(kv_chunk, lk_orig)
+    # served on the kernel, every key block is kv_chunk wide (past the
+    # keys padded and masked), as the engine's chunks over a slot's pool
+    # are: a one-shot prefill then sums each row as the engine does
+    kc = kv_chunk if kernel else min(kv_chunk, lk_orig)
     pad_q = (-lq_orig) % qc
     pad_k = (-lk_orig) % kc
     if pad_k:
@@ -135,7 +147,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         for ki in range(nk):
             k_blk = kt[:, :, ki * kc:(ki + 1) * kc]
             v_blk = vt[:, :, ki * kc:(ki + 1) * kc]
-            s = torch.einsum("bhgqd,bhkd->bhgqk", q_blk, k_blk) * scale
+            if kernel:
+                s = invariant_gemm.product(
+                    q_blk.reshape(b * hkv, groups * qc, d),
+                    k_blk.transpose(2, 3).reshape(b * hkv, d, kc),
+                    plan_batch=hkv).reshape(b, hkv, groups, qc, kc)
+                s = s * scale
+            else:
+                s = torch.einsum("bhgqd,bhkd->bhgqk", q_blk, k_blk) * scale
             k_pos = ki * kc + torch.arange(kc, device=dev)
             mask = torch.ones(tuple(q_pos.shape[:-1]) + (qc, kc),
                               dtype=torch.bool, device=dev)
@@ -149,9 +168,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             p = torch.exp(s - m_new[..., None]) * mb_
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
-            pv = torch.einsum("bhgqk,bhkd->bhgqd",
-                              p.to(v_blk.dtype).to(torch.float32),
-                              v_blk.to(torch.float32))
+            if kernel:
+                pv = invariant_gemm.product(
+                    p.reshape(b * hkv, groups * qc, kc),
+                    v_blk.reshape(b * hkv, kc, dv),
+                    plan_batch=hkv).reshape(b, hkv, groups, qc, dv)
+            else:
+                pv = torch.einsum("bhgqk,bhkd->bhgqd",
+                                  p.to(v_blk.dtype).to(torch.float32),
+                                  v_blk.to(torch.float32))
             if kahan_acc:
                 acc, acc_c = kahan.neumaier_step(acc * corr[..., None],
                                                  acc_c * corr[..., None], pv)

@@ -3,9 +3,8 @@ attention (GQA or MLA) + pre-norm FFN (SwiGLU MLP, or MoE) for the
 attention families, and pre-norm Mamba2 (``ssd``) for the ssm family,
 with rmsnorm or layernorm (``cfg.norm``). DeepSeek-V2's leading dense
 layers are MLA blocks with a dense FFN (``dense_block_schema``,
-``dense_ffn=True``). The training form ``block_apply`` covers dense GQA
-and Mamba2 layers; the one-shot prefill ``block_prefill`` every
-serving family."""
+``dense_ffn=True``). The training form ``block_apply`` and the one-shot
+prefill ``block_prefill`` cover every layer kind."""
 
 from __future__ import annotations
 
@@ -85,29 +84,21 @@ AUX_KEYS = ("moe_load_balance", "moe_z_loss", "moe_drop_fraction")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """The port trains dense GQA decoders and Mamba2 stacks; MLA
-    attention and MoE layers (their aux losses and the expert products'
-    backward), and the hybrid and audio families' training forms, wait
-    for ROADMAP queue A item 13."""
+    """Every family the port serves also trains, as in the reference
+    (which refuses none of them): dense and vlm GQA decoders, MoE layers
+    with GQA or MLA attention, Mamba2 stacks, the hybrid and the
+    encoder-decoder. Raises only what ``check_supported`` refuses."""
     cfg.check_supported()
-    if cfg.family in ("hybrid", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: repro_torch serves the {cfg.family!r} family "
-            "through api.prefill_fn / decode_fn; its training forms "
-            "(hybrid_forward / encdec_forward) wait for ROADMAP queue A "
-            "item 13")
-    if cfg.mla is not None or cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: repro_torch trains dense GQA decoders; "
-            f"{'MLA attention' if cfg.mla is not None else 'MoE layers'} "
-            "in training wait for ROADMAP queue A item 13")
 
 
 def block_apply(p: dict, h: torch.Tensor, cfg: ModelConfig, *,
                 dense_ffn: bool = False) -> tuple[torch.Tensor, dict]:
-    """Full-sequence (training) forward of one dense GQA or Mamba2 layer,
-    h [B, L, d] -> (h, aux) with the reference's aux keys at 0."""
-    check_trainable(cfg)
+    """Full-sequence (training) forward of one layer, h [B, L, d] ->
+    (h, aux): GQA or MLA attention, then the SwiGLU MLP or the MoE layer
+    (whose aux losses it returns; a dense layer's are 0), or a Mamba2
+    layer. A DeepSeek-V2 ``dense_ffn`` layer is MLA with a dense MLP.
+    The training forward never quantizes (MLA takes ``cfg.mla`` as it
+    stands, not ``kv_dtype``)."""
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     if _recurrent(cfg):
         h = h + ssd.mamba2_forward(
@@ -115,8 +106,14 @@ def block_apply(p: dict, h: torch.Tensor, cfg: ModelConfig, *,
             _ssm_cfg(cfg))
         return h, dict.fromkeys(AUX_KEYS, zero)
     x = common.apply_norm(h, p["ln_attn"], cfg.norm)
-    h = h + attn.gqa_forward(p["attn"], x, cfg.attn())
+    if cfg.mla is not None:
+        h = h + mla.mla_forward(p["attn"], x, cfg.mla)
+    else:
+        h = h + attn.gqa_forward(p["attn"], x, cfg.attn())
     x = common.apply_norm(h, p["ln_mlp"], cfg.norm)
+    if cfg.moe is not None and not dense_ffn:
+        y, aux = moe.moe_forward(p["ffn"], x, cfg.moe)
+        return h + y, aux
     h = h + mlp.mlp_forward(p["ffn"], x)
     return h, dict.fromkeys(AUX_KEYS, zero)
 

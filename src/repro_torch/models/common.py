@@ -29,6 +29,7 @@ import torch.nn.functional as F
 # the reference's norms: f32 RMS / layer norm of each row, rounded to x's
 # dtype; on the card, when autograd records nothing, the row-norm kernel
 # (each row's bits the same at any number of rows), else the plain twin
+from repro_torch.kernels import invariant_gemm
 from repro_torch.kernels.row_norm import layer_norm, rms_norm  # noqa: F401
 
 
@@ -179,51 +180,37 @@ def sinusoidal_positions(length: int, dim: int,
     return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=1)
 
 
-class _Bf16Product(torch.autograd.Function):
-    """The card's bf16 product, [M, K] x [K, N] -> f32 [M, N] on the
-    tensor cores, with a backward (``aten::mm.dtype`` has none).
-
-    The gradients are those ``jax.grad`` gives through the reference's
-    ``dense``: the incoming f32 gradient is the widening of the bf16
-    output's gradient (exact in bf16), dX = dY W^T and dW = X^T dY are
-    bf16 tensor-core GEMMs with f32 results, each rounded to its
-    operand's dtype, bf16 (the casts in ``dense`` carry them on to the
-    caller's dtypes)."""
-
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        return torch.mm(x, w, out_dtype=torch.float32)
-
-    @staticmethod
-    def backward(ctx, dy):
-        x, w = ctx.saved_tensors
-        dy = dy.to(torch.bfloat16)
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = torch.mm(dy, w.t(), out_dtype=torch.float32).to(x.dtype)
-        if ctx.needs_input_grad[1]:
-            dw = torch.mm(x.t(), dy, out_dtype=torch.float32).to(w.dtype)
-        return dx, dw
-
-
 def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
           compute_dtype=torch.bfloat16) -> torch.Tensor:
     """y = x @ w (+ b): operands rounded to ``compute_dtype``, f32
     accumulation, bias added in f32, one rounding to ``compute_dtype``.
-    On the card a bf16 ``compute_dtype`` runs one tensor-core GEMM with an
-    f32 result (``_Bf16Product``); elsewhere the rounded operands are
-    widened to f32, which autograd differentiates as it stands."""
-    if x.is_cuda and compute_dtype == torch.bfloat16:
-        y = _Bf16Product.apply(x.reshape(-1, x.shape[-1]).to(compute_dtype),
-                               w.to(compute_dtype))
-        y = y.reshape(*x.shape[:-1], w.shape[-1])
+    A bf16 ``compute_dtype`` goes through ``invariant_gemm.product``: on
+    the card the M-invariant kernel when autograd records nothing for the
+    call (every served product), cuBLAS's ``_Bf16Product`` under autograd
+    (training); on the CPU its plain twin, the rounded operands widened
+    to f32, which autograd differentiates as it stands."""
+    if compute_dtype == torch.bfloat16:
+        y = invariant_gemm.product(x, w)
     else:
         y = torch.matmul(x.to(compute_dtype).to(torch.float32),
                          w.to(compute_dtype).to(torch.float32))
     if b is not None:
         y = y + b.to(torch.float32)
     return y.to(compute_dtype)
+
+
+def weighted_ce(logits: torch.Tensor, batch: dict
+                ) -> tuple[torch.Tensor, dict]:
+    """The reference's weighted causal-LM cross entropy in f32 over
+    ``batch["labels"]`` / ``batch["weights"]``: (loss, {ce_loss,
+    tokens})."""
+    labels = batch["labels"].to(torch.int64)
+    weights = batch["weights"]
+    lg = logits.to(torch.float32)
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, labels[..., None])[..., 0]
+    loss = ((lse - ll) * weights).sum() / torch.clamp_min(weights.sum(), 1.0)
+    return loss, {"ce_loss": loss, "tokens": weights.sum()}
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Whisper-style encoder-decoder, the audio family (twin of
-``repro.models.encdec``, the serving forms; ``encdec_forward`` /
-``encdec_loss`` wait for ROADMAP queue A item 13).
+``repro.models.encdec``): the training forms ``encdec_forward`` /
+``encdec_loss`` and the one-shot serving forms.
 
 The conv / mel frontend is a stub, as in the reference: the batch's
 ``frames`` [B, enc_seq, d_model] are precomputed frame embeddings. The
@@ -20,6 +20,7 @@ cross K/V through ``attention.attend_cache`` (plain).
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import common, mlp
@@ -88,19 +89,26 @@ def _cross_attention(p: dict, x: torch.Tensor, memory_kv,
     return common.dense(out.reshape(b, lq, -1), p["wo"])
 
 
+def _enc_layer(lp: dict, h: torch.Tensor, cfg: ModelConfig
+               ) -> torch.Tensor:
+    x = common.apply_norm(h, lp["ln_attn"], cfg.norm)
+    h = h + attn.gqa_forward(lp["attn"], x, _acfg(cfg, causal=False))
+    x = common.apply_norm(h, lp["ln_mlp"], cfg.norm)
+    return h + mlp.mlp_forward(lp["ffn"], x, act="gelu")
+
+
 def encode(params: dict, frames: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
     """frames [B, enc_seq, d_model] (the stub frontend's output) -> the
-    encoder memory [B, enc_seq, d_model] bf16."""
+    encoder memory [B, enc_seq, d_model] bf16. Differentiable; under
+    ``cfg.remat`` each layer is recomputed in backward (saving nothing
+    inside it), which changes no bit."""
     h = frames.to(torch.bfloat16)
     h = h + common.sinusoidal_positions(h.shape[1], cfg.d_model,
                                         h.device).to(h.dtype)[None]
-    acfg = _acfg(cfg, causal=False)
     for lp in params["enc_layers"]:
-        x = common.apply_norm(h, lp["ln_attn"], cfg.norm)
-        h = h + attn.gqa_forward(lp["attn"], x, acfg)
-        x = common.apply_norm(h, lp["ln_mlp"], cfg.norm)
-        h = h + mlp.mlp_forward(lp["ffn"], x, act="gelu")
+        h = (checkpoint(_enc_layer, lp, h, cfg, use_reentrant=False)
+             if cfg.remat else _enc_layer(lp, h, cfg))
     return common.apply_norm(h, params["enc_norm"], cfg.norm)
 
 
@@ -108,6 +116,43 @@ def _mlp_residual(lp: dict, h: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
     x = common.apply_norm(h, lp["ln_mlp"], cfg.norm)
     return h + mlp.mlp_forward(lp["ffn"], x, act="gelu")
+
+
+def _dec_layer(lp: dict, h: torch.Tensor, memory: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """Training form of one decoder layer: causal self-attention over the
+    sequence, cross-attention into the memory, the GELU MLP."""
+    x = common.apply_norm(h, lp["ln_self"], cfg.norm)
+    h = h + attn.gqa_forward(lp["self_attn"], x, _acfg(cfg, causal=True))
+    x = common.apply_norm(h, lp["ln_cross"], cfg.norm)
+    mkv = _memory_kv(lp["cross_attn"], memory, cfg)
+    h = h + _cross_attention(lp["cross_attn"], x, mkv, cfg)
+    return _mlp_residual(lp, h, cfg)
+
+
+def encdec_forward(params: dict, batch: dict, cfg: ModelConfig
+                   ) -> tuple[torch.Tensor, dict]:
+    """Teacher-forced training forward: encode ``batch["frames"]``, then
+    the decoder over ``batch["tokens"]`` [B, L]: (bf16 logits [B, L, V]
+    through the tied head, {})."""
+    memory = encode(params, batch["frames"], cfg)
+    tokens = batch["tokens"]
+    l = tokens.shape[1]
+    h = params["embed"][tokens.to(torch.int64)].to(torch.bfloat16)
+    h = h + params["pos_embed"][:l].to(h.dtype)[None]
+    for lp in params["dec_layers"]:
+        h = (checkpoint(_dec_layer, lp, h, memory, cfg, use_reentrant=False)
+             if cfg.remat else _dec_layer(lp, h, memory, cfg))
+    h = common.apply_norm(h, params["dec_norm"], cfg.norm)
+    return common.dense(h, params["embed"].T), {}
+
+
+def encdec_loss(params: dict, batch: dict, cfg: ModelConfig
+                ) -> tuple[torch.Tensor, dict]:
+    """Weighted cross entropy of the decoder's logits in f32: (loss,
+    {ce_loss, tokens})."""
+    logits, _ = encdec_forward(params, batch, cfg)
+    return common.weighted_ce(logits, batch)
 
 
 def _logits(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

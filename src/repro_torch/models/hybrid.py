@@ -1,7 +1,7 @@
 """Zamba2-style hybrid: a Mamba2 backbone and one weight-shared
-attention + MLP block (twin of ``repro.models.hybrid``, the serving
-forms; ``hybrid_forward`` / ``hybrid_loss`` wait for ROADMAP queue A
-item 13).
+attention + MLP block (twin of ``repro.models.hybrid``): the training
+forms ``hybrid_forward`` / ``hybrid_loss`` and the one-shot serving
+forms.
 
 The backbone is ``n_seg`` segments of ``segment_len`` Mamba2 layers and
 a tail of the rest; after each segment the SAME attention + MLP block
@@ -24,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import common, mlp, ssd
@@ -129,6 +130,60 @@ def _shared_mlp(params: dict, h: torch.Tensor,
 
 def _stack(trees: list) -> dict:
     return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+
+def _shared_block(params: dict, h: torch.Tensor, cfg: ModelConfig,
+                  seg_idx: int) -> torch.Tensor:
+    """Training form of the shared attention + MLP block after segment
+    ``seg_idx``: full-sequence causal GQA with the segment's LoRA folded
+    into q / k / v."""
+    x = common.apply_norm(h, params["shared"]["ln_attn"], cfg.norm)
+    h = h + attn.gqa_forward(_lora_params(params, seg_idx), x,
+                             _shared_attn_cfg(cfg))
+    return _shared_mlp(params, h, cfg)
+
+
+def _mamba_layer(lp: dict, h: torch.Tensor, cfg: ModelConfig
+                 ) -> torch.Tensor:
+    x = common.apply_norm(h, lp["norm"], cfg.norm)
+    return h + ssd.mamba2_forward(
+        lp["mixer"], x, cfg.ssm._replace(kahan_state=cfg.kahan_ssm_state))
+
+
+def _mamba_stack(layers: list, h: torch.Tensor, cfg: ModelConfig, *,
+                 remat: bool) -> torch.Tensor:
+    """The Mamba2 layers of one segment (or the tail) in order; under
+    ``remat`` each layer is recomputed in backward
+    (``torch.utils.checkpoint``, saving nothing inside it: the
+    reference's "nothing" policy), which changes no bit."""
+    for lp in layers:
+        h = (checkpoint(_mamba_layer, lp, h, cfg, use_reentrant=False)
+             if remat else _mamba_layer(lp, h, cfg))
+    return h
+
+
+def hybrid_forward(params: dict, batch: dict, cfg: ModelConfig
+                   ) -> tuple[torch.Tensor, dict]:
+    """Full-sequence training forward: (bf16 logits [B, L, V], {})."""
+    seg, n_seg, tail = _segments(cfg)
+    h = _embed(params, batch["tokens"])
+    blocks = params["mamba_blocks"]
+    for s in range(n_seg):
+        h = _mamba_stack(blocks[s * seg:(s + 1) * seg], h, cfg,
+                         remat=cfg.remat)
+        h = _shared_block(params, h, cfg, s)
+    if tail:
+        h = _mamba_stack(params["mamba_tail"], h, cfg, remat=cfg.remat)
+    h = common.apply_norm(h, params["final_norm"], cfg.norm)
+    return common.dense(h, params["lm_head"]), {}
+
+
+def hybrid_loss(params: dict, batch: dict, cfg: ModelConfig
+                ) -> tuple[torch.Tensor, dict]:
+    """Weighted causal-LM cross entropy in f32: (loss, {ce_loss,
+    tokens}), the reference's metrics (no MoE aux keys)."""
+    logits, _ = hybrid_forward(params, batch, cfg)
+    return common.weighted_ce(logits, batch)
 
 
 def hybrid_prefill(params: dict, batch: dict, cfg: ModelConfig,

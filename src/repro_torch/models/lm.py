@@ -1,8 +1,8 @@
 """Decoder-only LM assembly for serving and training (twin of
 ``repro.models.lm``): the dense, moe, ssm (Mamba2) and vlm families
 (a vlm serves text tokens; its projected patches prefix the tokens in
-``lm_forward``); training: ``lm_forward`` / ``lm_loss``, dense GQA and
-Mamba2 models.
+``lm_forward``); training: ``lm_forward`` / ``lm_loss``, every lm
+family (a MoE model's loss adds its layers' aux losses).
 
 The reference scans stacked layer trees with ``lax.scan``: an optional
 ``dense_layers`` stack (DeepSeek-V2's first_k_dense layers, dense FFN)
@@ -147,16 +147,9 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig
     for a dense model): (loss, metrics) with the reference's metric
     keys."""
     logits, aux = lm_forward(params, batch, cfg)
-    labels = batch["labels"].to(torch.int64)
-    weights = batch["weights"]
-    lg = logits.to(torch.float32)
-    lse = torch.logsumexp(lg, dim=-1)
-    ll = torch.gather(lg, -1, labels[..., None])[..., 0]
-    ce = (lse - ll) * weights
-    denom = torch.clamp_min(weights.sum(), 1.0)
-    loss = ce.sum() / denom
+    loss, metrics = common.weighted_ce(logits, batch)
     total = loss + aux["moe_load_balance"] + aux["moe_z_loss"]
-    return total, {"ce_loss": loss, **aux, "tokens": weights.sum()}
+    return total, {"ce_loss": loss, **aux, "tokens": metrics["tokens"]}
 
 
 def _serving_logits(h: torch.Tensor, params: dict,

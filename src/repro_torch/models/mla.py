@@ -1,5 +1,6 @@
-"""Multi-head Latent Attention (DeepSeek-V2) over block-paged latent pools
-(the serving half of ``repro.models.mla``).
+"""Multi-head Latent Attention (DeepSeek-V2): the training form
+``mla_forward`` and the serving forms over block-paged latent pools
+(twin of ``repro.models.mla``).
 
 The cache holds only the compressed latents, ``c_kv`` [nb, bs, kv_lora]
 and the shared rope key ``k_rope`` [nb, bs, rope_dim] (int8 / fp8 pools
@@ -193,6 +194,27 @@ def mla_decode(p: dict, x: torch.Tensor, cfg: MLAConfig, cache: dict
     ctx = _kernel_latent_attend(p, cfg, q_nope, q_rope, cache, table, idx + 1)
     cache["len"].copy_(idx + 1)
     return common.dense(ctx.reshape(b, 1, -1).to(x.dtype), p["wo"])
+
+
+def mla_forward(p: dict, x: torch.Tensor, cfg: MLAConfig, *,
+                positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Training form, x [B, L, d] -> [B, L, d]: per-head K/V materialized
+    from the latents (``wk_b`` / ``wv_b`` products) and causal
+    ``flash_attention`` over them, differentiable under autograd (every
+    op out of place). The training forward never quantizes."""
+    b, l, _ = x.shape
+    h = cfg.num_heads
+    if positions is None:
+        positions = torch.arange(l, device=x.device)[None, :].expand(b, l)
+    q_nope, q_rope, c_kv, k_rope = _latents(p, x, cfg, positions)
+    k_nope = common.dense(c_kv, p["wk_b"]).reshape(b, l, h, cfg.nope_dim)
+    v = common.dense(c_kv, p["wv_b"]).reshape(b, l, h, cfg.v_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(b, l, h, cfg.rope_dim)],
+                  dim=-1)
+    out = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
+                          kv_chunk=cfg.kv_chunk)
+    return common.dense(out.reshape(b, l, -1), p["wo"])
 
 
 def mla_prefill(p: dict, x: torch.Tensor, cfg: MLAConfig,

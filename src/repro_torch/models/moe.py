@@ -9,8 +9,10 @@ computes:
 
 * **Expert products.** The reference multiplies bf16 operands with f32
   accumulation and rounds to bf16. The port does what ``common.dense``
-  does: on the card one bf16 tensor-core ``bmm`` with an f32 result over
-  the expert weights, which the load path holds as bf16; on the CPU the
+  does: on the card one bf16 tensor-core product with an f32 result over
+  the expert weights, which the load path holds as bf16 (the batched
+  M-invariant kernel when serving, a differentiable ``bmm`` in
+  training); on the CPU the
   operands widened to f32, experts a chunk at a time, so a full-width
   layer (a [160, 5120, 3072] ``w_gate_up``) never makes more than a
   ~1 GiB f32 copy of its weights per call.
@@ -29,12 +31,10 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import invariant_gemm
 from repro_torch.models import common
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.mlp import mlp_forward, mlp_schema
-
-# f32 elements of one chunk of widened expert weights (1 GiB)
-_CHUNK_ELEMS = 1 << 28
 
 
 class MoEConfig(NamedTuple):
@@ -71,18 +71,11 @@ def _top_k(probs: torch.Tensor, k: int):
 
 def _expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """[E, C, d] x [E, d, f] -> [E, C, f] f32: bf16-rounded operands, f32
-    products and sums: one bf16 ``bmm`` with an f32 result on the card,
-    the operands widened to f32 a chunk of experts at a time elsewhere."""
-    if x.is_cuda:
-        return torch.bmm(x.to(torch.bfloat16), w.to(torch.bfloat16),
-                         out_dtype=torch.float32)
-    e, d, f = w.shape
-    step = max(1, _CHUNK_ELEMS // (d * f))
-    xf = x.to(torch.bfloat16).to(torch.float32)
-    return torch.cat([
-        torch.bmm(xf[i:i + step],
-                  w[i:i + step].to(torch.bfloat16).to(torch.float32))
-        for i in range(0, e, step)])
+    products and sums, through ``invariant_gemm.product``: on the card
+    the batched M-invariant kernel when autograd records nothing
+    (serving), ``_Bf16BatchedProduct`` under autograd (training); on the
+    CPU the operands widened to f32, a chunk of experts at a time."""
+    return invariant_gemm.product(x, w)
 
 
 def moe_forward(p: dict, x: torch.Tensor, cfg: MoEConfig

@@ -8,7 +8,8 @@ published checkpoint bitwise where it would have been
 (tests/test_torch_checkpoint.py). The device is explicit: ``cuda`` by
 default (raising without a GPU), ``device="cpu"`` for the plain path.
 The training tree is f32 (``api.init_params(..., hold_bf16=False)``),
-one tensor per leaf.
+one tensor per leaf, for every family ``api.loss_fn`` dispatches to; a
+vlm's batches carry ``patch_embeds``, an audio model's ``frames``.
 """
 
 from __future__ import annotations

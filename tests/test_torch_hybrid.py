@@ -196,13 +196,21 @@ def test_quantized_pools_prefill_decode_parity(setup):
 def test_engine_and_trainer_refuse(setup):
     """The hybrid family serves through the one-shot API only: the
     engine refuses it with the reference's message, and so does the
-    chunked prefill; training waits for queue A item 13."""
+    chunked prefill and the verify window; it trains (a finite loss
+    from ``api.loss_fn``)."""
     _, _, tcfg, tparams, _, _ = setup
     with pytest.raises(NotImplementedError,
                        match="chunked prefill serves lm families"):
         DecodeEngine(tcfg, tparams, max_slots=2, max_context=64,
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
-        check_trainable(tcfg)
+    check_trainable(tcfg)
+    rng = np.random.default_rng(0)
+    tok = torch.from_numpy(rng.integers(0, tcfg.vocab_size, (2, 16),
+                                        dtype=np.int32))
+    batch = {"tokens": tok, "labels": tok,
+             "weights": torch.ones(tok.shape, dtype=torch.float32)}
+    loss, metrics = tapi.loss_fn(tcfg)(tparams, batch)
+    assert bool(torch.isfinite(loss)) and set(metrics) == {"ce_loss",
+                                                           "tokens"}
     with pytest.raises(NotImplementedError, match="paged-KV"):
         tapi.verify_fn(tcfg)

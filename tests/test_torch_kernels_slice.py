@@ -317,4 +317,4 @@ def test_public_surface():
                                "kahan_matmul_q8", "kahan_acc",
                                "kahan_matmul_split",
                                "kahan_matmul_q8_split", "serving_head",
-                               "row_norm"}
+                               "row_norm", "invariant_gemm"}

@@ -24,6 +24,7 @@ import numpy as np  # noqa: E402
 from repro.models import common as rcommon  # noqa: E402
 from repro.models import moe as rmoe  # noqa: E402
 from repro_torch import bridge  # noqa: E402
+from repro_torch.kernels import invariant_gemm  # noqa: E402
 from repro_torch.models import mlp, moe  # noqa: E402
 
 D = 64
@@ -107,7 +108,7 @@ def test_output_is_run_to_run_identical_and_chunking_is_exact(monkeypatch):
     assert torch.equal(y1, y2) and a1.keys() == a2.keys()
     # the full-width layer widens its experts' weights a chunk at a time;
     # chunks of one expert give the same bits
-    monkeypatch.setattr(moe, "_CHUNK_ELEMS", 1)
+    monkeypatch.setattr(invariant_gemm, "PLAIN_CHUNK_ELEMS", 1)
     y3, _ = moe.moe_forward(tp, tx, cfg)
     assert torch.equal(y1, y3)
 

@@ -110,14 +110,19 @@ def test_shapes_for(arch):
 def test_unserved_families_raise():
     """The hybrid and audio families serve through the one-shot API
     only: chunked prefill (the engine's path) refuses them with the
-    reference's message, and training waits for queue A item 13."""
+    reference's message; both train (a finite loss from
+    ``api.loss_fn``)."""
+    from repro_torch.data import synthetic as tsynthetic
     for arch in ("zamba2-1.2b", "whisper-tiny"):
         cfg = P.reduced(P.get_config(arch))
         with pytest.raises(NotImplementedError,
                            match="chunked prefill serves lm families"):
             tapi.prefill_chunk_fn(cfg)
-        with pytest.raises(NotImplementedError, match="queue A item 13"):
-            tapi.loss_fn(cfg)
+        params = tapi.init_params(cfg, device="cpu", hold_bf16=False)
+        batch = {k: torch.from_numpy(v) for k, v in
+                 tsynthetic.make_batch(cfg, 16, 2, seed=1).items()}
+        loss, _ = tapi.loss_fn(cfg)(params, batch)
+        assert bool(torch.isfinite(loss))
 
 
 def _served(arch):

@@ -148,12 +148,20 @@ def test_remat_changes_no_bit(setup):
 
 
 def test_training_refuses_mla_and_moe():
+    """MLA attention and MoE layers train: reduced deepseek-v2's
+    ``loss_fn`` gives a finite loss with the MoE aux metrics, and
+    ``forward_fn`` bf16 logits (tests/test_torch_train_families.py holds
+    them to the reference)."""
     for arch in ("deepseek-v2-236b",):
         tcfg = t_reduced(t_get_config(arch))
-        with pytest.raises(NotImplementedError, match="queue A item 13"):
-            tapi.loss_fn(tcfg)
-        with pytest.raises(NotImplementedError, match="queue A item 13"):
-            tapi.forward_fn(tcfg)
+        params = tapi.init_params(tcfg, device="cpu", hold_bf16=False)
+        batch = _tbatch(synthetic.make_batch(reduced(get_config(arch)), 16,
+                                             2, seed=1))
+        loss, metrics = tapi.loss_fn(tcfg)(params, batch)
+        assert bool(torch.isfinite(loss)) and "moe_z_loss" in metrics
+        logits, aux = tapi.forward_fn(tcfg)(params, batch)
+        assert logits.dtype == torch.bfloat16 and set(aux) == {
+            "moe_load_balance", "moe_z_loss", "moe_drop_fraction"}
 
 
 def test_trainer_matches_reference_losses(setup):

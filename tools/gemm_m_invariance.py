@@ -15,7 +15,10 @@ product with the same rows computed at M = 8:
 
 - ``library``: cuBLAS's own choice at each M;
 - ``fixed``: every call padded with zero rows to ``M_FIX`` = 256 (one
-  call per 256 rows), so one call shape, and one kernel, serves every M.
+  call per 256 rows), so one call shape, and one kernel, serves every M;
+- ``kernel``: the port's M-invariant product
+  (``repro_torch.kernels.invariant_gemm``, ``csrc/invariant_gemm.cu``),
+  the form ``dense`` takes on the served path.
 
 The f32 LM head ([1024 x 151936], TF32 off) is compared the same way for
 context: it is not a bf16 product. Then it times the 144 products of one
@@ -34,6 +37,9 @@ import json
 import statistics
 import subprocess
 import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
 M_FIX = 256
 MS = (8, 40, 240)
@@ -56,6 +62,11 @@ def mm_fixed(x, w):
         x = torch.cat([x, x.new_zeros(pad, x.shape[1])])
     return torch.cat([mm(x[i:i + M_FIX], w)
                       for i in range(0, m + pad, M_FIX)])[:m]
+
+
+def mm_kernel(x, w):
+    from repro_torch.kernels import invariant_gemm
+    return invariant_gemm.invariant_gemm_cuda(x, w)
 
 
 def row_bits(fn, x, w) -> dict:
@@ -133,7 +144,8 @@ def main() -> int:
         w = (torch.randn(k, n, generator=g, device=dev) / k ** 0.5).bfloat16()
         xb = x[:, :k].bfloat16()
         inv[name] = {"library": row_bits(mm, xb, w),
-                     "fixed": row_bits(mm_fixed, xb, w)}
+                     "fixed": row_bits(mm_fixed, xb, w),
+                     "kernel": row_bits(mm_kernel, xb, w)}
     head = torch.randn(D, VOCAB, generator=g, device=dev) / D ** 0.5
     inv["lm_head_f32"] = {"library": row_bits(
         lambda u, v: u @ v, x[:, :D].contiguous(), head)}
@@ -142,9 +154,10 @@ def main() -> int:
     res["library_bitwise_across_M"] = all(
         c["rows_differ"] == 0 for nm, f in inv.items() if nm != "lm_head_f32"
         for c in f["library"].values())
-    res["fixed_bitwise_across_M"] = all(
-        c["rows_differ"] == 0 for nm, f in inv.items() if "fixed" in f
-        for c in f["fixed"].values())
+    for form in ("fixed", "kernel"):
+        res[f"{form}_bitwise_across_M"] = all(
+            c["rows_differ"] == 0 for nm, f in inv.items() if form in f
+            for c in f[form].values())
 
     # one decode step's 144 products, weights cold in L2 (24 layers)
     ws = [{nm: (torch.randn(k, n, generator=g, device=dev)
@@ -165,15 +178,20 @@ def main() -> int:
 
     x8f = {nm: v.float() for nm, v in x8.items()}
     times = {}
-    for rnd in range(2):                 # library, fixed, widened, in turns
+    for rnd in range(2):     # library, fixed, widened, kernel, in turns
         for form, run in (("library", step(mm, ws, x8)),
                           ("fixed", step(mm_fixed, ws, x8)),
-                          ("widened_f32", step(widened, wf, x8f))):
+                          ("widened_f32", step(widened, wf, x8f)),
+                          ("kernel", step(mm_kernel, ws, x8))):
             times.setdefault(form, []).append(events_ms(run))
     res["decode_gemms_ms"] = {k: v for k, v in times.items()}
     lib = statistics.mean(times["library"])
     fix = statistics.mean(times["fixed"])
     res["fixed_minus_library_ms"] = fix - lib
+    res["kernel_minus_library_ms"] = statistics.mean(times["kernel"]) - lib
+    weight_bytes = 2 * LAYERS * sum(k * n for k, n in SHAPES.values())
+    res["decode_gemms_bound_ms"] = 1e3 * weight_bytes / 3.35e12
+    res["decode_gemms_weight_bytes"] = weight_bytes
     print(json.dumps(res))
     if args.out:
         with open(args.out, "w") as f:

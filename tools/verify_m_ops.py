@@ -1,6 +1,7 @@
 """Which op makes a served row depend on how many rows share its call?
 
-    python3 tools/verify_m_ops.py [--case decode|ssm-prefill]
+    python3 tools/verify_m_ops.py [--case decode|ssm-prefill|cow-prefill|
+                                          oneshot]
                                   [--arch qwen1.5-0.5b|deepseek-v2-236b]
                                   [--kv-dtype bf16] [--out PATH]
 
@@ -23,9 +24,28 @@ chunks of 64, with the SSD chunk at the config's 256 and pinned to 64
 runs make the same SSD arithmetic, so what still differs is the rows
 each product and norm is called with.
 
-Both record the output of every call of the model's ops in call order:
+``--case cow-prefill``: ``chip_smoke.py``'s ``[prefix]`` phase holds a
+copy-on-write prefix hit to its cold run. Here qwen1.5-0.5b at full
+width prefills that request's prompt (the system prompt's first 200
+tokens and 40 of its own, ``chip_smoke.cow_prefill_noise``'s pair) as
+one chunk (M = 240, the cold run) and as the warm run builds it: the
+256-token system prompt's chunk (M = 256), then the remainder from 200
+(M = 40). Each op's rows of positions 0-199 (from the system chunk) and
+200-239 (from the remainder) are compared with the cold chunk's.
+
+``--case oneshot``: ``chip_smoke.py``'s ``[oneshot]`` holds the lm
+one-shot server's greedy streams to the engine's. Here qwen1.5-0.5b at
+full width prefills one serve-phase prompt of more than 256 tokens
+(``chip_smoke.make_requests``) through the one-shot ``api.prefill_fn``
+(the whole prompt in one call, flash attention over its own K/V) and
+through the engine's ``api.prefill_chunk_fn`` in chunks of 256 (flash
+attention over the slot's gathered pool); each op's rows of every
+position are compared.
+
+All record the output of every call of the model's ops in call order:
 ``common.rms_norm``, ``common.dense`` (named by its weight's shape),
-``common.swiglu``, ``common.apply_rope``, ``ops.paged_attention``,
+``common.swiglu``, ``common.apply_rope``, ``attention.flash_attention``,
+``ops.paged_attention``,
 ``ssd.causal_conv1d``, ``ssd._ssd_chunk_scan`` (its output y),
 ``moe.moe_forward`` (an MoE layer's output; its capacity routing depends
 on M too) and the serving head. For each op they print how many calls differ between the
@@ -53,7 +73,7 @@ class Recorder:
 
     def __init__(self):
         from repro_torch.kernels import ops
-        from repro_torch.models import common, lm, moe, ssd
+        from repro_torch.models import attention, common, lm, moe, ssd
         self.calls: list = []
         self.saved = []
         for owner, name, label in (
@@ -61,6 +81,7 @@ class Recorder:
                 (common, "dense", lambda x, w, *r: f"dense {tuple(w.shape)}"),
                 (common, "swiglu", "swiglu"),
                 (common, "apply_rope", "apply_rope"),
+                (attention, "flash_attention", "flash_attention"),
                 (ops, "paged_attention", "paged_attention"),
                 (ssd, "causal_conv1d", "causal_conv1d"),
                 (ssd, "_ssd_chunk_scan", "ssd_chunk_scan"),
@@ -227,10 +248,116 @@ def case_ssm_prefill(dev) -> dict:
     return out
 
 
+def case_cow_prefill(dev, kv_dtype: str) -> dict:
+    import torch
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, paged
+    cfg = get_config("qwen1.5-0.5b").with_(kv_dtype=kv_dtype)
+    params = api.init_params(cfg, device=dev, seed=cs.SEED)
+    g = torch.Generator().manual_seed(cs.SEED + 4)
+    hit = 200
+    prompt = cs.system_prompt(cfg)[:hit] + cs.random_tokens(g, cfg, 40, 40)
+    chunk = api.prefill_chunk_fn(cfg)
+    rec = Recorder()
+
+    def run(chunks) -> list:
+        kv = api.KVCache.build(cfg, max_context=cs.SERVE_KW["max_context"],
+                               block_size=cs.SERVE_KW["block_size"],
+                               max_slots=1)
+        caches = kv.init(1, device=dev)
+        paged.reset_slot(caches, 0, torch.arange(
+            1, 1 + kv.layout.max_blocks, dtype=torch.int32, device=dev))
+        calls = []
+        for toks, pos0 in chunks:
+            rec.take()
+            chunk(params, torch.tensor([toks], dtype=torch.int32,
+                                       device=dev), caches, 0, pos0)
+            torch.cuda.synchronize()
+            calls.append(rec.take())
+        return calls
+
+    def rows(tag, t):
+        """The call's positions along dim 0 (the head: its one row)."""
+        if tag == "serving head":
+            return t
+        return t[0].transpose(0, 1) if tag == "apply_rope" else t[0]
+
+    try:
+        (cold,) = run([(prompt, 0)])
+        sys_calls, rem_calls = run([(cs.system_prompt(cfg), 0),
+                                    (prompt[hit:], hit)])
+    finally:
+        rec.close()
+    cold = [(tag, rows(tag, t)) for tag, t in cold]
+    warm = [(tag, rem if tag == "serving head" else
+             torch.cat([rows(tag, s_t)[:hit], rows(tag, rem)]))
+            for (tag, s_t), (_, rem) in zip(sys_calls, rem_calls)]
+    res = compare(cold, warm, lambda t: t, lambda t: t, cfg.num_layers)
+    report(f"qwen1.5-0.5b {kv_dtype} copy-on-write prefill: {len(prompt)} "
+           f"tokens at M = {len(prompt)} against the system chunk (M = "
+           f"{len(cs.system_prompt(cfg))}, rows 0-{hit - 1}) + the "
+           f"remainder (M = {len(prompt) - hit})", res)
+    return res
+
+
+def case_oneshot(dev, kv_dtype: str) -> dict:
+    import torch
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, paged
+    cfg = get_config("qwen1.5-0.5b").with_(kv_dtype=kv_dtype)
+    params = api.init_params(cfg, device=dev, seed=cs.SEED)
+    chunk_len = cs.SERVE_KW["prefill_chunk"]
+    req = next(r for r in cs.make_requests(cfg) if len(r.prompt) > chunk_len)
+    prompt = req.prompt
+    rec = Recorder()
+
+    def rows(tag, t):
+        """The call's positions along dim 0 (the head: its one row)."""
+        if tag == "serving head":
+            return t
+        return t[0].transpose(0, 1) if tag == "apply_rope" else t[0]
+
+    try:
+        rec.take()
+        api.prefill_fn(cfg, cs.SERVE_KW["max_context"])(
+            params, {"tokens": torch.tensor([prompt], dtype=torch.int32,
+                                            device=dev)})
+        torch.cuda.synchronize()
+        oneshot = rec.take()
+        kv = api.KVCache.build(cfg, max_context=cs.SERVE_KW["max_context"],
+                               block_size=cs.SERVE_KW["block_size"],
+                               max_slots=1)
+        caches = kv.init(1, device=dev)
+        paged.reset_slot(caches, 0, torch.arange(
+            1, 1 + kv.layout.max_blocks, dtype=torch.int32, device=dev))
+        chunks = []
+        for p0 in range(0, len(prompt), chunk_len):
+            rec.take()
+            api.prefill_chunk_fn(cfg)(params, torch.tensor(
+                [prompt[p0:p0 + chunk_len]], dtype=torch.int32, device=dev),
+                caches, 0, p0)
+            torch.cuda.synchronize()
+            chunks.append(rec.take())
+    finally:
+        rec.close()
+    one = [(tag, rows(tag, t)) for tag, t in oneshot]
+    engine = [(calls[0][0], calls[-1][1] if calls[0][0] == "serving head"
+               else torch.cat([rows(tag, t) for tag, t in calls]))
+              for calls in zip(*chunks)]
+    res = compare(one, engine, lambda t: t, lambda t: t, cfg.num_layers)
+    report(f"qwen1.5-0.5b {kv_dtype} request {req.rid}: {len(prompt)} "
+           f"prompt tokens, one-shot prefill (M = {len(prompt)}) against "
+           f"the engine's {len(chunks)} chunks of {chunk_len}", res)
+    return dict(res, rid=req.rid, tokens=len(prompt))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--case", default="decode",
-                    choices=("decode", "ssm-prefill"))
+                    choices=("decode", "ssm-prefill", "cow-prefill",
+                             "oneshot"))
     ap.add_argument("--arch", default="qwen1.5-0.5b",
                     choices=("qwen1.5-0.5b", "deepseek-v2-236b"))
     ap.add_argument("--kv-dtype", default="bf16")
@@ -249,8 +376,14 @@ def main() -> int:
     print(smi)
     _device.set_numerics()
     dev = torch.device("cuda")
-    res = (case_decode(dev, args.kv_dtype, args.arch)
-           if args.case == "decode" else case_ssm_prefill(dev))
+    if args.case == "decode":
+        res = case_decode(dev, args.kv_dtype, args.arch)
+    elif args.case == "cow-prefill":
+        res = case_cow_prefill(dev, args.kv_dtype)
+    elif args.case == "oneshot":
+        res = case_oneshot(dev, args.kv_dtype)
+    else:
+        res = case_ssm_prefill(dev)
     out = dict(device=smi, case=args.case, arch=args.arch,
                kv_dtype=args.kv_dtype, result=res)
     if args.out:
