@@ -554,7 +554,8 @@ TENSOR_CORE_KERNELS = (("flash_attention_wgmma", "flash_attention_wgmma_kernel")
                        ("flash_attention_wgmma", "flash_attention_wgmma_f32"),
                        ("kahan_matmul", "kahan_matmul_tile_kernel"),
                        ("paged_latent_attention",
-                        "paged_latent_attention_split"))
+                        "paged_latent_attention_split"),
+                       ("invariant_gemm", "invariant_gemm_kernel"))
 
 
 def phase_build():
@@ -574,17 +575,22 @@ def phase_build():
             f"instructions in the SASS of its {len(counts)} {kern} kernels")
         if not counts or not all(counts.values()):
             fail(f"a {kern} kernel of {lib}.cu has no HGMMA instruction")
+    # ptxas's injected wgmma fences and waits (C7519: warpgroup.arrive,
+    # C7517: warpgroup.wait) and serialized products (C7518) per
+    # tensor-core library, from this run's build log (a run that found a
+    # library built has none)
+    for lib in sorted({lib for lib, _ in TENSOR_CORE_KERNELS}):
+        if lib in _build.BUILD_LOG:
+            lines = _build.BUILD_LOG[lib].splitlines()
+            n = {c: sum(c in ln for ln in lines)
+                 for c in ("C7517", "C7518", "C7519")}
+            log(f"[build] {lib}: ptxas notes {n} (C7517 warpgroup.wait "
+                f"injected, C7518 products serialized, C7519 "
+                f"warpgroup.arrive injected)")
     # registers and spills of the tensor-core kernels from the libraries
     # themselves, so a run that finds them already built checks them too
-    counts = {fn: n for fn, n in sass_counts("invariant_gemm",
-                                             "HMMA").items()
-              if "invariant_gemm_kernel" in fn}
-    log(f"[build] invariant_gemm: {sum(counts.values())} HMMA (mma.sync) "
-        f"instructions in the SASS of its {len(counts)} product kernels")
-    if len(counts) != 2 or not all(counts.values()):
-        fail("an invariant_gemm product kernel has no HMMA instruction")
     for lib in sorted({lib for lib, _ in TENSOR_CORE_KERNELS}) + [
-            "row_norm", "invariant_gemm"]:   # the norm's registers of x
+            "row_norm"]:   # the norm's registers of x
         usage = res_usage(lib)
         if not usage:
             fail(f"cuobjdump -res-usage listed no {lib} kernel")
@@ -1279,7 +1285,7 @@ def phase_head(dev) -> dict:
             flush, f"serving_head M={m}",
             lambda: sh.serving_head_cuda(h, w),
             lambda: sh.serving_head_plain(h, w),
-            lambda: torch.mm(hf, w), ("serving_head_kernel",),
+            lambda: torch.mm(hf, w), ("serving_head",),
             sh.bytes_moved(m, d, v, h_bytes=2), 0, 2 * m * d * v,
             F32_FLOPS_PER_S,
             f"qwen1.5-0.5b head [{m}, {d}] x [{d}, {v}] f32, bf16 h, "
@@ -1464,15 +1470,21 @@ GEMM_SHAPES = (
     ("deepseek-v2 experts gate_up", 160, 5120, 3072),
     ("deepseek-v2 experts down", 160, 1536, 5120),
 )
+# 1, 8 and 40 rows take the kernel's skinny route, 240, 256 and 2048 its
+# wide route (``invariant_gemm.pick_route``: skinny up to SKINNY_ROWS = 64)
 GEMM_ROWS = (1, 8, 40, 240, 256, 2048)
+# a call is one kernel: these (label, M) are profiled alone (skinny calls
+# whose K split folds within a cluster, a batched one, a wide one)
+GEMM_ONE_KERNEL = (("qwen1.5 q/k/v/o", 8), ("qwen1.5 down", 40),
+                   ("deepseek-v2 experts down", 8), ("qwen1.5 gate_up", 2048))
 # the kernel and the twin (cuBLAS f32 on the widened operands) each round
 # a K-term sum of exact bf16 x bf16 products in their own order: their
 # difference is read in units of sqrt(K) 2^-24 sum_k |x_k w_k|, the size
 # of a random walk of K f32 roundings. Readings on an NVIDIA H100 80GB
 # HBM3 at 700 W: at most 0.31 over the 15 shapes (deepseek-v2's experts
 # down), so the limit is ~3x that. The control, the kernel with the
-# last 32-wide K chunk left out, must read past it at every shape (it
-# read 381 or more).
+# last 32-wide K granule (``invariant_gemm.BK``) left out, must read past
+# it at every shape (it read 381 or more).
 GEMM_TOL = 1.0
 # flash attention's served products at a head shape, alone and among 8
 # sequences: (label, heads, q/k head dim, v head dim, q_chunk, kv_chunk)
@@ -1489,15 +1501,17 @@ def phase_gemm(dev) -> dict:
     """The M-invariant bf16 product (``csrc/invariant_gemm.cu``) on the
     card at every product shape of qwen1.5-0.5b and deepseek-v2-236b
     (``GEMM_SHAPES``). Fails unless the first 8 rows of a call at every M
-    in ``GEMM_ROWS`` are bitwise the same rows at M = 8 (and a row block
-    at another place of the batch is bitwise its rows in the full call),
+    in ``GEMM_ROWS`` (both routes) are bitwise the same rows at M = 8
+    (and a row block at another place of the batch is bitwise its rows
+    in the full call, and M = 40 and 256 are bitwise on either route),
     the kernel is within ``GEMM_TOL`` x sqrt(K) 2^-24 sum_k |x_k w_k| of
     the plain twin everywhere, and the control (the last K chunk left
     out) reads past that limit at every shape; unless a sequence's flash
     attention (score and PV products on the kernel) is bitwise the same
     alone and among 8 sequences (``GEMM_ATTN_SHAPES``). Checks the
     dispatch of ``invariant_gemm.product``: the kernel under no_grad,
-    cuBLAS's ``_Bf16Product`` under autograd. Then times the shapes of
+    cuBLAS's ``_Bf16Product`` under autograd; and that a call is one
+    kernel in the profiler (``GEMM_ONE_KERNEL``). Then times the shapes of
     ``GEMM_TIMED`` at ``GEMM_TIME_ROWS`` against the bound and
     ``torch.mm`` / ``torch.bmm`` with an f32 result (cuBLAS). Returns
     qwen1.5 gate_up at M = 8 for the kernels line, the other rows beside
@@ -1527,9 +1541,14 @@ def phase_gemm(dev) -> dict:
         same = same and torch.equal(
             ig.invariant_gemm_cuda(x[..., 200:240, :].contiguous(), w),
             full[..., 200:240, :])
-        if not same:
+        routes = torch.equal(
+            ig.invariant_gemm_cuda(x[..., :40, :], w, route="wide"),
+            run(40)) and torch.equal(
+            ig.invariant_gemm_cuda(x[..., :256, :], w, route="skinny"), full)
+        if not same or not routes:
             fail(f"invariant gemm {label} [{b}, {k}, {n}]: a row's bits "
-                 f"depend on M or on its place in the batch")
+                 f"depend on M, on its place in the batch or on the route "
+                 f"(across M and places {same}, across routes {routes})")
         plain = ig.invariant_gemm_plain(x[..., :256, :], w)
         scale = ig.invariant_gemm_plain(x[..., :256, :].abs(), w.abs()) * (
             math.sqrt(k) * 2.0 ** -24)
@@ -1542,10 +1561,11 @@ def phase_gemm(dev) -> dict:
         control = min(control, ctl)
         splits, cps = ig.split_plan(b, k, n)
         log(f"[gemm] {label} [{b}, M, {k}] x [{k}, {n}] (K split {splits} "
-            f"x {cps} chunks): rows bitwise across M {GEMM_ROWS} and a "
-            f"batch place; against the twin at M = 256: max|diff| "
-            f"{abs_err:.4g}, {err:.4g} x sqrt(K) 2^-24 sum|x w| (limit "
-            f"{GEMM_TOL}); the control (last K chunk left out) {ctl:.4g}")
+            f"x {cps} granules of {ig.BK}): rows bitwise across M "
+            f"{GEMM_ROWS}, a batch place and both routes; against the twin "
+            f"at M = 256: max|diff| {abs_err:.4g}, {err:.4g} x sqrt(K) 2^-24 "
+            f"sum|x w| (limit {GEMM_TOL}); the control (last K granule left "
+            f"out) {ctl:.4g}")
         if not err <= GEMM_TOL or not bool(torch.isfinite(full).all()):
             fail(f"invariant gemm {label}: {err:.3g} x sqrt(K) 2^-24 "
                  f"sum|x w| from the plain twin (limit {GEMM_TOL})")
@@ -1603,6 +1623,29 @@ def phase_gemm(dev) -> dict:
         else:
             fail(f"invariant gemm: {[tuple(t.shape) for t in bad]} "
                  f"{[t.dtype for t in bad]} did not raise")
+    # one kernel per call: no fold launch, no memset, no library call
+    shapes = {label: (b, k, n) for label, b, k, n in GEMM_SHAPES}
+    for label, m in GEMM_ONE_KERNEL:
+        b, k, n = shapes[label]
+        w = (torch.randn((b, k, n), generator=g, device=dev)
+             / math.sqrt(k)).to(bf)
+        x = torch.randn((b, m, k), generator=g, device=dev).to(bf)
+        if b == 1:
+            w, x = w[0], x[0]
+        fn = lambda x=x, w=w: ig.invariant_gemm_cuda(x, w)  # noqa: E731
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(PROFILE_TRIES):
+            got = {key: c for key, (c, _) in _launches(fn, None, 3).items()}
+            if got:
+                break
+        log(f"[gemm] {label} M = {m} ({ig.pick_route(m)} route, K split "
+            f"{ig.split_plan(b, k, n)[0]}): 3 calls launched {got}")
+        if len(got) != 1 or list(got.values()) != [3] or \
+                "invariant_gemm_kernel" not in next(iter(got)):
+            fail(f"invariant gemm {label} M = {m}: a call launched more or "
+                 f"other than one invariant_gemm_kernel: {got}")
+        del w, x
     flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
     timed = {}
     for label, b, k, n in GEMM_SHAPES:
@@ -3789,10 +3832,12 @@ def conversation_turns(cfg, seed: int, n_conv: int = 8, turns: int = 3):
 # distance of any layer, in storage steps (seed 100, layer 23;
 # 29.6-40.0).
 # Re-measured after the norms moved to the row-norm kernel (the readings
-# before were 0.23796796798706055 and 43.149), and again after the
-# products moved to the M-invariant GEMM (before: 0.1902933120727539 and
-# 39.262). The one-shot streams use the same readings. Re-measure them
-# with that script when the served path's numerics change.
+# before were 0.23796796798706055 and 43.149), after the products moved
+# to the M-invariant GEMM (before: 0.1902933120727539 and 39.262), and
+# after that GEMM moved to wgmma with the same K split (the same
+# readings: qwen1.5's products kept their bits). The one-shot streams
+# use the same readings. Re-measure them with that script when the
+# served path's numerics change.
 SESSION_SEED = SEED + 5
 SESSION_CALIB_SEEDS = tuple(range(SEED + 100, SEED + 106))
 SESSION_NOISE = 0.230194091796875
@@ -4694,7 +4739,7 @@ def phase_train(dev, kind: str, qwen) -> dict:
 TRAIN_FAMILIES = (
     ("olmoe-1b-7b", dict(num_layers=2), 256),          # 2 of 16 layers
     ("deepseek-v2-236b", dict(num_layers=1), 256),     # its dense layer
-    ("zamba2-1.2b", {}, 256),
+    ("zamba2-1.2b", dict(num_layers=14), 256),    # 2 segments + a tail
     ("whisper-tiny", {}, 256),
     # 576 image patches prefix each sequence: 256 text tokens after them
     ("llava-next-mistral-7b", dict(num_layers=2), 576 + 256),

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) tensor-core helpers shared by flash_attention_wgmma.cu,
-// kahan_matmul.cu and paged_latent_attention.cu: 16-byte cp.async with
-// zero-fill, the proxy and wgmma fences, the shared-memory matrix
-// descriptor of the 128-byte swizzle, the bf16 wgmma forms the kernels
-// issue, mbarriers with 2-D TMA loads, and the exact bf16 PLANES that
-// carry f32 (and 8-bit) operands onto the bf16 tensor cores.
+// kahan_matmul.cu, paged_latent_attention.cu and invariant_gemm.cu:
+// 16-byte cp.async with zero-fill, the proxy and wgmma fences, the
+// shared-memory matrix descriptor of the 128-byte swizzle, the bf16 wgmma
+// forms the kernels issue, mbarriers with 2-D and 3-D TMA loads, and the
+// exact bf16 PLANES that carry f32 (and 8-bit) operands onto the bf16
+// tensor cores.
 //
 // Planes: a bf16 value, an int8 payload (|q| <= 127: 7 bits) and an e4m3
 // payload (3 mantissa bits, exponents inside bf16's) are one plane; an
@@ -241,6 +242,18 @@ __device__ __forceinline__ void tma_load_2d(unsigned dst, const void* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// the same for a 3-D tensor map, coordinates (c0 innermost, c1, c2)
+__device__ __forceinline__ void tma_load_3d(unsigned dst, const void* map,
+                                            int c0, int c1, int c2,
+                                            unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
       : "memory");
 }
 

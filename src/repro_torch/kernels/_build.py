@@ -27,8 +27,8 @@ the tile route (wgmma) under those names, the split route under
 ``flash_attention_wgmma`` (bf16) and ``flash_attention_wgmma_f32`` (the
 same source's f32 kernel) are the two routes of one entry point; one
 ``serving_head`` call is one kernel launch, and so is one ``row_norm``
-call (RMS or layer norm); one ``invariant_gemm`` call is the product
-kernel and, when its K split has more than one part, the fold kernel.
+call (RMS or layer norm), and so is one ``invariant_gemm`` call
+(its K split's parts are folded inside the kernel).
 ``reset_launches`` zeroes every count.
 """
 

@@ -9,14 +9,17 @@ compute.
 
 * ``invariant_gemm_plain`` is the widened-f32 ``torch.matmul`` of the
   bf16-rounded operands, the form the port runs on the CPU.
-* ``invariant_gemm_cuda`` launches ``csrc/invariant_gemm.cu``: tensor-core
-  tiles whose K walk, and whose K split (``split_plan``: a count and a
-  fold order set by (K, N) and a batch count fixed by the model, never
-  by M or by how many sequences share the call), make each output row
-  bitwise the same at any M, in any place of the batch. cuBLAS picks its
-  kernel by M, which made a row's bits depend on the rows beside it
-  (ROADMAP queue C item 2). It agrees with the twin to the f32 rounding
-  of a K-term sum, not bitwise.
+* ``invariant_gemm_cuda`` launches ``csrc/invariant_gemm.cu``, one kernel
+  per call: wgmma tiles whose K walk, and whose K split (``split_plan``:
+  a count and a fold order set by (K, N) and a batch count fixed by the
+  model, never by M or by how many sequences share the call), make each
+  output row bitwise the same at any M, in any place of the batch. Two
+  routes (``pick_route``: skinny for M <= ``SKINNY_ROWS``, the parts on
+  CTAs of one cluster that fold them through distributed shared memory;
+  wide above, one CTA walking every part) give the same bits. cuBLAS picks its kernel by M,
+  which made a row's bits depend on the rows beside it (ROADMAP queue C
+  item 2). It agrees with the twin to the f32 rounding of a K-term sum,
+  not bitwise.
 * ``_Bf16Product`` / ``_Bf16BatchedProduct``: the card's training form,
   cuBLAS tensor-core products with a backward.
 
@@ -39,9 +42,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.row_norm import (  # noqa: F401
     _use_kernel as use_kernel)
 
-BM, BN, BK = 64, 64, 32          # the kernel's tile and K chunk
+BN = 128                          # the kernel's column tile
+BK = 32                           # the K split's granule
+PLAN_TILE = 64                    # the columns a tile counts in the plan
+SKINNY_ROWS = 64                  # the skinny route's rows (one tile)
+WIDE_ROWS = 128                   # the wide route's row tile
 TARGET_CTAS = 132                 # an H100's SMs
-MAX_SPLITS = 32
+MAX_SPLITS = 16                   # the kernel's kMaxSplits (a cluster)
 # the batched twin widens this many weight elements at a time (a chunk of
 # experts), so a full-width MoE layer (a [160, 5120, 3072] ``w_gate_up``)
 # never makes more than a ~1 GiB f32 copy of its weights per call; chunks
@@ -53,7 +60,7 @@ def _lib():
     lib = _build.load("invariant_gemm")
     if not getattr(lib, "_typed", False):
         fn = lib.repro_invariant_gemm
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.repro_error_string.argtypes = [ctypes.c_int]
@@ -63,16 +70,28 @@ def _lib():
 
 
 def split_plan(batch: int, k: int, n: int) -> tuple[int, int]:
-    """(S, chunks per part): the K split of every call with these (B, K,
-    N), whatever M is. Enough parts that one row block's B x ceil(N /
-    BN) x S CTAs cover the card's SMs, at most ``MAX_SPLITS``, every part
-    at least one K chunk and none empty. ``batch`` is a count the model
-    fixes (1, the experts, the heads), never the sequences of a call."""
-    tiles = batch * -(-n // BN)
-    kc = -(-k // BK)
-    want = min(kc, MAX_SPLITS, max(1, -(-TARGET_CTAS // tiles)))
-    cps = -(-kc // want)
-    return -(-kc // cps), cps
+    """(S, granules per part): the K split of every call with these (B, K,
+    N), whatever M is, in granules of ``BK``. Enough parts that B x
+    ceil(N / ``PLAN_TILE``) x S reach the card's SMs, at most
+    ``MAX_SPLITS``, every part at least one granule and none empty: the
+    kernel's first form's rule, kept so that a product keeps its bits
+    wherever that rule asked for ``MAX_SPLITS`` parts or fewer. ``batch``
+    is a count the model fixes (1, the experts, the heads), never the
+    sequences of a call."""
+    tiles = batch * -(-n // PLAN_TILE)
+    kg = -(-k // BK)
+    want = min(kg, MAX_SPLITS, max(1, -(-TARGET_CTAS // tiles)))
+    cpg = -(-kg // want)
+    return -(-kg // cpg), cpg
+
+
+def pick_route(m: int) -> str:
+    """The kernel's route for M rows: ``"skinny"`` (decode and verify:
+    the K split's parts on the CTAs of one cluster, folded through
+    distributed shared memory) up to ``SKINNY_ROWS``, ``"wide"``
+    (prefill: a CTA of 128 rows walks every part into a running total)
+    above. Both give the same bits; neither changes ``split_plan``."""
+    return "skinny" if m <= SKINNY_ROWS else "wide"
 
 
 def invariant_gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -89,14 +108,16 @@ def invariant_gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def invariant_gemm_cuda(x: torch.Tensor, w: torch.Tensor, *,
-                        plan_batch: int | None = None) -> torch.Tensor:
+                        plan_batch: int | None = None,
+                        route: str | None = None) -> torch.Tensor:
     """Launch ``csrc/invariant_gemm.cu``: bf16 x [M, K] (or [B, M, K]) and
     w [K, N] (or [B, K, N]) on the card -> f32 [M, N] (or [B, M, N]), each
     row's bits independent of M. ``plan_batch`` (default B) is the batch
     count the K split is planned for: a caller whose B grows with the
     sequences of the call (flash attention's b x heads) passes the part
     the model fixes (the heads), so a sequence's bits do not depend on
-    how many share the call."""
+    how many share the call. ``route`` forces a route (default
+    ``pick_route(M)``), to hold the two against each other."""
     if not (x.is_cuda and w.is_cuda and x.device == w.device):
         raise ValueError("invariant_gemm_cuda takes CUDA tensors on one "
                          f"device, got {x.device} and {w.device}")
@@ -114,25 +135,24 @@ def invariant_gemm_cuda(x: torch.Tensor, w: torch.Tensor, *,
     wb = w if batched else w[None]
     b, m, k = xb.shape
     n = wb.shape[2]
-    if min(b, m, k, n) < 1 or max(m, k, n) >= 2 ** 31 or \
-            -(-m // BM) > 65535 or b * m * max(k, n) >= 2 ** 62:
+    wide = (route or pick_route(m)) == "wide"
+    row_tiles = -(-m // (WIDE_ROWS if wide else SKINNY_ROWS))
+    if min(b, m, k, n) < 1 or max(k, n) >= 2 ** 31 or m * n >= 2 ** 31 or \
+            row_tiles > 65535 or b * m * max(k, n) >= 2 ** 62:
         raise ValueError(f"invariant_gemm_cuda: unsupported shape B={b}, "
                          f"M={m}, K={k}, N={n}")
     splits, cps = split_plan(b if plan_batch is None else plan_batch, k, n)
-    if b * splits > 65535:
+    if b * (1 if wide else splits) > 65535:
         raise ValueError(f"invariant_gemm_cuda: B={b} x {splits} parts is "
                          "past the grid's z limit")
     xb, wb = xb.contiguous(), wb.contiguous()
     aligned = int(k % 8 == 0 and n % 8 == 0 and xb.data_ptr() % 16 == 0
                   and wb.data_ptr() % 16 == 0)
     y = torch.empty((b, m, n), dtype=torch.float32, device=x.device)
-    scratch = (torch.empty((splits, b, m, n), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
     lib = _lib()
     err = lib.repro_invariant_gemm(
-        xb.data_ptr(), wb.data_ptr(), y.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), b, m, n, k, splits,
-        cps, aligned, torch.cuda.current_stream(x.device).cuda_stream)
+        xb.data_ptr(), wb.data_ptr(), y.data_ptr(), b, m, n, k, splits, cps,
+        int(wide), aligned, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError("invariant_gemm kernel launch failed: "
                            + lib.repro_error_string(err).decode())

@@ -13,8 +13,11 @@ read as it lies.
   fmaf each), so a row's logits are bitwise the same at any number of
   rows M, in any place of the batch. cuBLAS picks its kernel by M, which
   made the speculative verify window (M = slots x window) differ from
-  the decode steps (M = slots) it replaces. The kernel agrees with the
-  plain twin to f32 rounding of a K-term sum, not bitwise.
+  the decode steps (M = slots) it replaces. Up to 16 rows a thread owns
+  a column of W and every row; from 17 rows on (the verify window) a
+  register-blocked tile of 8 rows x 4 columns a thread, the same chain,
+  so the same bits. The kernel agrees with the plain twin to f32
+  rounding of a K-term sum, not bitwise.
 
 ``serving_head`` dispatches on the device of ``h``: the plain twin for a
 CPU tensor, the kernel for a CUDA tensor (or a ``ValueError`` for what

@@ -1,10 +1,11 @@
 """Per-layer blocks (twin of ``repro.models.blocks``): pre-norm
-attention (GQA or MLA) + pre-norm FFN (SwiGLU MLP, or MoE) for the
-attention families, and pre-norm Mamba2 (``ssd``) for the ssm family,
-with rmsnorm or layernorm (``cfg.norm``). DeepSeek-V2's leading dense
-layers are MLA blocks with a dense FFN (``dense_block_schema``,
-``dense_ffn=True``). The training form ``block_apply`` and the one-shot
-prefill ``block_prefill`` cover every layer kind."""
+attention (GQA or MLA) + pre-norm FFN (the ``cfg.act`` MLP, SwiGLU or
+GELU, or MoE) for the attention families, and pre-norm Mamba2 (``ssd``)
+for the ssm family, with rmsnorm or layernorm (``cfg.norm``).
+DeepSeek-V2's leading dense layers are MLA blocks with a dense FFN
+(``dense_block_schema``, ``dense_ffn=True``). The training form
+``block_apply`` and the one-shot prefill ``block_prefill`` cover every
+layer kind."""
 
 from __future__ import annotations
 
@@ -48,7 +49,8 @@ def block_schema(cfg: ModelConfig) -> dict:
             "ln_mlp": common.norm_schema(cfg.d_model, cfg.norm),
             "attn": _attn_schema(cfg),
             "ffn": (moe.moe_schema(cfg.d_model, cfg.moe) if cfg.moe
-                    is not None else mlp.mlp_schema(cfg.d_model, cfg.d_ff))}
+                    is not None else mlp.mlp_schema(cfg.d_model, cfg.d_ff,
+                                                   act=cfg.act))}
 
 
 def dense_block_schema(cfg: ModelConfig, d_ff: int) -> dict:
@@ -56,7 +58,7 @@ def dense_block_schema(cfg: ModelConfig, d_ff: int) -> dict:
     return {"ln_attn": common.norm_schema(cfg.d_model, cfg.norm),
             "ln_mlp": common.norm_schema(cfg.d_model, cfg.norm),
             "attn": _attn_schema(cfg),
-            "ffn": mlp.mlp_schema(cfg.d_model, d_ff)}
+            "ffn": mlp.mlp_schema(cfg.d_model, d_ff, act=cfg.act)}
 
 
 def _ssm_cfg(cfg: ModelConfig) -> ssd.SSMConfig:
@@ -76,7 +78,7 @@ def _ffn_residual(p: dict, h: torch.Tensor, cfg: ModelConfig,
     if cfg.moe is not None and not dense_ffn:
         y, _ = moe.moe_forward(p["ffn"], x, cfg.moe)
         return h + y
-    return h + mlp.mlp_forward(p["ffn"], x)
+    return h + mlp.mlp_forward(p["ffn"], x, act=cfg.act)
 
 
 # the reference's per-layer aux outputs (MoE losses); a dense layer's are 0
@@ -94,8 +96,8 @@ def check_trainable(cfg: ModelConfig) -> None:
 def block_apply(p: dict, h: torch.Tensor, cfg: ModelConfig, *,
                 dense_ffn: bool = False) -> tuple[torch.Tensor, dict]:
     """Full-sequence (training) forward of one layer, h [B, L, d] ->
-    (h, aux): GQA or MLA attention, then the SwiGLU MLP or the MoE layer
-    (whose aux losses it returns; a dense layer's are 0), or a Mamba2
+    (h, aux): GQA or MLA attention, then the ``cfg.act`` MLP or the MoE
+    layer (whose aux losses it returns; a dense layer's are 0), or a Mamba2
     layer. A DeepSeek-V2 ``dense_ffn`` layer is MLA with a dense MLP.
     The training forward never quantizes (MLA takes ``cfg.mla`` as it
     stands, not ``kv_dtype``)."""
@@ -114,7 +116,7 @@ def block_apply(p: dict, h: torch.Tensor, cfg: ModelConfig, *,
     if cfg.moe is not None and not dense_ffn:
         y, aux = moe.moe_forward(p["ffn"], x, cfg.moe)
         return h + y, aux
-    h = h + mlp.mlp_forward(p["ffn"], x)
+    h = h + mlp.mlp_forward(p["ffn"], x, act=cfg.act)
     return h, dict.fromkeys(AUX_KEYS, zero)
 
 

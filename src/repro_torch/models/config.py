@@ -90,15 +90,14 @@ class ModelConfig:
     def check_supported(self) -> None:
         """The port's model API covers every family of the registry:
         dense and vlm, moe (GQA or MLA attention, optional leading dense
-        layers) and ssm (Mamba2) with SwiGLU MLPs, hybrid (Mamba2 + a
-        shared attention block) and audio (encoder-decoder), with rmsnorm
-        or layernorm. The serving engine takes the lm families; the
-        hybrid and audio families serve through the one-shot
-        ``api.prefill_fn`` / ``decode_fn``, as in the reference."""
+        layers) and ssm (Mamba2), with SwiGLU or GELU MLPs (``act``),
+        hybrid (Mamba2 + a shared attention block) and audio
+        (encoder-decoder), with rmsnorm or layernorm. The serving engine
+        takes the lm families; the hybrid and audio families serve
+        through the one-shot ``api.prefill_fn`` / ``decode_fn``, as in
+        the reference."""
         ok = (self.family in SERVED_FAMILIES
               and self.norm in ("rmsnorm", "layernorm")
-              and (self.family in ("ssm", "hybrid", "audio")
-                   or self.act == "swiglu")
               and (self.family == "moe") == (self.moe is not None)
               and (self.family in ("ssm", "hybrid")) == (self.ssm is not None)
               and (self.family == "hybrid") == (self.hybrid is not None)
@@ -106,7 +105,7 @@ class ModelConfig:
         if not ok:
             raise NotImplementedError(
                 f"{self.name}: repro_torch serves the {SERVED_FAMILIES} "
-                f"families with rmsnorm or layernorm (and swiglu in the lm "
-                f"families); {self.family}/{self.norm}/{self.act} (moe "
+                f"families with rmsnorm or layernorm; "
+                f"{self.family}/{self.norm} (moe "
                 f"config: {self.moe is not None}, ssm config: "
                 f"{self.ssm is not None}) is not one of them")

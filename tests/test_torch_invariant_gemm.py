@@ -86,22 +86,92 @@ def test_cpu_dispatch_is_the_twin():
     assert _build.launches["invariant_gemm"] == 0
 
 
-@pytest.mark.parametrize("b,k,n", [(1, 1024, 1024), (1, 2816, 1024),
-                                   (1, 5120, 160), (160, 5120, 3072),
-                                   (1, 33, 7)])
+def _first_form_plan(b, k, n):
+    """The K split of the kernel's first form: 64-column tiles, K
+    granules of 32, up to 32 parts."""
+    tiles = b * -(-n // 64)
+    kg = -(-k // 32)
+    want = min(kg, 32, max(1, -(-132 // tiles)))
+    cpg = -(-kg // want)
+    return -(-kg // cpg), cpg
+
+
+@pytest.mark.parametrize("b,k,n", [
+    (1, 1024, 1024), (1, 1024, 5632), (1, 2816, 1024), (16, 64, 512),
+    (16, 512, 64), (1, 5120, 576), (1, 16384, 5120), (1, 5120, 160),
+    (160, 5120, 3072), (1, 384, 384), (1, 1536, 384), (1, 33, 7)])
 def test_split_plan_is_set_by_b_k_n(b, k, n):
-    """Every part holds at least one K chunk, none is empty, the parts
-    cover K, and the CTAs of one row block cover ~all of the card's SMs
-    (up to rounding to whole chunks) unless K or ``MAX_SPLITS`` caps the
-    parts."""
-    splits, cps = ig.split_plan(b, k, n)
-    kc = -(-k // ig.BK)
+    """Every part holds at least one K granule, none is empty, the parts
+    cover K, at most ``MAX_SPLITS``; and the plan is the kernel's first
+    form's wherever that one had ``MAX_SPLITS`` parts or fewer (every
+    product of qwen1.5-0.5b: its q/k/v/o, gate_up and down, its
+    attention's score and PV at 16 heads), so the products keep their
+    bits; past that (deepseek-v2's router: 32 parts) it is capped."""
+    splits, cpg = ig.split_plan(b, k, n)
+    kg = -(-k // ig.BK)
     assert 1 <= splits <= ig.MAX_SPLITS
-    assert (splits - 1) * cps < kc <= splits * cps
-    tiles = b * -(-n // ig.BN)
-    assert tiles * splits >= 0.9 * ig.TARGET_CTAS or \
-        splits == min(kc, ig.MAX_SPLITS)
+    assert (splits - 1) * cpg < kg <= splits * cpg
+    first = _first_form_plan(b, k, n)
+    if first[0] <= ig.MAX_SPLITS:
+        assert (splits, cpg) == first
+    else:
+        assert splits == ig.MAX_SPLITS
     assert "m" not in ig.split_plan.__code__.co_varnames
+
+
+@pytest.mark.parametrize("b,k,n", [(1, 1024, 5632), (160, 1536, 5120)])
+def test_route_is_set_by_m_and_keeps_the_plan(b, k, n, monkeypatch):
+    """The skinny route up to ``SKINNY_ROWS`` rows, the wide one above;
+    the choice reads M alone, and the K split the wrapper hands either
+    route is ``split_plan(B, K, N)`` (the C entry point stood in for by a
+    recorder of its arguments)."""
+    assert "m" in ig.pick_route.__code__.co_varnames
+    assert ig.pick_route.__code__.co_argcount == 1
+    routes = {m: ig.pick_route(m) for m in (1, 8, 40, 64, 65, 240, 2048)}
+    assert routes == {1: "skinny", 8: "skinny", 40: "skinny", 64: "skinny",
+                      65: "wide", 240: "wide", 2048: "wide"}
+    calls = []
+
+    class Lib:
+        def repro_invariant_gemm(self, *args):
+            calls.append(args)
+            return 0
+
+    class Fake:
+        """Stands in for a CUDA tensor: shapes, a data pointer, a device."""
+        is_cuda = True
+        device = torch.device("cpu")
+        dtype = torch.bfloat16
+
+        def __init__(self, shape):
+            self.shape = torch.Size(shape)
+
+        def dim(self):
+            return len(self.shape)
+
+        def __getitem__(self, _):
+            return Fake((1,) + tuple(self.shape))
+
+        def contiguous(self):
+            return self
+
+        def data_ptr(self):
+            return 1 << 20
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(ig, "_lib", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream())
+    monkeypatch.setattr(torch, "empty", lambda *a, **kw: Fake((1,)))
+    for m in (1, 8, 40, 64, 65, 240, 2048):
+        for force in (None, "skinny", "wide"):
+            x = Fake((b, m, k))
+            ig.invariant_gemm_cuda(x, Fake((b, k, n)), route=force)
+            _x, _w, _y, bb, mm, nn, kk, splits, cps, wide, _a, _s = calls[-1]
+            assert (bb, mm, nn, kk) == (b, m, n, k)
+            assert (splits, cps) == ig.split_plan(b, k, n)
+            assert wide == ((force or routes[m]) == "wide")
 
 
 def _qkv(b, seed=6, lq=96, lk=300, hq=4, hkv=2, d=16, device="cpu"):
@@ -176,6 +246,37 @@ def test_kernel_on_card_rows_do_not_depend_on_m():
     wg = w2.float().requires_grad_(True)
     common.dense(x2, wg).float().sum().backward()
     assert _build.launches["invariant_gemm"] == 2 and wg.grad is not None
+
+
+def test_kernel_on_card_routes_give_the_same_bits():
+    """The skinny and the wide route, forced at the same M on either side
+    of the boundary, and a row across the boundary (M = 64 and 65), give
+    the same bits, on an aligned shape (TMA staging), unaligned ones (the
+    threads' own loads; K = 1000 walks several chunks a part) and a
+    batched one; the unaligned ones within K 2^-23 sum|x w| of the
+    twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    dev = torch.device("cuda")
+    for b, k, n in ((None, 1024, 1024), (None, 200, 37), (3, 192, 520),
+                    (None, 1000, 300)):
+        x, w = _case(300, k, n, seed=7, batch=b)
+        xd = torch.from_numpy(x).to(dev, torch.bfloat16)
+        wd = torch.from_numpy(w).to(dev, torch.bfloat16)
+        if k % 8 or n % 8:
+            plain = ig.invariant_gemm_plain(xd, wd)
+            scale = ig.invariant_gemm_plain(xd.abs(), wd.abs())
+            got = ig.invariant_gemm_cuda(xd, wd)
+            assert bool(((got - plain).abs() <= k * 2.0 ** -23 * scale)
+                        .all()), (b, k, n)
+        edge = ig.invariant_gemm_cuda(xd[..., :ig.SKINNY_ROWS, :], wd)
+        over = ig.invariant_gemm_cuda(xd[..., :ig.SKINNY_ROWS + 1, :], wd)
+        assert torch.equal(over[..., :ig.SKINNY_ROWS, :], edge)
+        for m in (8, 64, 65, 300):
+            one, other = (ig.invariant_gemm_cuda(xd[..., :m, :], wd,
+                                                 route=r)
+                          for r in ("skinny", "wide"))
+            assert torch.equal(one, other), (b, k, n, m)
 
 
 def test_attention_on_card_sequence_bits_do_not_depend_on_batch():
