@@ -39,9 +39,10 @@ Phases (each prints its own lines; any failure exits non-zero):
              5120): every row of an M = 256 call bitwise the same row at
              M = 1, 8, 40, 64, 240 and at other places of the batch,
              within ``NORM_TOL`` of the plain twin; one launch under
-             no_grad, none under autograd; times at [8, 1024] and
-             [2048, 1024] against the bound and F.rms_norm /
-             F.layer_norm;
+             no_grad, none under autograd; each width's route (a warp
+             per row or a group of threads per row, rows per CTA); times
+             at [8, 1024] and [2048, 1024] against the bound and
+             F.rms_norm / F.layer_norm;
    gemm    — the M-invariant bf16 product (``csrc/invariant_gemm.cu``)
              at every product shape of qwen1.5-0.5b and deepseek-v2-236b
              (the MoE's batched expert products included): the first 8
@@ -181,7 +182,8 @@ Phases (each prints its own lines; any failure exits non-zero):
              on the same gradients, losses of 3 steps with no warmup;
    train-families — the training forms of every other family at full
              width (olmoe-1b-7b 2 of 16 layers, deepseek-v2-236b its dense
-             MLA layer, zamba2-1.2b and whisper-tiny whole,
+             MLA layer, zamba2-1.2b 8 of 38 layers (a segment of 6 and
+             a tail of 2), whisper-tiny 2 + 2 of its 4 + 4 layers,
              llava-next-mistral-7b 2 of 32 layers with its 576 image
              patches), each through ``Trainer`` with ``[train]``'s
              settings: 3 steps with B7 and B2f held to the leaves, finite
@@ -192,7 +194,7 @@ Phases (each prints its own lines; any failure exits non-zero):
              that must part, zamba2's restart bitwise there; first,
              ``_Bf16BatchedProduct``'s backward at olmoe's expert
              products against its plain version (a dW x 1.1 control);
-19. ssm    — mamba2-780m at full width (24 of its 48 layers) behind
+19. ssm    — mamba2-780m at full width (12 of its 48 layers) behind
              ``DecodeEngine``
              (the serve phases' settings and traffic), with the SSD state
              carry naive and compensated (``kahan_ssm_state``), each run
@@ -227,6 +229,21 @@ Phases (each prints its own lines; any failure exits non-zero):
              audio refused with the reference's message), qwen1.5 with
              int8 pools, n-gram speculation, session KV and fault
              injection, and mamba2 with ``--prefix-cache`` (refused).
+22. dist   — ``repro_torch.distributed`` on the card's one-device mesh
+             (``launch.mesh.make_local_mesh``: an NCCL group of one
+             rank): ``pre_reduce_stats`` (one B2f launch a leaf) over a
+             tree of qwen1.5-0.5b's f32 gradient shapes (267 leaves)
+             against the plain twin and f64, ``kahan_all_reduce`` /
+             ``make_all_reduce_fn`` bitwise their input at n = 1, the EF
+             int8 all-reduce on 2^24 elements against the same call on
+             the CPU (a gloo group; within one int8 code: the card
+             divides by 127 as a product with its reciprocal), a CUDA
+             tensor refused by the gloo group, and a checkpoint restored
+             onto the (1, 1) mesh as DTensors, bitwise. The multi-rank
+             runs are tier-1 CPU tests (``tests/test_torch_distributed.py``,
+             gloo): the machine has one GPU, and NCCL takes one rank per
+             device. Last, so that nothing after it runs beside the
+             NCCL group's aftermath.
 
 Every serve path also holds the serving head's launches to its calls
 (one per prefill chunk, decode step, verify window and draft step), the
@@ -1365,6 +1382,11 @@ def phase_norm(dev) -> dict:
     from repro_torch.models import common
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
     worst, worst_abs = {}, 0.0
+    plans = {d: rn.plan(d) for d in NORM_WIDTHS}
+    log(f"[norm] route per width (a function of d alone): "
+        + "; ".join(f"d={d} {p['route']}, {p['rows']} rows a CTA, "
+                    f"{p['threads']} virtual threads"
+                    for d, p in plans.items()))
     for d in NORM_WIDTHS:
         for dtype in (torch.bfloat16, torch.float32):
             x, w, b = norm_inputs(g, dev, 256, d, dtype)
@@ -1436,7 +1458,7 @@ def phase_norm(dev) -> dict:
             flops = m * 1024 * (6 if layer else 4)
             rows[(kind, m)] = time_row(
                 flush, f"row_norm {kind} [{m}, 1024]", run, plain, lib,
-                ("row_norm_kernel",),
+                ("row_norm_",),
                 rn.bytes_moved(m, 1024, 2, layer), 0, flops,
                 F32_FLOPS_PER_S,
                 f"bf16 rows, f32 weights ({'a decode step' if m == 8 else 'a prefill'}; "
@@ -1444,11 +1466,222 @@ def phase_norm(dev) -> dict:
                 f"bf16 weights)")
     del flush
     torch.cuda.empty_cache()
-    return dict(rows[("rms", 8)],
+    return dict(rows[("rms", 8)], routes=plans,
                 max_abs_err=worst_abs, max_rel_err=worst,
                 prefill=rows[("rms", 2048)],
                 layer_norm=dict(rows[("layer", 8)],
                                 prefill=rows[("layer", 2048)]))
+
+# the EF all-reduce's payload on the card: 2^24 f32 elements
+DIST_EF_ELEMS = 1 << 24
+# leaves of the gradient-shaped tree restored onto the one-device mesh:
+# the final norm and the first layer's (the embedding alone is 622 MB)
+DIST_CKPT_LEAVES = 12
+
+
+def phase_dist(dev, qwen) -> dict:
+    """``repro_torch.distributed`` on the card: everything that runs on a
+    one-device mesh. The NCCL group of ``make_local_mesh`` holds one rank
+    (NCCL takes one rank per device, and the machine has one GPU), so the
+    collectives' multi-rank schedules (the two pods, the ring of eight,
+    EF at n = 4, GPipe, the elastic re-mesh) run as tier-1 tests on the
+    CPU over gloo; here each entry point runs on card tensors:
+
+      * ``pre_reduce_stats`` over every leaf of a tree of qwen1.5-0.5b's
+        f32 gradient shapes (random values): one B2f launch per call,
+        the sum and l2 within the compensated bound of f64 (the plain
+        twin too), maxabs exact;
+      * ``kahan_all_reduce`` and ``make_all_reduce_fn`` (compensated and
+        naive) over that tree at n = 1: bitwise their input;
+      * ``ef_quantized_all_reduce`` at n = 1 on 2^24 elements against
+        the same call on the CPU over a gloo group of the same rank:
+        each output within 2^-21 of the CPU's or one int8 code of it
+        (few), and output + residual within 4 eps |x| (the scale's
+        division differs, see below); the card tensor on the gloo group
+        must be refused (no staging through the host);
+      * a checkpoint of the tree's first leaves saved and restored onto
+        the (1, 1) mesh by ``sharding.param_specs``' specs: DTensors on
+        the card, bitwise.
+    Returns the B2f launches and the worst bound reading."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import kahan
+    from repro_torch.distributed import collectives, compression, sharding
+    from repro_torch.kernels import engine, ops
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import api
+    t0 = time.perf_counter()
+    mesh = lmesh.make_local_mesh()
+    marks = {"mesh": time.perf_counter()}
+    if dist.get_backend() != "nccl" or tuple(mesh.shape) != (1, 1):
+        fail(f"make_local_mesh: backend {dist.get_backend()}, shape "
+             f"{tuple(mesh.shape)}")
+    schema = api.schema(qwen)
+    g = torch.Generator(device=dev).manual_seed(SEED + 27)
+    tree = api.init_params(qwen, device=dev, seed=SEED + 27,
+                           hold_bf16=False)
+    leaves = kahan.tree_leaves(tree)
+    eps = 2.0 ** -24
+    ops.reset_launches()
+    stats = [collectives.pre_reduce_stats(x) for x in leaves]
+    torch.cuda.synchronize()
+    launched = ops.launches["fused_reduce"]
+    if launched != len(leaves):
+        fail(f"[dist] pre_reduce_stats: {launched} B2f launches for "
+             f"{len(leaves)} calls")
+    # the twin once per leaf shape, its leaves as rows (each row reduces
+    # on its own, in the order of a one-row call): 12 calls, not 267
+    twins = [None] * len(leaves)
+    by_shape: dict = {}
+    for i, x in enumerate(leaves):
+        by_shape.setdefault(tuple(x.shape), []).append(i)
+    for idx in by_shape.values():
+        tw = engine.fused_reduce_rows_plain(
+            (torch.stack([leaves[i].reshape(-1) for i in idx]),),
+            outputs=("sum", "sumsq", "maxabs"))
+        for j, i in enumerate(idx):
+            twins[i] = (tw[0][j], tw[1][j])
+        del tw
+    worst = 0.0
+    for x, st, twin in zip(leaves, stats, twins):
+        x64 = x.double().reshape(-1)
+        for name, got, tw, exact, terms in (
+                ("sum", st["sum"], twin[0], x64.sum(), x64.abs().sum()),
+                ("sumsq", st["l2"].double() ** 2, twin[1],
+                 (x64 * x64).sum(), (x64 * x64).sum())):
+            # the compensated fold: within 2 ulp of the exact sum plus
+            # O(eps^2 sum|x|); l2 adds its own square root's rounding
+            tol = (2 * eps * 2 * abs(float(exact))
+                   + 8 * eps ** 2 * float(terms))
+            if name == "sumsq":
+                tol += 4 * eps * float(exact)
+            for what, v in (("kernel", got), ("twin", tw)):
+                r = abs(float(v) - float(exact)) / max(tol, 1e-300)
+                worst = max(worst, r)
+                if r > 1:
+                    fail(f"[dist] pre_reduce_stats {name} ({what}) of a "
+                         f"{tuple(x.shape)} leaf: {r:.3g} x the bound")
+        if not torch.equal(st["maxabs"], x.abs().max()):
+            fail(f"[dist] pre_reduce_stats maxabs of a {tuple(x.shape)} "
+                 f"leaf")
+    marks["stats"] = time.perf_counter()
+    # n = 1: the compensated all-reduce is its input, on the path's group
+    group = mesh.get_group("data")
+    same = all(torch.equal(collectives.kahan_all_reduce(x, group), x)
+               for x in leaves)
+    for comp in (True, False):
+        red = collectives.make_all_reduce_fn(mesh, "data",
+                                             compensated=comp)(tree)
+        same = same and all(torch.equal(a, b) for a, b in zip(
+            kahan.tree_leaves(red), leaves))
+    if not same:
+        fail("[dist] the all-reduce at n = 1 is not its input")
+    marks["n = 1"] = time.perf_counter()
+    # EF int8 at n = 1: the card against the CPU over a gloo group
+    gloo = dist.new_group(backend="gloo")
+    grad = torch.randn(DIST_EF_ELEMS, generator=g, device=dev)
+    resid = 1e-3 * torch.randn(DIST_EF_ELEMS, generator=g, device=dev)
+    out_d, st_d = compression.ef_quantized_all_reduce(
+        grad, compression.EFState(resid), group)
+    out_c, st_c = compression.ef_quantized_all_reduce(
+        grad.cpu(), compression.EFState(resid.cpu()), gloo)
+    # The same ops in one order, but PyTorch on the card divides by a
+    # Python scalar as a product with its reciprocal: a block's scale
+    # amax / 127 is amax * (1 / 127) there, now and then an ulp off the
+    # CPU's. Every dequantized value of such a block moves by an ulp or
+    # two, and an element that sits at a rounding boundary of x / scale
+    # takes the neighbouring int8 code. So: each output within 2^-21 of
+    # its value or, for a changed code, one step of its block's scale;
+    # few codes changed (at most 2^-14 of the elements); output +
+    # residual (the input, which error feedback keeps) within 4 eps |x|.
+    from repro_torch.quant import core as qcore
+    x_c = grad.cpu() + resid.cpu()
+    step = qcore.quantize_blocks(x_c, qcore.INT8, compression.BLOCK)[1]
+    step = step.expand(-1, compression.BLOCK).reshape(-1)[:DIST_EF_ELEMS]
+    diff = (out_d.cpu() - out_c).abs()
+    flipped = diff > 0.5 * step
+    flips = int(flipped.sum())
+    moved = int((diff > 0).sum())
+    limit = torch.where(flipped, step * (1 + 2.0 ** -20),
+                        2.0 ** -21 * out_c.abs())
+    kept = ((out_d + st_d.residual).cpu() - (out_c + st_c.residual)).abs()
+    ef_same = torch.equal(out_d.cpu(), out_c) and torch.equal(
+        st_d.residual.cpu(), st_c.residual)
+    if not (bool((diff <= limit).all()) and flips <= DIST_EF_ELEMS >> 14
+            and bool((kept <= 4 * eps * x_c.abs() + 1e-30).all())):
+        fail(f"[dist] EF int8 all-reduce, card against CPU: {flips} codes "
+             f"changed (limit {DIST_EF_ELEMS >> 14}), {moved} values "
+             f"moved, max |diff| / limit "
+             f"{float((diff / (limit + 1e-30)).max()):.4g}, output + "
+             f"residual max |diff| {float(kept.max()):.3g}")
+    refused = ""
+    try:
+        compression.ef_quantized_all_reduce(grad, compression.EFState(resid),
+                                            gloo)
+        fail("[dist] a card tensor on a gloo group was not refused")
+    except RuntimeError as e:
+        refused = str(e)
+    marks["EF"] = time.perf_counter()
+    # a checkpoint restored onto the one-device mesh as DTensors
+    # the tree holds the layers one by one, the specs stacked [L, ...]:
+    # layer 0's leaves take their stack's spec less its "layers" entry
+    specs = dict(_flat_paths(sharding.param_specs(schema, mesh)))
+    part = {"final_norm.scale": tree["final_norm"]["scale"]}
+    shard = {"final_norm.scale": sharding.NamedSharding(
+        mesh, specs["final_norm/scale"])}
+    for k, v in list(_flat_paths(tree["layers"][0]))[:DIST_CKPT_LEAVES - 1]:
+        part[f"layer0.{k}".replace("/", ".")] = v
+        shard[f"layer0.{k}".replace("/", ".")] = sharding.NamedSharding(
+            mesh, specs[f"layers/{k}"][1:])
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as d:
+        mgr = CheckpointManager(d, async_save=False)
+        mgr.save(1, part, extra={"mesh": list(mesh.shape)})
+        back = mgr.restore(1, part, shard)
+    ck_same = all(hasattr(v, "to_local")
+                  and v.to_local().device == part[k].device
+                  and torch.equal(v.to_local(), part[k])
+                  for k, v in back.items())
+    if not ck_same:
+        fail("[dist] the checkpoint restored onto the (1, 1) mesh differs")
+    dist.destroy_process_group()
+    marks["checkpoint"] = time.perf_counter()
+    took, last = {}, t0
+    for k, t in marks.items():
+        took[k], last = round(t - last, 1), t
+    n_el = sum(x.numel() for x in leaves)
+    log(f"[dist] make_local_mesh on {torch.cuda.get_device_name(dev)}: "
+        f"(data, model) = (1, 1), one NCCL rank; pre_reduce_stats over "
+        f"{len(leaves)} leaves of qwen1.5-0.5b's f32 gradient shapes "
+        f"({n_el} elements): {launched} B2f launches, sum and l2 of kernel "
+        f"and twin within the compensated bound of f64 (worst {worst:.3g} "
+        f"of it), maxabs exact; kahan_all_reduce and make_all_reduce_fn "
+        f"(compensated, naive) at n = 1 bitwise their input; EF int8 on "
+        f"2^24 elements card vs CPU (gloo): bitwise {ef_same}; {moved} "
+        f"values moved (by 2^-21 of themselves at most), {flips} of them "
+        f"one int8 code apart (limit {DIST_EF_ELEMS >> 14}); output + "
+        f"residual within 4 eps |x|; the card "
+        f"tensor on the gloo group refused ({refused[:60]}...); "
+        f"{len(part)} leaves saved and restored onto the (1, 1) mesh as "
+        f"DTensors bitwise; {time.perf_counter() - t0:.1f} s (by part: "
+        f"{took})")
+    log("[dist] the multi-rank runs (two pods, the ring of eight, EF at "
+        "n = 4, GPipe at S = 4, the elastic re-mesh) are tier-1 CPU tests "
+        "over gloo (tests/test_torch_distributed.py): this machine has one "
+        "GPU, and NCCL takes one rank per device")
+    del tree, leaves, stats
+    torch.cuda.empty_cache()
+    return {"launches": launched, "worst": worst}
+
+
+def _flat_paths(tree, prefix=""):
+    """(path, leaf) pairs of a nested dict, in its order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat_paths(v, f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
 
 
 # every bf16 product shape of qwen1.5-0.5b and deepseek-v2-236b at full
@@ -4739,8 +4972,10 @@ def phase_train(dev, kind: str, qwen) -> dict:
 TRAIN_FAMILIES = (
     ("olmoe-1b-7b", dict(num_layers=2), 256),          # 2 of 16 layers
     ("deepseek-v2-236b", dict(num_layers=1), 256),     # its dense layer
-    ("zamba2-1.2b", dict(num_layers=14), 256),    # 2 segments + a tail
-    ("whisper-tiny", {}, 256),
+    ("zamba2-1.2b", dict(num_layers=8), 256),     # a segment + a tail of 2
+    # 2 + 2 of its 4 + 4 layers (a dict: fields of the config's
+    # ``encdec`` part)
+    ("whisper-tiny", dict(num_layers=2, encdec=dict(enc_layers=2)), 256),
     # 576 image patches prefix each sequence: 256 text tokens after them
     ("llava-next-mistral-7b", dict(num_layers=2), 576 + 256),
 )
@@ -5067,7 +5302,10 @@ def phase_train_families(dev, kind: str) -> tuple[dict, dict]:
     out = {}
     for arch, cut, seq in TRAIN_FAMILIES:
         t_start = time.perf_counter()
-        cfg = get_config(arch).with_(**cut)
+        cfg = get_config(arch)
+        cfg = cfg.with_(**{k: getattr(cfg, k)._replace(**v)
+                           if isinstance(v, dict) else v
+                           for k, v in cut.items()})
         kw = dict(TRAIN_KW, seq_len=seq)
         gc.collect()
         torch.cuda.empty_cache()
@@ -5155,9 +5393,9 @@ def phase_train_families(dev, kind: str) -> tuple[dict, dict]:
 
 
 SSM_ARCH = "mamba2-780m"
-# mamba2's depth in ``[ssm]``: a cut (full width, 24 of its 48 layers) so
-# the smoke run has room for [train-families] in its time
-SSM_LAYERS = 24
+# mamba2's depth in ``[ssm]``: a cut (full width, 12 of its 48 layers) so
+# the smoke run has room for [train-families] and [dist] in its time
+SSM_LAYERS = 12
 SSM_PREFILL_REPS = 2
 
 
@@ -5584,7 +5822,7 @@ def oneshot_profile(cfg, params, caches, tokens, want: int, what: str
     busy_ms = sum(_device_us(ev) for ev in kern) / 1e3 / n
     per_step = sum(ev.count for ev in kern) / n
     norm_ms = sum(_device_us(ev) for ev in kern
-                  if "row_norm_kernel" in ev.key) / 1e3 / n
+                  if "row_norm_" in ev.key) / 1e3 / n
     log(f"[oneshot] {what} decode window, {n} steps x {ONESHOT_BATCH} "
         f"sequences: wall {wall_ms:.3f} ms/step, device busy {busy_ms:.3f} "
         f"ms/step, device idle share {1 - busy_ms / wall_ms:.3f}, "
@@ -6284,6 +6522,14 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_cli(dev)
     wall["cli"] = time.perf_counter() - t0
+    # last: the one-rank NCCL group of the distributed layer. Its checks
+    # run ~15 s without a profiler window, and after such a gap every
+    # window of this card's profiler loses its first device events, NCCL
+    # or not (tools/profiler_losses.py, PERF.md section 7): a profiled
+    # phase must not follow a long unprofiled one
+    t0 = time.perf_counter()
+    dist_run = phase_dist(dev, qwen)
+    wall["dist"] = time.perf_counter() - t0
 
     def by_path(paths, name):
         return {k: v["launches"][name] for k, v in paths.items()}
@@ -6321,7 +6567,8 @@ def main() -> int:
               **{f"train {a}": r["launches"]["fused_reduce"]
                  for a, r in families.items()},
               "obs calibration": q_paths["qwen1.5-0.5b obs"][
-                  "calibration_launches"]["fused_reduce"]}
+                  "calibration_launches"]["fused_reduce"],
+              "dist pre_reduce_stats": dist_run["launches"]}
     kernels = [
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/csrc/paged_attention.cu",
@@ -6395,7 +6642,8 @@ def main() -> int:
              max_abs_err=norm["max_abs_err"],
              **{k: norm[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")},
-             prefill=norm["prefill"], layer_norm=norm["layer_norm"]),
+             prefill=norm["prefill"], layer_norm=norm["layer_norm"],
+             routes=norm["routes"]),
         dict(name="invariant_gemm", route="cuda",
              source="src/repro_torch/csrc/invariant_gemm.cu",
              replaces="src/repro/models/common.py:161",

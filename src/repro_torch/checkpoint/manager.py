@@ -15,9 +15,17 @@ Trees are nested dicts, lists and tuples (``NamedTuple`` states by field
 name); ``None`` holds no leaf, as in the reference. bf16 leaves, which
 numpy cannot hold, are stored as their uint16 bits under the dtype name
 ``bfloat16``. ``restore`` loads into the structure, devices and dtypes
-of a target tree. The reference's elastic restore onto another mesh
-(target shardings) is ``distributed/`` work, ROADMAP queue A item 14:
-every leaf here is whole on one device.
+of a target tree.
+
+  * **Elastic**: ``restore(..., shardings=)`` lays each leaf out on a
+    device mesh (a tree of ``distributed.sharding.NamedSharding``): a
+    checkpoint saved on one mesh restores onto another. Every rank reads
+    the whole leaf and keeps its own shard, so no rank sends a byte.
+  * In a process group every rank calls ``save`` (a DTensor leaf is
+    gathered whole first, a collective), global rank 0 writes at once
+    (never on a thread), and ``save`` returns on every rank after a
+    barrier, once the step is published: any rank's ``latest_step`` or
+    ``restore`` right after it sees the step whole.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.kahan import tree_unflatten
 
@@ -72,7 +81,10 @@ def _flatten_with_names(tree: Tree, prefix: str = "") -> list:
 def _to_host(leaf) -> tuple[np.ndarray, str]:
     """(numpy array, dtype name) of one leaf."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = leaf.detach()
+        if hasattr(t, "full_tensor"):             # a DTensor: gather it
+            t = t.full_tensor()
+        t = t.cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         arr = t.numpy()
@@ -100,12 +112,20 @@ class CheckpointManager:
 
     # ------------------------------------------------------------ save ----
 
-    def save(self, step: int, tree: Tree) -> None:
-        """Snapshot to host, then write (async by default)."""
+    def save(self, step: int, tree: Tree, *, extra: dict | None = None
+             ) -> None:
+        """Snapshot to host, then write: on a thread by default, at once
+        in a process group (see the module's docstring). ``extra`` goes
+        into the manifest as it is (JSON)."""
         host = [(n, *_to_host(v)) for n, v in _flatten_with_names(tree)]
+        in_group = dist.is_initialized()
+        if in_group and dist.get_rank() != 0:
+            dist.barrier()                   # until rank 0 has published
+            return
         manifest = {
             "step": int(step),
             "time": time.time(),
+            "extra": extra or {},
             "leaves": [
                 {"name": n, "file": f"{i:05d}_{_sanitize(n)[-80:]}.npy",
                  "shape": list(a.shape), "dtype": dt}
@@ -129,11 +149,15 @@ class CheckpointManager:
             self._gc()
 
         self.wait()                          # one save in flight at a time
-        if self.async_save:
+        if self.async_save and not in_group:
             self._thread = threading.Thread(target=_write, daemon=True)
             self._thread.start()
-        else:
+            return
+        try:
             _write()
+        finally:
+            if in_group:
+                dist.barrier()               # the step is published
 
     def wait(self) -> None:
         if self._thread is not None:
@@ -161,10 +185,16 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, target: Tree) -> Tree:
+    def restore(self, step: int, target: Tree, shardings: Tree = None
+                ) -> Tree:
         """Restore into the structure of ``target``: each leaf comes back
         as a tensor in the dtype it was saved in, on its target's device
-        (the CPU for a target leaf that is not a tensor)."""
+        (the CPU for a target leaf that is not a tensor). ``shardings``
+        (``target``'s structure, ``NamedSharding`` leaves) re-shards: a
+        leaf with a sharding comes back as a DTensor on its mesh's
+        device with its spec's placements, every rank holding its own
+        slice of the saved tensor. This is the elastic re-mesh path."""
+        by_shard = dict(_flatten_with_names(shardings))
         ckpt_dir = os.path.join(self.directory, f"step_{step}")
         with open(os.path.join(ckpt_dir, _MANIFEST)) as f:
             manifest = json.load(f)
@@ -179,5 +209,14 @@ class CheckpointManager:
             expect = tuple(getattr(tgt, "shape", arr.shape))
             if tuple(arr.shape) != expect:
                 raise ValueError(f"{name}: shape {arr.shape} != {expect}")
-            restored.append(_from_host(arr, entry["dtype"], tgt))
+            shd = by_shard.get(name)
+            if shd is None:
+                restored.append(_from_host(arr, entry["dtype"], tgt))
+                continue
+            from torch.distributed.tensor import distribute_tensor
+            full = _from_host(arr, entry["dtype"], None).to(
+                shd.mesh.device_type)
+            restored.append(distribute_tensor(full, shd.mesh,
+                                              shd.placements(),
+                                              src_data_rank=None))
         return tree_unflatten(target, restored)

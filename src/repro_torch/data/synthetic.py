@@ -7,9 +7,10 @@ arrays (the trainer moves them to its device). A vlm batch carries
 tokens (with zero loss weight on the P image positions), an audio batch
 ``frames`` [B, enc_seq, d_model]: the reference's bf16 draws, held as
 f32 numpy (bf16 values are exact in f32). ``kind="prefill"`` (any kind
-but "train") leaves out the labels and weights. The reference's
-abstract ``jax.ShapeDtypeStruct`` helpers (the dry-run's inputs) have no
-analog here.
+but "train") leaves out the labels and weights. ``train_batch_struct``,
+``prefill_batch_struct`` and ``decode_tokens_struct`` give the same
+structures as meta tensors (shapes and dtypes, no memory): the inputs
+that ``distributed.sharding.batch_shardings`` lays out.
 """
 
 from __future__ import annotations
@@ -26,6 +27,36 @@ def _text_len(cfg: ModelConfig, seq_len: int) -> int:
     if cfg.family == "vlm":
         return seq_len - cfg.vlm.num_patches
     return seq_len
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def train_batch_struct(cfg: ModelConfig, seq_len: int, batch: int) -> dict:
+    lt = _text_len(cfg, seq_len)
+    s: dict = {"tokens": _meta((batch, lt), torch.int32),
+               "labels": _meta((batch, seq_len), torch.int32),
+               "weights": _meta((batch, seq_len), torch.float32)}
+    if cfg.family == "vlm":
+        s["patch_embeds"] = _meta(
+            (batch, cfg.vlm.num_patches, cfg.vlm.vision_dim), torch.bfloat16)
+    if cfg.family == "audio":
+        s["frames"] = _meta((batch, cfg.encdec.enc_seq, cfg.d_model),
+                            torch.bfloat16)
+    return s
+
+
+def prefill_batch_struct(cfg: ModelConfig, seq_len: int, batch: int
+                         ) -> dict:
+    s = train_batch_struct(cfg, seq_len, batch)
+    s.pop("labels")
+    s.pop("weights")
+    return s
+
+
+def decode_tokens_struct(batch: int) -> torch.Tensor:
+    return _meta((batch, 1), torch.int32)
 
 
 def _bf16_exact(rng, shape) -> np.ndarray:

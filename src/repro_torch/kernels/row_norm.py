@@ -8,11 +8,13 @@ the reference's ``repro.models.common`` norms do.
   the port ran before: torch's row mean, whose sum order on the card
   depends on the number of rows.
 * ``row_norm_cuda`` launches ``csrc/row_norm.cu``, one kernel per call:
-  one CTA per row, each row's sums in one fixed order that depends on d
-  alone, so a row's output is bitwise the same at any number of rows M,
-  in any place of the batch. It agrees with the plain twin to the f32
-  rounding of a d-term sum (and one bf16 step where that rounding
-  crosses a bf16 boundary), not bitwise.
+  each row's sums in one fixed order that depends on d alone, so a row's
+  output is bitwise the same at any number of rows M, in any place of
+  the batch. Two routes walk that order (``plan``): a warp per row, four
+  rows a CTA, for d up to 1024; a group of threads per row, two rows a
+  CTA, beyond. It agrees with the plain twin to the f32 rounding of a
+  d-term sum (and one bf16 step where that rounding crosses a bf16
+  boundary), not bitwise.
 
 ``models.common.rms_norm`` / ``layer_norm`` dispatch here: the kernel for
 a CUDA tensor when autograd records nothing for the call, the plain twin
@@ -29,6 +31,7 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_WIDTH = 8192      # d: 32 values a thread in registers, 256 threads
+ROUTES = {"narrow": 1, "wide": 2}   # the C library's route codes
 
 
 def _lib():
@@ -39,6 +42,11 @@ def _lib():
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.repro_row_norm_max_rows.argtypes = [ctypes.c_int] * 2
+        lib.repro_row_norm_max_rows.restype = ctypes.c_int
+        lib.repro_row_norm_plan.argtypes = [ctypes.c_int] + [
+            ctypes.POINTER(ctypes.c_int)] * 3
+        lib.repro_row_norm_plan.restype = ctypes.c_int
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -73,13 +81,33 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def plan(d: int) -> dict:
+    """The kernel's route for rows of width ``d`` (a function of d
+    alone): ``route`` "narrow" (one warp per row) or "wide" (``threads``
+    threads per row), ``rows`` rows a CTA, ``threads``, the virtual
+    threads whose order both routes walk, and ``max_rows``, the most
+    rows per CTA the C entry ``repro_row_norm_ex`` takes on each route
+    when one is forced (0: the route cannot run d). Builds the library;
+    every number comes from it."""
+    lib = _lib()
+    out = [ctypes.c_int() for _ in range(3)]
+    if lib.repro_row_norm_plan(d, *(ctypes.byref(v) for v in out)):
+        raise ValueError(f"row norm: no plan for d={d} "
+                         f"(d from 1 to {MAX_WIDTH})")
+    route, rows, threads = (v.value for v in out)
+    return {"route": "narrow" if route == ROUTES["narrow"] else "wide",
+            "rows": rows, "threads": threads,
+            "max_rows": {name: lib.repro_row_norm_max_rows(d, code)
+                         for name, code in ROUTES.items()}}
+
+
 def row_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
                   bias: torch.Tensor | None = None, *,
                   eps: float) -> torch.Tensor:
     """Launch ``csrc/row_norm.cu``: the RMS norm (``bias`` None) or the
     layer norm of every row of ``x`` [..., d], bf16 or f32 on the card,
-    with f32 ``weight`` (and ``bias``) [d]. Returns a new tensor of x's
-    shape and dtype."""
+    with f32 ``weight`` (and ``bias``) [d], on the route ``plan`` picks.
+    Returns a new tensor of x's shape and dtype."""
     d = x.shape[-1]
     params = (weight,) if bias is None else (weight, bias)
     if not (x.is_cuda and all(p.is_cuda and p.device == x.device

@@ -52,15 +52,26 @@ class AttnConfig(NamedTuple):
 
 def gqa_schema(d_model: int, cfg: AttnConfig) -> dict:
     h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    s = {"wq": ParamSpec((d_model, h * dh), init="fan_in"),
-         "wk": ParamSpec((d_model, kv * dh), init="fan_in"),
-         "wv": ParamSpec((d_model, kv * dh), init="fan_in"),
-         "wo": ParamSpec((h * dh, d_model), init="fan_in")}
+    s = {"wq": ParamSpec((d_model, h * dh), ("embed", "q_heads"),
+                         init="fan_in"),
+         "wk": ParamSpec((d_model, kv * dh), ("embed", "kv_heads"),
+                         init="fan_in"),
+         "wv": ParamSpec((d_model, kv * dh), ("embed", "kv_heads"),
+                         init="fan_in"),
+         "wo": ParamSpec((h * dh, d_model), ("q_heads", "embed"),
+                         init="fan_in")}
     if cfg.qkv_bias:
-        s["bq"] = ParamSpec((h * dh,), init="zeros")
-        s["bk"] = ParamSpec((kv * dh,), init="zeros")
-        s["bv"] = ParamSpec((kv * dh,), init="zeros")
+        s["bq"] = ParamSpec((h * dh,), ("q_heads",), init="zeros")
+        s["bk"] = ParamSpec((kv * dh,), ("kv_heads",), init="zeros")
+        s["bv"] = ParamSpec((kv * dh,), ("kv_heads",), init="zeros")
     return s
+
+
+def _shard_blhd(x: torch.Tensor) -> torch.Tensor:
+    """[B, L, H, D] activations: batch over (pod, data), heads over model
+    (``distributed.sharding.shard_act``: x itself outside a mesh)."""
+    from repro_torch.distributed.sharding import shard_act
+    return shard_act(x, "act_batch", "act_seq", "act_heads", None)
 
 
 def _project_qkv(p: dict, x: torch.Tensor, cfg: AttnConfig,
@@ -77,7 +88,7 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: AttnConfig,
                               rotary_dim=rd).transpose(1, 2)
         k = common.apply_rope(k.transpose(1, 2), pos, theta=cfg.rope_theta,
                               rotary_dim=rd).transpose(1, 2)
-    return q, k, v
+    return _shard_blhd(q), _shard_blhd(k), _shard_blhd(v)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -105,8 +116,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               and invariant_gemm.use_kernel(q, k, v))
     if hkv < hq:
         groups = hq // hkv
-        k = torch.repeat_interleave(k, groups, dim=2)
-        v = torch.repeat_interleave(v, groups, dim=2)
+        k = _shard_blhd(torch.repeat_interleave(k, groups, dim=2))
+        v = _shard_blhd(torch.repeat_interleave(v, groups, dim=2))
         hkv = hq
     groups = hq // hkv
     scale = d ** -0.5
@@ -126,11 +137,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
     lq, lk = lq_orig + pad_q, lk_orig + pad_k
     nq, nk = lq // qc, lk // kc
-    # [B, Hkv, G, nq, qc, D] / [B, Hkv, Lk, D]
-    qg = (q.reshape(b, lq, hkv, groups, d).permute(0, 2, 3, 1, 4)
-          .reshape(b, hkv, groups, nq, qc, d))
-    kt = k.permute(0, 2, 1, 3).to(torch.float32)
-    vt = v.permute(0, 2, 1, 3)
+    from repro_torch.distributed.sharding import shard_act
+    # [B, Hkv, G, Lq, D] / [B, Hkv, Lk, D]
+    qg = shard_act(q.reshape(b, lq, hkv, groups, d).permute(0, 2, 3, 1, 4),
+                   "act_batch", "act_heads", None, "act_seq", None)
+    kt = shard_act(k.permute(0, 2, 1, 3),
+                   "act_batch", "act_heads", "act_seq", None)
+    vt = shard_act(v.permute(0, 2, 1, 3),
+                   "act_batch", "act_heads", "act_seq", None)
+    qg = qg.reshape(b, hkv, groups, nq, qc, d)
+    kt = kt.to(torch.float32)
     q_offset = torch.as_tensor(q_offset, device=dev)
     if kv_len is not None:
         kv_len = torch.as_tensor(kv_len, device=dev)

@@ -25,7 +25,9 @@ def stack_schema(schema: dict, n: int) -> dict:
     out = {}
     for k, v in schema.items():
         if isinstance(v, ParamSpec):
-            out[k] = dataclasses.replace(v, shape=(n,) + v.shape)
+            out[k] = dataclasses.replace(
+                v, shape=(n,) + v.shape,
+                logical_axes=("layers",) + v.logical_axes)
         else:
             out[k] = stack_schema(v, n)
     return out

@@ -35,8 +35,11 @@ from repro_torch.kernels.row_norm import layer_norm, rms_norm  # noqa: F401
 
 @dataclass(frozen=True)
 class ParamSpec:
-    """Declaration of one parameter tensor."""
+    """Declaration of one parameter tensor: its shape, the *logical* axis
+    of each dimension (mapped to mesh axes by
+    ``repro_torch.distributed.sharding``), its initializer."""
     shape: tuple[int, ...]
+    logical_axes: tuple[str | None, ...] = ()
     init: str = "normal"          # normal | zeros | ones | fan_in
     scale: float = 0.02
     dtype: torch.dtype = torch.float32
@@ -55,6 +58,34 @@ def _flatten_schema(schema: dict, prefix: str = "") -> list:
         else:
             out.extend(_flatten_schema(v, prefix=path + "/"))
     return out
+
+
+def _unflatten(flat: dict) -> dict:
+    tree: dict = {}
+    for path, v in flat.items():
+        parts = path.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def abstract_params(schema: dict) -> dict:
+    """The parameter tree as meta tensors: each leaf's shape and dtype,
+    no memory (the reference's ``ShapeDtypeStruct`` tree)."""
+    return _unflatten({p: torch.empty(s.shape, dtype=s.dtype, device="meta")
+                       for p, s in _flatten_schema(schema)})
+
+
+def logical_axes_tree(schema: dict) -> dict:
+    """A tree of the parameters' structure holding each leaf's tuple of
+    logical axes."""
+    return _unflatten({p: s.logical_axes for p, s in _flatten_schema(schema)})
+
+
+def count_params(schema: dict) -> int:
+    return sum(math.prod(s.shape) for _, s in _flatten_schema(schema))
 
 
 def _init_leaf(spec: ParamSpec, generator: torch.Generator,
@@ -100,17 +131,13 @@ def init_params(schema: dict, generator: torch.Generator,
     ``hold_bf16`` rounds each ``BF16_WEIGHTS`` leaf (not ``keep_f32``)
     to bf16 as it is drawn (the draws do not change), so the f32 tree
     never exists whole."""
-    tree: dict = {}
+    flat = {}
     for path, spec in _flatten_schema(schema):
-        node = tree
-        parts = path.split("/")
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
         leaf = _init_leaf(spec, generator, device)
-        if hold_bf16 and _held_bf16(parts[-1], spec):
+        if hold_bf16 and _held_bf16(path.rsplit("/", 1)[-1], spec):
             leaf = leaf.to(torch.bfloat16)
-        node[parts[-1]] = leaf
-    return tree
+        flat[path] = leaf
+    return _unflatten(flat)
 
 
 def hold_weights_bf16(tree: dict, schema: dict | None = None) -> dict:
@@ -139,9 +166,9 @@ def apply_norm(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
 
 def norm_schema(d: int, kind: str = "rmsnorm") -> dict:
     if kind == "layernorm":
-        return {"scale": ParamSpec((d,), init="ones"),
-                "bias": ParamSpec((d,), init="zeros")}
-    return {"scale": ParamSpec((d,), init="ones")}
+        return {"scale": ParamSpec((d,), ("embed",), init="ones"),
+                "bias": ParamSpec((d,), ("embed",), init="zeros")}
+    return {"scale": ParamSpec((d,), ("embed",), init="ones")}
 
 
 def rope_frequencies(head_dim: int, theta: float,
@@ -194,6 +221,9 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     else:
         y = torch.matmul(x.to(compute_dtype).to(torch.float32),
                          w.to(compute_dtype).to(torch.float32))
+    if type(y) is not torch.Tensor:        # a DTensor: sum partials in f32
+        from repro_torch.distributed.sharding import reduce_partial
+        y = reduce_partial(y)
     if b is not None:
         y = y + b.to(torch.float32)
     return y.to(compute_dtype)

@@ -59,8 +59,9 @@ def encdec_schema(cfg: ModelConfig, max_dec_positions: int) -> dict:
     return {
         "enc_layers": stack_schema(enc_block, cfg.encdec.enc_layers),
         "enc_norm": common.norm_schema(cfg.d_model, cfg.norm),
-        "embed": ParamSpec((cfg.vocab_size, cfg.d_model)),
-        "pos_embed": ParamSpec((max_dec_positions, cfg.d_model)),
+        "embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed")),
+        "pos_embed": ParamSpec((max_dec_positions, cfg.d_model),
+                               (None, "embed")),
         "dec_layers": stack_schema(dec_block, cfg.num_layers),
         "dec_norm": common.norm_schema(cfg.d_model, cfg.norm),
     }

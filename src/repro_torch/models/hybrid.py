@@ -67,9 +67,10 @@ def hybrid_schema(cfg: ModelConfig) -> dict:
         shared_attn[name] = dataclasses.replace(shared_attn[name],
                                                 keep_f32=True)
     s: dict = {
-        "embed": ParamSpec((cfg.vocab_size, cfg.d_model)),
+        "embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed")),
         "final_norm": common.norm_schema(cfg.d_model, cfg.norm),
-        "lm_head": ParamSpec((cfg.d_model, cfg.vocab_size), init="fan_in"),
+        "lm_head": ParamSpec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"),
+                             init="fan_in"),
         "mamba_blocks": stack_schema(mamba_block, n_seg * seg),
         "shared": {
             "ln_attn": common.norm_schema(cfg.d_model, cfg.norm),
@@ -78,12 +79,18 @@ def hybrid_schema(cfg: ModelConfig) -> dict:
             "ffn": mlp.mlp_schema(cfg.d_model, hy.shared_d_ff, act=cfg.act),
         },
         "lora": {
-            "a_q": ParamSpec((n_seg, cfg.d_model, r), init="fan_in"),
-            "b_q": ParamSpec((n_seg, r, qkv_out), init="zeros"),
-            "a_k": ParamSpec((n_seg, cfg.d_model, r), init="fan_in"),
-            "b_k": ParamSpec((n_seg, r, kv_out), init="zeros"),
-            "a_v": ParamSpec((n_seg, cfg.d_model, r), init="fan_in"),
-            "b_v": ParamSpec((n_seg, r, kv_out), init="zeros"),
+            "a_q": ParamSpec((n_seg, cfg.d_model, r), ("layers", "embed", None),
+                             init="fan_in"),
+            "b_q": ParamSpec((n_seg, r, qkv_out), ("layers", None, "q_heads"),
+                             init="zeros"),
+            "a_k": ParamSpec((n_seg, cfg.d_model, r), ("layers", "embed", None),
+                             init="fan_in"),
+            "b_k": ParamSpec((n_seg, r, kv_out), ("layers", None, "kv_heads"),
+                             init="zeros"),
+            "a_v": ParamSpec((n_seg, cfg.d_model, r), ("layers", "embed", None),
+                             init="fan_in"),
+            "b_v": ParamSpec((n_seg, r, kv_out), ("layers", None, "kv_heads"),
+                             init="zeros"),
         },
     }
     if tail:

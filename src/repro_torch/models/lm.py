@@ -43,7 +43,8 @@ STACKS = ("dense_layers", "layers", "mamba_blocks", "mamba_tail",
 
 def lm_schema(cfg: ModelConfig) -> dict:
     """The reference's schema: stack leaves are [L_stack, ...]."""
-    s = {"embed": ParamSpec((cfg.vocab_size, cfg.d_model), init="normal"),
+    s = {"embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                           init="normal"),
          "final_norm": common.norm_schema(cfg.d_model, cfg.norm)}
     if cfg.first_k_dense:
         s["dense_layers"] = stack_schema(
@@ -52,12 +53,13 @@ def lm_schema(cfg: ModelConfig) -> dict:
                                cfg.num_layers - cfg.first_k_dense)
     if not cfg.tie_embeddings:
         s["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
-                                 init="fan_in")
+                                 ("embed", "vocab"), init="fan_in")
     if cfg.vlm is not None:
         s["vision_proj"] = {
             "w1": ParamSpec((cfg.vlm.vision_dim, cfg.d_model),
+                            (None, "embed"), init="fan_in"),
+            "w2": ParamSpec((cfg.d_model, cfg.d_model), ("embed", "embed_out"),
                             init="fan_in"),
-            "w2": ParamSpec((cfg.d_model, cfg.d_model), init="fan_in"),
         }
     return s
 

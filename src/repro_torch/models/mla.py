@@ -63,15 +63,19 @@ def mla_schema(d_model: int, cfg: MLAConfig) -> dict:
     h = cfg.num_heads
     qk = cfg.nope_dim + cfg.rope_dim
     return {
-        "wq_a": ParamSpec((d_model, cfg.q_lora), init="fan_in"),
-        "q_norm": ParamSpec((cfg.q_lora,), init="ones"),
-        "wq_b": ParamSpec((cfg.q_lora, h * qk), init="fan_in"),
+        "wq_a": ParamSpec((d_model, cfg.q_lora), ("embed", None), init="fan_in"),
+        "q_norm": ParamSpec((cfg.q_lora,), (None,), init="ones"),
+        "wq_b": ParamSpec((cfg.q_lora, h * qk), (None, "q_heads"),
+                          init="fan_in"),
         "wkv_a": ParamSpec((d_model, cfg.kv_lora + cfg.rope_dim),
-                           init="fan_in"),
-        "kv_norm": ParamSpec((cfg.kv_lora,), init="ones"),
-        "wk_b": ParamSpec((cfg.kv_lora, h * cfg.nope_dim), init="fan_in"),
-        "wv_b": ParamSpec((cfg.kv_lora, h * cfg.v_dim), init="fan_in"),
-        "wo": ParamSpec((h * cfg.v_dim, d_model), init="fan_in"),
+                           ("embed", None), init="fan_in"),
+        "kv_norm": ParamSpec((cfg.kv_lora,), (None,), init="ones"),
+        "wk_b": ParamSpec((cfg.kv_lora, h * cfg.nope_dim), (None, "q_heads"),
+                          init="fan_in"),
+        "wv_b": ParamSpec((cfg.kv_lora, h * cfg.v_dim), (None, "q_heads"),
+                          init="fan_in"),
+        "wo": ParamSpec((h * cfg.v_dim, d_model), ("q_heads", "embed"),
+                        init="fan_in"),
     }
 
 
@@ -196,6 +200,11 @@ def mla_decode(p: dict, x: torch.Tensor, cfg: MLAConfig, cache: dict
     return common.dense(ctx.reshape(b, 1, -1).to(x.dtype), p["wo"])
 
 
+def _shard(x: torch.Tensor) -> torch.Tensor:
+    from repro_torch.distributed.sharding import shard_act
+    return shard_act(x, "act_batch", "act_seq", "act_heads", None)
+
+
 def mla_forward(p: dict, x: torch.Tensor, cfg: MLAConfig, *,
                 positions: torch.Tensor | None = None) -> torch.Tensor:
     """Training form, x [B, L, d] -> [B, L, d]: per-head K/V materialized
@@ -212,6 +221,7 @@ def mla_forward(p: dict, x: torch.Tensor, cfg: MLAConfig, *,
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None].expand(b, l, h, cfg.rope_dim)],
                   dim=-1)
+    q, k, v = (_shard(q), _shard(k), _shard(v))
     out = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
                           kv_chunk=cfg.kv_chunk)
     return common.dense(out.reshape(b, l, -1), p["wo"])
@@ -244,6 +254,7 @@ def mla_prefill(p: dict, x: torch.Tensor, cfg: MLAConfig,
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None].expand(b, l, h, cfg.rope_dim)],
                   dim=-1)
+    q, k, v = (_shard(q), _shard(k), _shard(v))
     out = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
                           kv_chunk=cfg.kv_chunk)
     cache = {"c_kv": paged.pool_from_rows(c_kv_store, layout),

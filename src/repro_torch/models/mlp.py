@@ -13,13 +13,16 @@ def mlp_schema(d_model: int, d_ff: int, act: str = "swiglu") -> dict:
     if act == "swiglu":
         return {
             # fused gate+up: one matmul, split on the hidden axis
-            "w_gate_up": ParamSpec((d_model, 2 * d_ff), init="fan_in"),
-            "w_down": ParamSpec((d_ff, d_model), init="fan_in"),
+            "w_gate_up": ParamSpec((d_model, 2 * d_ff), ("embed", "mlp"),
+                                   init="fan_in"),
+            "w_down": ParamSpec((d_ff, d_model), ("mlp", "embed"),
+                                init="fan_in"),
         }
-    return {"w_up": ParamSpec((d_model, d_ff), init="fan_in"),
-            "b_up": ParamSpec((d_ff,), init="zeros"),
-            "w_down": ParamSpec((d_ff, d_model), init="fan_in"),
-            "b_down": ParamSpec((d_model,), init="zeros")}
+    return {"w_up": ParamSpec((d_model, d_ff), ("embed", "mlp"), init="fan_in"),
+            "b_up": ParamSpec((d_ff,), ("mlp",), init="zeros"),
+            "w_down": ParamSpec((d_ff, d_model), ("mlp", "embed"),
+                                init="fan_in"),
+            "b_down": ParamSpec((d_model,), ("embed",), init="zeros")}
 
 
 def mlp_forward(p: dict, x: torch.Tensor, act: str = "swiglu"

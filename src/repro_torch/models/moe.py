@@ -49,9 +49,11 @@ class MoEConfig(NamedTuple):
 
 def moe_schema(d_model: int, cfg: MoEConfig) -> dict:
     e, ff = cfg.num_experts, cfg.d_ff
-    s = {"router": ParamSpec((d_model, e), init="fan_in"),
-         "w_gate_up": ParamSpec((e, d_model, 2 * ff), init="fan_in"),
-         "w_down": ParamSpec((e, ff, d_model), init="fan_in")}
+    s = {"router": ParamSpec((d_model, e), ("embed", None), init="fan_in"),
+         "w_gate_up": ParamSpec((e, d_model, 2 * ff),
+                               ("experts", "embed", "mlp"), init="fan_in"),
+         "w_down": ParamSpec((e, ff, d_model),
+                            ("experts", "mlp", "embed"), init="fan_in")}
     if cfg.num_shared:
         s["shared"] = mlp_schema(d_model, cfg.num_shared * ff)
     return s

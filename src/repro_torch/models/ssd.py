@@ -58,14 +58,15 @@ def mamba2_schema(d_model: int, cfg: SSMConfig) -> dict:
     di, n, h = cfg.d_inner, cfg.state_dim, cfg.num_heads
     in_dim = 2 * di + 2 * n + h          # z, x, B, C, dt
     return {
-        "in_proj": ParamSpec((d_model, in_dim), init="fan_in"),
-        "conv_w": ParamSpec((cfg.conv_width, cfg.conv_dim), init="fan_in"),
-        "conv_b": ParamSpec((cfg.conv_dim,), init="zeros"),
-        "A_log": ParamSpec((h,), init="zeros"),     # A = -exp(A_log)
-        "D": ParamSpec((h,), init="ones"),
-        "dt_bias": ParamSpec((h,), init="zeros"),
-        "norm": ParamSpec((di,), init="ones"),
-        "out_proj": ParamSpec((di, d_model), init="fan_in"),
+        "in_proj": ParamSpec((d_model, in_dim), ("embed", "mlp"), init="fan_in"),
+        "conv_w": ParamSpec((cfg.conv_width, cfg.conv_dim), (None, "mlp"),
+                            init="fan_in"),
+        "conv_b": ParamSpec((cfg.conv_dim,), ("mlp",), init="zeros"),
+        "A_log": ParamSpec((h,), (None,), init="zeros"),     # A = -exp(A_log)
+        "D": ParamSpec((h,), (None,), init="ones"),
+        "dt_bias": ParamSpec((h,), (None,), init="zeros"),
+        "norm": ParamSpec((di,), ("mlp",), init="ones"),
+        "out_proj": ParamSpec((di, d_model), ("mlp", "embed"), init="fan_in"),
     }
 
 
@@ -171,6 +172,8 @@ def _mixer_scan(p: dict, z, xbc, dt, cfg: SSMConfig,
     di, n, h = cfg.d_inner, cfg.state_dim, cfg.num_heads
     x, bmat, cmat = torch.split(xbc, [di, n, n], dim=-1)
     x = x.reshape(b, l, h, cfg.head_dim)
+    from repro_torch.distributed.sharding import shard_act
+    x = shard_act(x, "act_batch", "act_seq", "act_heads", None)
     dt = _softplus(dt.to(torch.float32) + p["dt_bias"])        # [B,L,H]
     a = -torch.exp(p["A_log"].to(torch.float32))               # [H]
     y, state = _ssd_chunk_scan(x, dt, dt * a, bmat, cmat,

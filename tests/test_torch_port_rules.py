@@ -121,3 +121,25 @@ def test_kernel_entry_points_launch_nothing_on_the_cpu():
     q = torch.ones(2, 5, 8)
     tker.flash_attention(q, q, q)
     assert ops.launches == before
+
+
+def test_distributed_entry_points_default_to_the_gpu():
+    """The meshes of ``launch.mesh`` take the card (NCCL) unless the
+    caller asks for the CPU (gloo); without a GPU they raise before any
+    process group exists. ``pre_reduce_stats`` launches nothing on a CPU
+    tensor."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import mesh as lmesh
+    assert lmesh.backend_for(torch.device("cuda")) == "nccl"
+    assert lmesh.backend_for(torch.device("cpu")) == "gloo"
+    if not torch.cuda.is_available():
+        for build in (lmesh.make_local_mesh, lmesh.make_test_mesh,
+                      lmesh.make_production_mesh):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                build()
+        assert not dist.is_initialized()
+    before = dict(tker.ops.launches)
+    st = collectives.pre_reduce_stats(torch.arange(8.0))
+    assert float(st["sum"]) == 28.0 and float(st["maxabs"]) == 7.0
+    assert tker.ops.launches == before

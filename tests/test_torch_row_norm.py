@@ -134,3 +134,40 @@ def test_kernel_on_card_rows_do_not_depend_on_m():
         common.rms_norm(tx[:8], tw)
     y = common.rms_norm(tx[:8], tw.clone().requires_grad_(True))
     assert y.requires_grad and _build.launches["row_norm"] == 1
+
+
+def test_kernel_on_card_routes_give_the_same_bits():
+    """Every route and rows per CTA the kernel's C entry
+    ``repro_row_norm_ex`` takes at a width (the limits ``plan`` reads
+    from the library) gives the bits of ``row_norm_cuda``, the route
+    ``plan`` picks (one sum order, set by d); a count past a route's
+    limit is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "norm_parent_bits", os.path.join(os.path.dirname(__file__), "..",
+                                         "tools", "norm_parent_bits.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    dev = torch.device("cuda")
+    for d in (64, 384, 1000, 1024, 2048, 5120):
+        x, w, b = _case(67, d, seed=d + 1)
+        tx = torch.from_numpy(x).to(dev)
+        tw, tb = torch.from_numpy(w).to(dev), torch.from_numpy(b).to(dev)
+        forms = tool.variants(d)[1:]
+        limits = rn.plan(d)["max_rows"]
+        assert limits["wide"] <= 15 and (d > 1024 or limits["narrow"] == 8)
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = tx.to(dtype)
+            for bias, eps in ((None, 1e-6), (tb, 1e-5)):
+                want = rn.row_norm_cuda(xd, tw, bias, eps=eps)
+                for form in forms:
+                    assert torch.equal(
+                        tool.forced_norm(xd, tw, bias, eps, **form),
+                        want), (d, dtype, bias is None, form)
+        for route, most in limits.items():
+            with pytest.raises(RuntimeError):
+                tool.forced_norm(tx, tw, tb, 1e-5, route=route,
+                                 rows=most + 1)
