@@ -121,7 +121,7 @@ Phases (each prints its own lines; any failure exits non-zero):
              self-draft spec_k 3) with every request sampled, each run
              twice and bitwise the same, with the host time of
              ``rejection_sample`` and of drafting per step (these two at
-             ``REPEAT_LAYERS`` = 8 of the 24 layers, full width);
+             ``REPEAT_LAYERS`` = 6 of the 24 layers, full width);
 12. faults — a ``FailoverServer`` over a bf16 ``DecodeEngine`` with
              ``alloc_fail``, ``kv_corrupt`` and ``logit_nan`` at fixed
              steps, a deadline and a cancellation, run twice with one
@@ -242,8 +242,22 @@ Phases (each prints its own lines; any failure exits non-zero):
              onto the (1, 1) mesh as DTensors, bitwise. The multi-rank
              runs are tier-1 CPU tests (``tests/test_torch_distributed.py``,
              gloo): the machine has one GPU, and NCCL takes one rank per
-             device. Last, so that nothing after it runs beside the
-             NCCL group's aftermath.
+             device. After it only ``[dryrun]``, which profiles
+             nothing.
+23. dryrun — ``launch.dryrun`` (PR 28): its CLI on deepseek-v2-236b x
+             decode_32k x 16x16 (full width and depth, a 256-rank fake
+             group): exit 0, positive flops, bytes and collective
+             bytes. ``tools/dryrun_predict.py`` dry-runs qwen1.5-0.5b's
+             serve step (8 slots, context 1024) and Kahan AdamW train
+             step (f32, 2 x 256 tokens) on a (1, 1) mesh; the phase
+             runs both for real: argument bytes equal, peak temporaries
+             within ``DRYRUN_PEAK_RTOL`` / ``DRYRUN_PEAK_ATOL``, step ms
+             printed beside the roofline's bound. Control: the row
+             norm's fake one row short must fail the trace. Both
+             subprocesses see no card and start after ``[cli]``, at the
+             lowest priority, beside ``[dist]`` (which times nothing);
+             ``[dryrun]`` waits for them before it times its steps, so
+             no timed or profiled phase shares the host with them.
 
 Every serve path also holds the serving head's launches to its calls
 (one per prefill chunk, decode step, verify window and draft step), the
@@ -3790,7 +3804,7 @@ SYS_TOKENS = 256                    # one prefill chunk: 16 blocks
 # layers of the qwen1.5 repeats (sampled speculation, prefix, spill): a
 # cut of depth, full width, so the smoke run has room for
 # [train-families] in its time
-REPEAT_LAYERS = 8
+REPEAT_LAYERS = 6
 SERVE_KW = dict(max_slots=8, max_context=1024, block_size=16,
                 prefill_chunk=256)
 
@@ -5395,7 +5409,7 @@ def phase_train_families(dev, kind: str) -> tuple[dict, dict]:
 SSM_ARCH = "mamba2-780m"
 # mamba2's depth in ``[ssm]``: a cut (full width, 12 of its 48 layers) so
 # the smoke run has room for [train-families] and [dist] in its time
-SSM_LAYERS = 12
+SSM_LAYERS = 8
 SSM_PREFILL_REPS = 2
 
 
@@ -6320,6 +6334,199 @@ def report_c1(q_paths: dict, d_paths: dict) -> None:
         f"2947), tok/s {q['tok_s']:.3f}")
 
 
+# ------------------------------------------------------------ [dryrun] ---
+
+# the production cell run through the dry run's CLI: full width and
+# depth, MoE's expert site, MLA decode on B3's fake, the 16 x 16 mesh
+DRYRUN_CELL = ("deepseek-v2-236b", "decode_32k")
+DRYRUN_TIMEOUT_S = 240
+# predicted peak temporaries against the card's (max_memory_allocated
+# over the step, above what the arguments left allocated): slack for the
+# caching allocator's rounding (512-byte blocks) and the library
+# workspaces of the train step's cuBLAS products, which the trace does
+# not see. Measured on an NVIDIA H100 80GB HBM3 at 700 W (PR 28, chip
+# call 2): serve 4 878 336 B predicted and held, train 10 546 491 436
+# predicted and 10 562 226 176 held (+15.7 MB, 0.15%)
+DRYRUN_PEAK_RTOL = 0.01
+DRYRUN_PEAK_ATOL = 64 << 20
+
+
+def dryrun_start() -> dict:
+    """Start ``[dryrun]``'s two subprocesses (they trace on the CPU, with
+    no card visible, at the lowest scheduling priority, beside ``[dist]``
+    alone): the dry run's CLI on ``DRYRUN_CELL`` and
+    ``tools/dryrun_predict.py`` (the qwen1.5 serve and train steps
+    ``phase_dryrun`` runs for real, and the perturbed fake that must
+    fail). Fake groups live in those processes only, away from
+    ``[dist]``'s NCCL group."""
+    import os
+    out = HERE / "chiprun_out" / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(HERE / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    arch, shape = DRYRUN_CELL
+    kw = dict(cwd=HERE, env=env, stdout=subprocess.PIPE,
+              stderr=subprocess.STDOUT, text=True,
+              preexec_fn=lambda: os.nice(19))
+    return dict(
+        t0=time.perf_counter(), out=out,
+        cli=subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out", str(out)],
+            **kw),
+        predict=subprocess.Popen(
+            [sys.executable, str(HERE / "tools" / "dryrun_predict.py"),
+             "--control", "--out", str(out / "predict.json")], **kw))
+
+
+def _storage_bytes(tree) -> int:
+    """Bytes of the distinct storages behind a tree's tensors (per-layer
+    views of a stacked leaf count once)."""
+    import torch
+    from repro_torch.core.kahan import tree_leaves
+    seen = {}
+    for t in tree_leaves(tree):
+        if isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def _measured_step(fn, args_bytes, reps: int = 3):
+    """(peak bytes over the step above what was allocated before it,
+    median device ms by CUDA events) of ``fn()``, after one warm call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        ms.append(s.elapsed_time(e))
+    return peak, statistics.median(ms)
+
+
+def phase_dryrun(dev, qwen, procs: dict) -> dict:
+    """``launch.dryrun`` against the card. (1) The CLI on ``DRYRUN_CELL``
+    (a 256-rank fake group, full width and depth) exits 0 with positive
+    flops, bytes and collective bytes. (2) qwen1.5's serve step (8
+    slots, context 1024, blocks of 16) and its Kahan AdamW train step
+    (f32, batch 2 of 256 tokens), dry-run on a (1, 1) mesh by
+    ``tools/dryrun_predict.py`` and run here for real: argument bytes
+    equal, peak temporaries within ``DRYRUN_PEAK_RTOL`` /
+    ``DRYRUN_PEAK_ATOL``, and the measured device time printed beside
+    the roofline's bound (no gate). (3) The control: the same serve
+    trace with the row norm's fake one row short must fail."""
+    import torch
+    from repro_torch.data import synthetic
+    from repro_torch.models import api
+    from repro_torch.models.paged import PagedLayout
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+    # the subprocesses first: nothing is timed while they trace
+    logs = {}
+    for name in ("cli", "predict"):
+        try:
+            logs[name] = procs[name].communicate(
+                timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter()
+                                                     - procs["t0"])))[0]
+        except subprocess.TimeoutExpired:
+            procs[name].kill()
+            fail(f"[dryrun] {name} ran past {DRYRUN_TIMEOUT_S} s")
+        (procs["out"] / f"{name}.log").write_text(logs[name])
+    measured = {}
+    # the serve step, on the serve phases' weights (bf16-held, seed SEED)
+    q_params = api.init_params(qwen, device=dev, seed=SEED)
+    layout = PagedLayout.for_context(1024)
+    caches = {k: torch.zeros(shape, dtype=dt, device=dev) for k, (shape, dt)
+              in api.cache_specs(qwen, 8, layout).items()}
+    tokens = torch.zeros((8, 1), dtype=torch.int32, device=dev)
+    serve = steps.build_serve_step(qwen)
+    args = _storage_bytes(q_params) + _storage_bytes(caches) \
+        + tokens.numel() * tokens.element_size()
+    peak, ms = _measured_step(lambda: serve(q_params, caches, tokens), args)
+    measured["serve"] = dict(arg_bytes=args, peak_bytes=peak, ms=ms)
+    del caches, q_params
+    # the train step: f32 tree, Kahan AdamW, one batch of 2 x 256
+    cfg = qwen
+    params = api.init_params(cfg, device=dev, seed=SEED, hold_bf16=False)
+    opt_cfg = adamw.AdamWConfig(kahan=True)
+    state = adamw.init(params, opt_cfg)
+    g = torch.Generator().manual_seed(SEED)
+    batch = {k: (torch.randint(0, cfg.vocab_size, v.shape, generator=g,
+                               dtype=torch.int64).to(v.dtype)
+                 if v.dtype == torch.int32 else torch.ones(v.shape,
+                                                           dtype=v.dtype))
+             .to(dev) for k, v in synthetic.train_batch_struct(
+                 cfg, 256, 2).items()}
+    train = steps.build_train_step(cfg, opt_cfg)
+    args = (_storage_bytes(params) + _storage_bytes(state)
+            + _storage_bytes(batch))
+    box = [params, state]
+
+    def one():
+        box[0], box[1], _ = train(box[0], box[1], batch, 0)
+    peak, ms = _measured_step(one, args)
+    measured["train"] = dict(arg_bytes=args, peak_bytes=peak, ms=ms)
+    del params, state, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch, shape = DRYRUN_CELL
+    tail = "\n".join(logs["cli"].strip().splitlines()[-3:])
+    log(f"[dryrun] CLI {arch} x {shape} x 16x16: exit "
+        f"{procs['cli'].returncode} after "
+        f"{time.perf_counter() - procs['t0']:.1f} s: {tail}")
+    if procs["cli"].returncode != 0:
+        fail(f"[dryrun] the CLI failed on {arch} x {shape}")
+    cell = json.loads((procs["out"] / f"{arch}__{shape}__16x16.json")
+                      .read_text())
+    counts = (cell["flops"], cell["bytes"], cell["collective_bytes_weighted"])
+    log(f"[dryrun] {arch} x {shape}: flops/device {cell['flops']:.4e}, "
+        f"bytes {cell['bytes']:.4e}, collective bytes (ring) "
+        f"{cell['collective_bytes_weighted']:.4e}, kernels "
+        f"{cell['kernel_calls']}, args "
+        f"{cell['memory_analysis']['argument_size_in_bytes']} B, peak "
+        f"{cell['memory_analysis']['temp_size_in_bytes']} B, dominant "
+        f"{cell['dominant']}, traced in {cell['trace_s']} s")
+    if not all(c > 0 for c in counts):
+        fail(f"[dryrun] {arch} x {shape}: counts {counts} not all positive")
+    if procs["predict"].returncode != 0:
+        fail(f"[dryrun] dryrun_predict.py exit {procs['predict'].returncode}"
+             f":\n{logs['predict'][-2000:]}")
+    pred = json.loads(logs["predict"].strip().splitlines()[-1])
+    for kind in ("serve", "train"):
+        p, m = pred[kind], measured[kind]
+        gap = m["peak_bytes"] - p["peak_bytes"]
+        lim = DRYRUN_PEAK_RTOL * p["peak_bytes"] + DRYRUN_PEAK_ATOL
+        log(f"[dryrun] qwen1.5-0.5b {kind}: argument bytes predicted "
+            f"{p['arg_bytes']}, card {m['arg_bytes']}; peak temporaries "
+            f"predicted {p['peak_bytes']}, card {m['peak_bytes']} (gap "
+            f"{gap} B, limit {lim:.0f}); step {m['ms']:.3f} ms by CUDA "
+            f"events (host gaps included) against the roofline's "
+            f"{p['bound_ms']:.3f} ms ({p['dominant']}), "
+            f"kernels {p['kernel_calls']}")
+        if p["arg_bytes"] != m["arg_bytes"]:
+            fail(f"[dryrun] {kind} argument bytes: predicted "
+                 f"{p['arg_bytes']}, card {m['arg_bytes']}")
+        if abs(gap) > lim:
+            fail(f"[dryrun] {kind} peak temporaries {m['peak_bytes']} B on "
+                 f"the card, {p['peak_bytes']} B predicted")
+    log(f"[dryrun] control (the row norm's fake one row short): "
+        f"{pred['control_error']}")
+    if pred["control_error"] is None:
+        fail("[dryrun] the perturbed fake traced without an error")
+    return dict(measured=measured, predicted=pred, cell=cell)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6522,6 +6729,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_cli(dev)
     wall["cli"] = time.perf_counter() - t0
+    # [dryrun]'s CPU-side traces run beside [dist] alone, which times
+    # nothing, and [dryrun] waits for them before it times its steps
+    dry_procs = dryrun_start()
     # last: the one-rank NCCL group of the distributed layer. Its checks
     # run ~15 s without a profiler window, and after such a gap every
     # window of this card's profiler loses its first device events, NCCL
@@ -6530,6 +6740,9 @@ def main() -> int:
     t0 = time.perf_counter()
     dist_run = phase_dist(dev, qwen)
     wall["dist"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_dryrun(dev, qwen, dry_procs)
+    wall["dryrun"] = time.perf_counter() - t0
 
     def by_path(paths, name):
         return {k: v["launches"][name] for k, v in paths.items()}

@@ -60,8 +60,7 @@ ACT_RULES_DEFAULT: dict[str, str | tuple[str, ...] | None] = {
     "act_mlp": "model",
     "act_experts": "model",
     "act_embed": None,
-    # the reference's sequence-parallel residual (its cfg.sp_residual,
-    # a dry-run knob with no field in the port)
+    # the sequence-parallel residual (``ModelConfig.sp_residual``)
     "act_res_seq": "model",
 }
 
@@ -163,6 +162,37 @@ _ACT_CTX: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_act_sharding", default=None)
 
 
+_PRODUCT_RULES: list = []
+
+
+def register_product_rules() -> None:
+    """DTensor sharding rules for the card's bf16 products with an f32
+    result (``aten.mm.dtype`` / ``aten.bmm.dtype``, ``invariant_gemm``'s
+    ``_Bf16Product`` / ``_Bf16BatchedProduct`` in training), which
+    PyTorch gives none: those of ``mm`` / ``bmm``, per mesh dim. Once per
+    process."""
+    if _PRODUCT_RULES:
+        return
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+    aten = torch.ops.aten
+    rep = ([Replicate()], [Replicate(), Replicate(), None])
+
+    @register_sharding(aten.mm.dtype)
+    def _mm(x, w, out_dtype):
+        return [rep, ([Shard(0)], [Shard(0), Replicate(), None]),
+                ([Shard(1)], [Replicate(), Shard(1), None]),
+                ([Partial()], [Shard(1), Shard(0), None])]
+
+    @register_sharding(aten.bmm.dtype)
+    def _bmm(x, w, out_dtype):
+        return [rep, ([Shard(0)], [Shard(0), Shard(0), None]),
+                ([Shard(1)], [Shard(1), Replicate(), None]),
+                ([Shard(2)], [Replicate(), Shard(2), None]),
+                ([Partial()], [Shard(2), Shard(1), None])]
+    _PRODUCT_RULES.extend([_mm, _bmm])
+
+
 @contextlib.contextmanager
 def activation_sharding(mesh, rules: dict | None = None):
     """Within this context ``shard_act`` lays DTensor activations out on
@@ -170,6 +200,7 @@ def activation_sharding(mesh, rules: dict | None = None):
     meets a DTensor in an op (a RoPE table, a mask) counts as replicated
     on its mesh, as a constant does under the reference's jit."""
     from torch.distributed.tensor.experimental import implicit_replication
+    register_product_rules()
     token = _ACT_CTX.set((mesh, rules or ACT_RULES_DEFAULT))
     try:
         with implicit_replication():
@@ -181,7 +212,16 @@ def activation_sharding(mesh, rules: dict | None = None):
 def shard_act(x: torch.Tensor, *names: str | None) -> torch.Tensor:
     """Lay an activation out by its logical dim names: ``x`` itself
     unless an ``activation_sharding`` context is active and ``x`` is a
-    DTensor, which is then redistributed to the names' spec."""
+    DTensor, which is then redistributed to the names' spec. The
+    reference's sites; the port's own layouts go through ``lay_out``."""
+    return lay_out(x, *names)
+
+
+def lay_out(x: torch.Tensor, *names: str | None) -> torch.Tensor:
+    """``shard_act``'s layout, for the sites the port adds where DTensor
+    would otherwise keep whatever layout an op left (the embeddings, the
+    residual stream): XLA's sharding propagation infers those in the
+    reference."""
     ctx = _ACT_CTX.get()
     if ctx is None or len(names) != x.ndim:
         return x
@@ -205,6 +245,256 @@ def reduce_partial(x: torch.Tensor) -> torch.Tensor:
         return x
     return x.redistribute(x.device_mesh, [
         Replicate() if p.is_partial() else p for p in x.placements])
+
+
+def gathered(x: torch.Tensor) -> torch.Tensor:
+    """``x`` whole on this rank as a plain tensor: a DTensor is gathered
+    from every rank (differentiably) and its local tensor returned;
+    anything else is returned as it is."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def replicated_on(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` as a replicated DTensor on ``like``'s mesh when ``like`` is a
+    DTensor and ``t`` is not (so its gradient comes back plain through
+    ``from_local``), else ``t``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(like, DTensor) or isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, like.device_mesh,
+                              [Replicate()] * like.device_mesh.ndim,
+                              run_check=False)
+
+
+class _GradAsForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import Replicate
+        # a partial sum's gradient is the same on every rank
+        ctx.mesh = x.device_mesh
+        ctx.placements = tuple(Replicate() if p.is_partial() else p
+                               for p in x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g.placements != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g
+
+
+def grad_laid_as_forward(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (a DTensor); its gradient is laid out as ``x`` is before it
+    flows on. A product's [B, L, N] output is a view of [B * L, N] rows:
+    a gradient that came back split along L would merge into rows
+    DTensor cannot reshape (a strided split)."""
+    return _GradAsForward.apply(x)
+
+
+def product_grad_layout(dy: torch.Tensor, x: torch.Tensor,
+                        w: torch.Tensor) -> torch.Tensor:
+    """The gradient dY [M, N] of a DTensor product x [M, K] @ w [K, N]
+    laid out as the forward's output was: rows split where x's rows are,
+    N where w's N is, the rest whole. Left to itself DTensor may split
+    dY's rows over a mesh dim x's rows are whole on, and a later view
+    of those rows back to [B, L, ...] then takes a wrong local shape."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not (isinstance(dy, DTensor) and isinstance(x, DTensor)
+            and isinstance(w, DTensor)):
+        return dy
+    pl = [Shard(0) if a.is_shard() and a.dim == 0 else
+          Shard(1) if b.is_shard() and b.dim == 1 else Replicate()
+          for a, b in zip(x.placements, w.placements)]
+    return dy.redistribute(dy.device_mesh, pl)
+
+
+def elementwise_per_shard(fn, *tensors):
+    """``fn(*tensors)`` for an elementwise ``fn`` whose tensors (None
+    allowed) share the first's shape: a DTensor first runs ``fn`` on each
+    rank's shards, the others laid out as it, and the outputs (None
+    allowed) come back with its placements."""
+    from torch.distributed.tensor import DTensor, Replicate
+    x = tensors[0]
+    if not isinstance(x, DTensor):
+        return fn(*tensors)
+    mesh, pl = x.device_mesh, x.placements
+
+    def shard(t):
+        if t is None:
+            return None
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, pl).to_local()
+    out = fn(*(shard(t) for t in tensors))
+    return tuple(None if o is None else DTensor.from_local(
+        o, mesh, pl, run_check=False, shape=x.shape, stride=x.stride())
+        for o in out)
+
+
+def per_shard(fn, tensors: tuple, maps: tuple, out_maps: tuple,
+              whole: bool = True):
+    """``fn(*tensors)``, on each rank's local tensors when the work is
+    independent along the dims the first tensor (a DTensor) is split
+    over. ``maps[i]`` maps the first tensor's dims to tensor i's (a dim
+    it lacks stays whole there; None passes through), ``out_maps`` the
+    same for each output. A split of the first tensor along a dim its
+    map lacks, or ``whole`` False (``fn`` reads something else per row),
+    leaves ``fn`` to run on the DTensors as they are."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    x = tensors[0]
+    if not whole or not isinstance(x, DTensor):
+        return fn(*tensors)
+    mesh, pl = x.device_mesh, x.placements
+    if any(p.is_partial() or (p.is_shard() and p.dim not in maps[0])
+           for p in pl):
+        return fn(*tensors)
+
+    def want(m):
+        return [Shard(m[p.dim]) if p.is_shard() and p.dim in m
+                else Replicate() for p in pl]
+
+    def local(t, m):
+        if t is None:
+            return None
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, want(m)).to_local()
+    out = fn(*(local(t, m) for t, m in zip(tensors, maps)))
+    outs = out if isinstance(out, tuple) else (out,)
+    wrapped = tuple(DTensor.from_local(o, mesh, want(m), run_check=False)
+                    for o, m in zip(outs, out_maps))
+    return wrapped if isinstance(out, tuple) else wrapped[0]
+
+
+def split_heads(x: torch.Tensor, heads: int, dim: int) -> torch.Tensor:
+    """x [..., heads * dim] -> [..., heads, dim]. A DTensor whose last
+    dim splits over more ranks than divide the heads (8 kv heads on a
+    16-way model axis) is gathered along it first, and its gradient
+    comes back in the layout it leaves."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        n = math.prod(x.device_mesh.size(i)
+                      for i, p in enumerate(x.placements)
+                      if p.is_shard() and p.dim == x.ndim - 1)
+        if heads % n:
+            x = unshard_dim(x, -1)
+        return _grad_kept(x.reshape(*x.shape[:-1], heads, dim))
+    return x.reshape(*x.shape[:-1], heads, dim)
+
+
+def vocab_parallel_ce(lg: torch.Tensor, labels: torch.Tensor) -> tuple:
+    """(logsumexp, the label's logit) over the last dim of DTensor f32
+    logits [..., V] whose vocabulary may be split over mesh dims, without
+    gathering it: each rank reduces its slice (the max, then the sum of
+    exponentials, then its label's logit where the label falls in the
+    slice) and the partials are all-reduced. The max is a constant of
+    the gradient, as in ``logsumexp``. Returned as DTensors laid out as
+    the logits' rows; the sums run in another order than the plain
+    ``logsumexp``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh, pl = lg.device_mesh, list(lg.placements)
+    vdim = lg.ndim - 1
+    split = [i for i, p in enumerate(pl) if p.is_shard() and p.dim == vdim]
+    rows = [Replicate() if i in split or p.is_partial() else p
+            for i, p in enumerate(pl)]
+    if not split:
+        lg = lg.redistribute(mesh, rows)
+        return torch.logsumexp(lg, dim=-1), torch.gather(
+            lg, -1, labels[..., None])[..., 0]
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    lab = labels.redistribute(mesh, rows).to_local()
+    lg = lg.redistribute(mesh, [p if i in split else rows[i]
+                                for i, p in enumerate(pl)])
+    x = lg.to_local()
+    v_local = x.shape[-1]
+    coord = mesh.get_coordinate()
+    part = 0
+    for i in split:                       # this rank's slice, mesh order
+        part = part * mesh.size(i) + coord[i]
+
+    def reduced(t, op):
+        return DTensor.from_local(
+            t, mesh, [Partial(op) if i in split else rows[i]
+                      for i in range(mesh.ndim)],
+            run_check=False).redistribute(mesh, rows).to_local()
+    m = reduced(x.detach().amax(dim=-1), "max")
+    s = reduced(torch.exp(x - m[..., None]).sum(dim=-1), "sum")
+    idx = lab - part * v_local
+    inside = (idx >= 0) & (idx < v_local)
+    ll = torch.gather(x, -1, idx.clamp(0, v_local - 1)[..., None])[..., 0]
+    ll = reduced(torch.where(inside, ll, torch.zeros_like(ll)), "sum")
+    return (DTensor.from_local(torch.log(s) + m, mesh, rows, run_check=False),
+            DTensor.from_local(ll, mesh, rows, run_check=False))
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """x [..., H, D] -> [..., H * D]. A DTensor split along D is gathered
+    along it first: merged with whole heads its shards would interleave
+    (D split where H cannot be, 6 heads on a 16-way model axis); its
+    gradient comes back in the layout it leaves."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+    if x.shape[-2] > 1:
+        x = unshard_dim(x, -1)
+    return _grad_kept(x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1]))
+
+
+def _grad_kept(x: torch.Tensor) -> torch.Tensor:
+    """A reshaped DTensor whose gradient must come back in its layout
+    for the reshape's backward (``grad_laid_as_forward``)."""
+    return grad_laid_as_forward(x) if x.requires_grad else x
+
+
+def unshard_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` with dim ``dim`` whole on every rank: a DTensor split along
+    it (an argmax over the vocabulary) is gathered along it, its other
+    shards kept; anything else is returned as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.ndim
+    pl = [Replicate() if p.is_shard() and p.dim == dim else p
+          for p in x.placements]
+    return x.redistribute(x.device_mesh, pl) if pl != list(
+        x.placements) else x
+
+
+def index_put_rows(pool: torch.Tensor, idx: tuple,
+                   vals: torch.Tensor) -> None:
+    """``pool.index_put_(idx, vals)`` for a DTensor pool [nb, bs, *feat]
+    written a row per sequence (idx: block and position [B], vals
+    [B, *feat]), which DTensor has no in-place rule for: each rank writes
+    its rows into its own shard. Where the pool's blocks split over a
+    mesh dim the rows split with them (a rank's slots keep their blocks
+    in its shard), where a feature dim splits the values split with it,
+    and elsewhere every rank writes every row. The block ids are taken as
+    they stand on each shard, as ``paged.pool_from_rows`` lays a
+    DTensor's pool out (each shard's slots in its own blocks), so tables
+    must count from the shard's start.""" 
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = pool.device_mesh
+    rows, feat = [], []
+    for p in pool.placements:
+        if p.is_shard() and p.dim == 0:
+            rows.append(Shard(0)), feat.append(Shard(0))
+        elif p.is_shard() and p.dim >= 2:
+            rows.append(Replicate()), feat.append(Shard(p.dim - 1))
+        else:
+            rows.append(Replicate()), feat.append(Replicate())
+
+    def local(t, pl):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, pl).to_local()
+    pool.to_local().index_put_(tuple(local(i, rows) for i in idx),
+                               local(vals, feat))
 
 
 # ------------------------------------------------------------ inputs -------

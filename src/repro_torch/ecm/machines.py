@@ -33,7 +33,15 @@ measured on the card:
   700.00 W power limit. Eager PyTorch launches every operator of a
   prefill chunk from the host, so this floor, times the chunk's
   launches, prices a re-prefill that the card's rates alone put ~100x
-  too fast (``ecm.hopper.predicted_restore_vs_reprefill``).
+  too fast (``ecm.hopper.predicted_restore_vs_reprefill``);
+- ``hbm_bytes``: 80 GB of HBM3 (80e9 bytes, the data sheet's "80GB");
+- ``nvlink_bw``: 450 GB/s each way per GPU over NVLink 4 (the data
+  sheet's 900 GB/s is both directions), the rate of a collective whose
+  group lies within one host's ``gpus_per_host`` = 8 GPUs (DGX H100 /
+  HGX H100 8-GPU);
+- ``net_bw``: 50 GB/s each way per GPU, one 400 Gb/s ConnectX-7 NIC per
+  GPU (DGX H100 data sheet), the rate of a collective whose group spans
+  hosts (``ecm.hopper_roofline``).
 """
 
 from __future__ import annotations
@@ -119,4 +127,8 @@ H100_SXM = {
     "peak_flops": 989e12,
     "f32_flops": 67e12,
     "dispatch_s": 7.5e-6,
+    "hbm_bytes": 80e9,
+    "nvlink_bw": 450e9,
+    "net_bw": 50e9,
+    "gpus_per_host": 8,
 }

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import kahan
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, traced
 
 SUBLANES = 8
 LANES = 128
@@ -234,7 +234,18 @@ def fused_reduce_rows_cuda(operands, *, outputs, unroll: int | None = None,
     compensated bound."""
     operands = tuple(operands)
     outputs = check_outputs(outputs, len(operands))
-    x = operands[0]
+    out = _fused_reduce(operands[0], operands[1] if len(operands) == 2
+                        else None, list(outputs), unroll, block_elems,
+                        bool(compensated))
+    return tuple(out[_SLOT[o]] for o in outputs)
+
+
+@traced.kernel("fused_reduce", "(Tensor x, Tensor? y, str[] outputs, "
+               "int? unroll, int? block_elems, bool compensated) -> Tensor")
+def _fused_reduce(x, y, outputs, unroll, block_elems, compensated):
+    """The kernel's launch: every output slot [len(ALL_OUTPUTS), B], those
+    of ``outputs`` written."""
+    operands = (x,) if y is None else (x, y)
     for op in operands:
         if not op.is_cuda or op.dtype != torch.float32 or op.dim() != 2:
             raise ValueError("fused_reduce_rows_cuda takes 2-D f32 CUDA "
@@ -255,7 +266,6 @@ def fused_reduce_rows_cuda(operands, *, outputs, unroll: int | None = None,
                        dtype=torch.float32, device=x.device)
     out = torch.empty((len(ALL_OUTPUTS), b), dtype=torch.float32,
                       device=x.device)
-    y = operands[1] if len(operands) == 2 else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.repro_fused_reduce_rows(
         x.data_ptr(), None if y is None else y.data_ptr(), b, n, nsplit, seg,
@@ -265,7 +275,7 @@ def fused_reduce_rows_cuda(operands, *, outputs, unroll: int | None = None,
         raise RuntimeError("fused_reduce kernel launch failed: "
                            + lib.repro_error_string(err).decode())
     _build.launches["fused_reduce"] += 1
-    return tuple(out[_SLOT[o]] for o in outputs)
+    return out
 
 
 # ------------------------------------------------------------ dispatch -----
@@ -275,7 +285,7 @@ def fused_reduce_rows(operands, *, outputs, unroll: int | None = None,
                       compensated: bool = True) -> tuple:
     """(B, N) -> tuple of (B,): plain twin on CPU, the kernel on CUDA."""
     operands = tuple(operands)
-    fn = (fused_reduce_rows_cuda if operands[0].is_cuda
+    fn = (fused_reduce_rows_cuda if traced.on_card(operands[0])
           else fused_reduce_rows_plain)
     return fn(operands, outputs=outputs, unroll=unroll,
               block_elems=block_elems, compensated=compensated)

@@ -27,7 +27,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, traced
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
@@ -145,6 +145,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, q_block: int = 256,
     twin. The kernels pick their own tiles, so ``q_block`` / ``kv_block``
     change no number beyond rounding. Any alignment of the element type is
     taken: the kernel's loaders copy as wide as the rows allow."""
+    traced.check_real("flash_attention", q, k, v)
     bh, lq, lk, d, dv = _check(q, k, v)
     dev = q.device
     for t in (q, k, v):

@@ -36,7 +36,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, traced
 # the kernel for a CUDA tensor unless autograd records the call (the row
 # norm's rule)
 from repro_torch.kernels.row_norm import (  # noqa: F401
@@ -118,6 +118,12 @@ def invariant_gemm_cuda(x: torch.Tensor, w: torch.Tensor, *,
     the model fixes (the heads), so a sequence's bits do not depend on
     how many share the call. ``route`` forces a route (default
     ``pick_route(M)``), to hold the two against each other."""
+    return _invariant_gemm(x, w, plan_batch, route)
+
+
+@traced.kernel("invariant_gemm", "(Tensor x, Tensor w, int? plan_batch, "
+               "str? route) -> Tensor")
+def _invariant_gemm(x, w, plan_batch, route):
     if not (x.is_cuda and w.is_cuda and x.device == w.device):
         raise ValueError("invariant_gemm_cuda takes CUDA tensors on one "
                          f"device, got {x.device} and {w.device}")
@@ -181,6 +187,9 @@ class _Bf16Product(torch.autograd.Function):
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         dy = dy.to(torch.bfloat16)
+        if type(dy) is not torch.Tensor:
+            from repro_torch.distributed.sharding import product_grad_layout
+            dy = product_grad_layout(dy, x, w)
         dx = dw = None
         if ctx.needs_input_grad[0]:
             dx = torch.mm(dy, w.t(), out_dtype=torch.float32).to(x.dtype)
@@ -217,21 +226,34 @@ class _Bf16BatchedProduct(torch.autograd.Function):
 def product(x: torch.Tensor, w: torch.Tensor, *,
             plan_batch: int | None = None) -> torch.Tensor:
     """f32 ``x @ w`` of the bf16-rounded operands: x [..., K] with w
-    [K, N], or x [B, M, K] with w [B, K, N]. On the card the kernel when
-    autograd records nothing for the call (``plan_batch`` as in
+    [K, N], or x [B..., M, K] with w [B..., K, N]. On the card the kernel
+    when autograd records nothing for the call (``plan_batch`` as in
     ``invariant_gemm_cuda``), else ``_Bf16Product`` /
-    ``_Bf16BatchedProduct``; on the CPU the twin."""
-    batched = w.dim() == 3
+    ``_Bf16BatchedProduct``, each on the leading dims flattened into one;
+    on the CPU the twin. A traced call (``kernels.traced``) reaches the
+    kernel's operator with its dims as they are, so that x's row shards
+    are not interleaved."""
+    batched = w.dim() >= 3
     kernel = use_kernel(x, w)
-    if not (kernel or x.is_cuda):
+    if not (kernel or traced.on_card(x)):
         return invariant_gemm_plain(x, w)
-    xb = (x if batched else x.reshape(-1, x.shape[-1])).to(torch.bfloat16)
-    wb = w.to(torch.bfloat16)
-    if kernel:
-        y = invariant_gemm_cuda(xb, wb, plan_batch=plan_batch)
-    else:
-        y = (_Bf16BatchedProduct if batched else _Bf16Product).apply(xb, wb)
-    return y if batched else y.reshape(*x.shape[:-1], w.shape[-1])
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    if kernel and traced.active(xb, wb):
+        return invariant_gemm_cuda(xb, wb, plan_batch=plan_batch)
+    if batched:
+        x3 = xb.reshape(-1, *xb.shape[-2:])
+        w3 = wb.reshape(-1, *wb.shape[-2:])
+        y = (invariant_gemm_cuda(x3, w3, plan_batch=plan_batch) if kernel
+             else _Bf16BatchedProduct.apply(x3, w3))
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+    x2 = xb.reshape(-1, x.shape[-1])
+    y = (invariant_gemm_cuda(x2, wb, plan_batch=plan_batch) if kernel
+         else _Bf16Product.apply(x2, wb))
+    y = y.reshape(*x.shape[:-1], w.shape[-1])
+    if type(y) is not torch.Tensor and y.requires_grad:
+        from repro_torch.distributed.sharding import grad_laid_as_forward
+        y = grad_laid_as_forward(y)
+    return y
 
 
 def bytes_moved(m: int, k: int, n: int, batch: int = 1) -> int:

@@ -24,7 +24,7 @@ import ctypes
 import torch
 
 from repro_torch.core import kahan
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, traced
 from repro_torch.kernels.engine import LANES
 
 _MAX_BLOCKS = 132 * 8            # H100 SXM: 132 SMs, 8 blocks of 256 each
@@ -66,6 +66,13 @@ def kahan_acc_flat_cuda(acc_sum, acc_carry, update):
     """Launch ``csrc/kahan_acc.cu`` on contiguous CUDA tensors of any
     shape (elementwise); same contract as the plain twin."""
     _check(acc_sum, acc_carry, update, flat=False)
+    _kahan_acc(acc_sum, acc_carry, update)
+    return acc_sum, acc_carry
+
+
+@traced.kernel("kahan_acc", "(Tensor(a!) acc_sum, Tensor(b!) acc_carry, "
+               "Tensor update) -> ()", mutates=("acc_sum", "acc_carry"))
+def _kahan_acc(acc_sum, acc_carry, update):
     dev = acc_sum.device
     for t in (acc_sum, acc_carry, update):
         if not t.is_cuda or t.device != dev or not t.is_contiguous():
@@ -88,7 +95,6 @@ def kahan_acc_flat_cuda(acc_sum, acc_carry, update):
         raise RuntimeError("kahan_acc kernel launch failed: "
                            + lib.repro_error_string(err).decode())
     _build.launches["kahan_acc"] += 1
-    return acc_sum, acc_carry
 
 
 def kahan_acc_flat(acc_sum, acc_carry, update):
@@ -96,7 +102,7 @@ def kahan_acc_flat(acc_sum, acc_carry, update):
     CPU tensor, the kernel for a CUDA tensor. Returns (acc_sum,
     acc_carry)."""
     _check(acc_sum, acc_carry, update, flat=True)
-    if acc_sum.is_cuda:
+    if traced.on_card(acc_sum):
         return kahan_acc_flat_cuda(acc_sum, acc_carry, update)
     return kahan_acc_flat_plain(acc_sum, acc_carry, update)
 

@@ -37,7 +37,7 @@ import ctypes
 import torch
 
 from repro_torch.core import kahan
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, traced
 from repro_torch.quant.core import cast_f32
 
 
@@ -175,6 +175,7 @@ def kahan_matmul_cuda(a, b, *, block_m: int = 256, block_n: int = 256,
                       block_k: int = 256) -> torch.Tensor:
     """Launch ``csrc/kahan_matmul.cu`` on the route ``pick_route`` picks
     by M; same contract as the plain twin (A and B f32 or bf16)."""
+    traced.check_real("kahan_matmul", a, b)
     bk = _block_k(a, b, block_m, block_n, block_k)
     if b.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"B must be f32 or bf16, got {b.dtype}")
@@ -185,6 +186,7 @@ def kahan_matmul_q8_cuda(a, qw, scales, *, block_m: int = 256,
                          block_n: int = 256) -> torch.Tensor:
     """Launch the q8 form of ``csrc/kahan_matmul.cu``: A f32 or bf16, qw
     int8 or u8 (fp8 e4m3 bytes), scales f32."""
+    traced.check_real("kahan_matmul_q8", a, qw, scales)
     bk = _q8_block_k(a, qw, scales, block_m, block_n)
     if qw.dtype not in (torch.int8, torch.uint8) or \
             scales.dtype != torch.float32:

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import engine
+from repro_torch.kernels import engine, traced
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels._build import launches, reset_launches  # noqa: F401
 from repro_torch.kernels.kahan_acc import (kahan_acc_flat_cuda,
@@ -143,13 +143,13 @@ def paged_attention(q: torch.Tensor, kpool: torch.Tensor,
     if latent:
         args = (q.contiguous(), q_rope.contiguous(), kpool, rope_pool, table,
                 lens.contiguous(), offs.contiguous())
-        fn = (_pa.paged_latent_attention_cuda if q.is_cuda
+        fn = (_pa.paged_latent_attention_cuda if traced.on_card(q)
               else _pa.paged_latent_attention_plain)
         return fn(*args, ck_scale=kscale, kr_scale=rope_scale, scale=scale)
     # q arrives transposed in memory from rope when W > 1 (a verify window)
     args = (q.contiguous(), kpool, vpool, table, lens.contiguous(),
             offs.contiguous())
-    if q.is_cuda:
+    if traced.on_card(q):
         return _pa.paged_attention_cuda(*args, kscale=kscale, vscale=vscale,
                                         scale=scale)
     return _pa.paged_attention_plain(*args, kscale=kscale, vscale=vscale,
@@ -176,6 +176,6 @@ def kahan_accumulate(acc_sum: torch.Tensor, acc_carry: torch.Tensor,
     returns new arrays aliased onto its inputs). The kernel on a CUDA
     tensor (contiguous, f32 accumulators), the plain twin on a CPU one.
     See ``kernels.kahan_acc``."""
-    if acc_sum.is_cuda:
+    if traced.on_card(acc_sum):
         return kahan_acc_flat_cuda(acc_sum, acc_carry, update)
     return kahan_acc_flat_plain(acc_sum, acc_carry, update)

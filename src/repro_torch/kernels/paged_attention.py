@@ -45,7 +45,7 @@ import ctypes
 import torch
 
 from repro_torch.core import kahan
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, traced
 from repro_torch.quant.core import cast_f32
 
 NEG_INF = -1e30
@@ -160,6 +160,15 @@ def _need(cond: bool, msg: str) -> None:
 def paged_attention_cuda(q, kpool, vpool, block_table, lens, q_offsets, *,
                          kscale=None, vscale=None, scale=None):
     """Launch ``csrc/paged_attention.cu``; same contract as the plain twin."""
+    return _paged_attention(q, kpool, vpool, block_table, lens, q_offsets,
+                            kscale, vscale, scale)
+
+
+@traced.kernel("paged_attention", "(Tensor q, Tensor kpool, Tensor vpool, "
+               "Tensor block_table, Tensor lens, Tensor q_offsets, "
+               "Tensor? kscale, Tensor? vscale, float? scale) -> Tensor")
+def _paged_attention(q, kpool, vpool, block_table, lens, q_offsets, kscale,
+                     vscale, scale):
     b, w, hq, d = q.shape
     nb, bs, hkv, dk = kpool.shape
     dv = vpool.shape[-1]
@@ -333,6 +342,17 @@ def paged_latent_attention_cuda(q_lat, q_rope, ck_pool, kr_pool, block_table,
                                 kr_scale=None, scale: float):
     """Launch ``csrc/paged_latent_attention.cu``; same contract as the
     plain twin."""
+    return _paged_latent_attention(q_lat, q_rope, ck_pool, kr_pool,
+                                   block_table, lens, q_offsets, ck_scale,
+                                   kr_scale, float(scale))
+
+
+@traced.kernel("paged_latent_attention", "(Tensor q_lat, Tensor q_rope, "
+               "Tensor ck_pool, Tensor kr_pool, Tensor block_table, "
+               "Tensor lens, Tensor q_offsets, Tensor? ck_scale, "
+               "Tensor? kr_scale, float scale) -> Tensor")
+def _paged_latent_attention(q_lat, q_rope, ck_pool, kr_pool, block_table,
+                            lens, q_offsets, ck_scale, kr_scale, scale):
     b, w, h, c = q_lat.shape
     nb, bs, ck_c = ck_pool.shape
     r = q_rope.shape[-1]

@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, traced
 
 MAX_WIDTH = 8192      # d: 32 values a thread in registers, 256 threads
 ROUTES = {"narrow": 1, "wide": 2}   # the C library's route codes
@@ -108,6 +108,12 @@ def row_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
     layer norm of every row of ``x`` [..., d], bf16 or f32 on the card,
     with f32 ``weight`` (and ``bias``) [d], on the route ``plan`` picks.
     Returns a new tensor of x's shape and dtype."""
+    return _row_norm(x, weight, bias, float(eps))
+
+
+@traced.kernel("row_norm", "(Tensor x, Tensor weight, Tensor? bias, "
+               "float eps) -> Tensor")
+def _row_norm(x, weight, bias, eps):
     d = x.shape[-1]
     params = (weight,) if bias is None else (weight, bias)
     if not (x.is_cuda and all(p.is_cuda and p.device == x.device
@@ -143,7 +149,7 @@ def row_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
 
 def _use_kernel(x: torch.Tensor, *params) -> bool:
     """The kernel for a CUDA tensor unless autograd records the call."""
-    return x.is_cuda and not (torch.is_grad_enabled() and any(
+    return traced.on_card(x) and not (torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x, *params)))
 
 

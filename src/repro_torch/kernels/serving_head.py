@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, traced
 
 def _lib():
     lib = _build.load("serving_head")
@@ -68,6 +68,11 @@ def serving_head_cuda(h: torch.Tensor, w: torch.Tensor, *,
     """Launch ``csrc/serving_head.cu``: f32 logits [..., V], each row's
     bits independent of the rows beside it. ``h`` f32 or bf16 on the
     card, ``w`` f32 and contiguous."""
+    return _serving_head(h, w, int(tied))
+
+
+@traced.kernel("serving_head", "(Tensor h, Tensor w, int tied) -> Tensor")
+def _serving_head(h, w, tied):
     rows, d, v = _split(h, w, tied)
     if not (h.is_cuda and w.is_cuda and h.device == w.device):
         raise ValueError("serving_head_cuda takes CUDA tensors on one "
@@ -98,7 +103,7 @@ def serving_head_cuda(h: torch.Tensor, w: torch.Tensor, *,
 def serving_head(h: torch.Tensor, w: torch.Tensor, *,
                  tied: bool = False) -> torch.Tensor:
     """f32 logits: the plain twin on the CPU, the kernel on the card."""
-    fn = serving_head_cuda if h.is_cuda else serving_head_plain
+    fn = serving_head_cuda if traced.on_card(h) else serving_head_plain
     return fn(h, w, tied=tied)
 
 

@@ -28,6 +28,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import kahan
+from repro_torch.distributed.sharding import merge_heads
+from repro_torch.ecm import step_cost
 from repro_torch.kernels import invariant_gemm, ops
 from repro_torch.kernels.paged_attention import NEG_INF
 from repro_torch.models import common, paged
@@ -78,9 +80,10 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: AttnConfig,
                  positions: torch.Tensor):
     b, l, _ = x.shape
     h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = common.dense(x, p["wq"], p.get("bq")).reshape(b, l, h, dh)
-    k = common.dense(x, p["wk"], p.get("bk")).reshape(b, l, kv, dh)
-    v = common.dense(x, p["wv"], p.get("bv")).reshape(b, l, kv, dh)
+    from repro_torch.distributed.sharding import split_heads
+    q = split_heads(common.dense(x, p["wq"], p.get("bq")), h, dh)
+    k = split_heads(common.dense(x, p["wk"], p.get("bk")), kv, dh)
+    v = split_heads(common.dense(x, p["wv"], p.get("bv")), kv, dh)
     rd = int(dh * cfg.rotary_fraction)
     if rd:
         pos = positions[:, None, :]
@@ -97,6 +100,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_len=None, q_offset=0) -> torch.Tensor:
     """Blockwise online-softmax attention. q [B, Lq, Hq, D]; k/v
     [B, Lk, Hkv, D(v)] -> [B, Lq, Hq, Dv] in v's dtype.
+
+    Packed: under the conditions of the reference's ``causal_packing``
+    (causal, Lq == Lk in as many blocks, no ``kv_len``, no ``kahan_acc``,
+    ``q_offset`` the int 0) only the nq(nq+1)/2 key blocks on or below
+    the diagonal are walked. A block past the diagonal is all masked and
+    adds exact zeros (p = 0, corr = exp(0) = 1), so the packed walk is
+    bitwise the full one. The block walks are ``step_cost.trips``: a cost
+    trace may run one block for all of them.
 
     ``q_offset`` places the queries at absolute positions
     offset..offset+Lq-1; ``q_offset`` and ``kv_len`` take an int, a 0-d
@@ -137,7 +148,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
     lq, lk = lq_orig + pad_q, lk_orig + pad_k
     nq, nk = lq // qc, lk // kc
-    from repro_torch.distributed.sharding import shard_act
+    packed = (causal and lq == lk and nq == nk
+              and kv_len is None and not kahan_acc
+              and isinstance(q_offset, int) and q_offset == 0)
+    from repro_torch.distributed.sharding import per_shard, shard_act
     # [B, Hkv, G, Lq, D] / [B, Hkv, Lk, D]
     qg = shard_act(q.reshape(b, lq, hkv, groups, d).permute(0, 2, 3, 1, 4),
                    "act_batch", "act_heads", None, "act_seq", None)
@@ -150,8 +164,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q_offset = torch.as_tensor(q_offset, device=dev)
     if kv_len is not None:
         kv_len = torch.as_tensor(kv_len, device=dev)
-    outs = []
-    for qi in range(nq):
+    # per (sequence, head) pair: a DTensor split over those alone runs on
+    # each rank's local blocks
+    out = per_shard(
+        lambda qg, kt, vt: _flash_walk(
+            qg, kt, vt, q_offset=q_offset, kv_len=kv_len, causal=causal,
+            packed=packed, kahan_acc=kahan_acc, kernel=kernel, scale=scale,
+            kc=kc, nk=nk),
+        (qg, kt, vt), ({0: 0, 1: 1},) * 3, ({0: 0, 1: 1},),
+        whole=q_offset.dim() == 0 and (kv_len is None or kv_len.dim() == 0))
+    out = out.reshape(b, hq, lq, dv).permute(0, 2, 1, 3).to(v.dtype)
+    return out[:, :lq_orig] if pad_q else out
+
+
+def _flash_walk(qg, kt, vt, *, q_offset, kv_len, causal, packed, kahan_acc,
+                kernel, scale, kc, nk) -> torch.Tensor:
+    """The block walk of ``flash_attention``: qg [B, Hkv, G, nq, qc, D],
+    kt / vt [B, Hkv, Lk, D(v)] -> [B, Hkv, G, Lq, Dv] f32."""
+    b, hkv, groups, nq, qc, d = qg.shape
+    dv = vt.shape[-1]
+    dev = qg.device
+
+    def q_block(qi):
         q_blk = qg[:, :, :, qi].to(torch.float32)        # [B,Hkv,G,qc,D]
         # [qc] for a scalar offset, [B, qc] for a per-slot one
         q_pos = (q_offset[..., None] + qi * qc
@@ -160,13 +194,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         l = torch.zeros((b, hkv, groups, qc), device=dev)
         acc = torch.zeros((b, hkv, groups, qc, dv), device=dev)
         acc_c = torch.zeros_like(acc)
-        for ki in range(nk):
+        for ki in step_cost.trips(qi + 1 if packed else nk,
+                                  weight=(nq + 1) / 2 if packed else None):
             k_blk = kt[:, :, ki * kc:(ki + 1) * kc]
             v_blk = vt[:, :, ki * kc:(ki + 1) * kc]
             if kernel:
                 s = invariant_gemm.product(
-                    q_blk.reshape(b * hkv, groups * qc, d),
-                    k_blk.transpose(2, 3).reshape(b * hkv, d, kc),
+                    q_blk.reshape(b, hkv, groups * qc, d),
+                    k_blk.transpose(2, 3),
                     plan_batch=hkv).reshape(b, hkv, groups, qc, kc)
                 s = s * scale
             else:
@@ -186,8 +221,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             l = l * corr + p.sum(dim=-1)
             if kernel:
                 pv = invariant_gemm.product(
-                    p.reshape(b * hkv, groups * qc, kc),
-                    v_blk.reshape(b * hkv, kc, dv),
+                    p.reshape(b, hkv, groups * qc, kc), v_blk,
                     plan_batch=hkv).reshape(b, hkv, groups, qc, dv)
             else:
                 pv = torch.einsum("bhgqk,bhkd->bhgqd",
@@ -201,10 +235,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             m = m_new
         if kahan_acc:
             acc = acc + acc_c
-        outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])
-    out = torch.stack(outs, dim=3).reshape(b, hkv, groups, lq, dv)
-    out = out.reshape(b, hq, lq, dv).permute(0, 2, 1, 3).to(v.dtype)
-    return out[:, :lq_orig] if pad_q else out
+        return acc / torch.clamp_min(l, 1e-30)[..., None]
+
+    outs = [q_block(qi) for qi in step_cost.trips(nq)]
+    outs = step_cost.fill(outs, nq)
+    return torch.stack(outs, dim=3).reshape(b, hkv, groups, nq * qc, dv)
 
 
 def gqa_forward(p: dict, x: torch.Tensor, cfg: AttnConfig, *,
@@ -218,7 +253,7 @@ def gqa_forward(p: dict, x: torch.Tensor, cfg: AttnConfig, *,
     q, k, v = _project_qkv(p, x, cfg, positions)
     out = flash_attention(q, k, v, causal=cfg.causal, q_chunk=cfg.q_chunk,
                           kv_chunk=cfg.kv_chunk, kahan_acc=cfg.kahan_acc)
-    return common.dense(out.reshape(b, l, -1), p["wo"])
+    return common.dense(merge_heads(out), p["wo"])
 
 
 def attend_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -272,7 +307,7 @@ def gqa_prefill(p: dict, x: torch.Tensor, cfg: AttnConfig,
              "block_table": paged.identity_table(b, layout, x.device),
              "len": torch.full((b,), l, dtype=torch.int32, device=x.device),
              **scale_pools}
-    return common.dense(out.reshape(b, l, -1), p["wo"]), cache
+    return common.dense(merge_heads(out), p["wo"]), cache
 
 
 def _scatter_kv(cache: dict, k: torch.Tensor, v: torch.Tensor,
@@ -323,7 +358,7 @@ def gqa_decode(p: dict, x: torch.Tensor, cfg: AttnConfig, cache: dict
                               idx + 1, kscale=cache.get("kscale"),
                               vscale=cache.get("vscale")).to(x.dtype)
     cache["len"].copy_(idx + 1)
-    return common.dense(out.reshape(b, 1, -1), p["wo"])
+    return common.dense(merge_heads(out), p["wo"])
 
 
 def gqa_prefill_chunk(p: dict, x: torch.Tensor, cfg: AttnConfig,
@@ -349,7 +384,7 @@ def gqa_prefill_chunk(p: dict, x: torch.Tensor, cfg: AttnConfig,
                           kv_chunk=cfg.kv_chunk, kahan_acc=cfg.kahan_acc,
                           q_offset=pos0, kv_len=pos0 + c)
     cache["len"][slot] = pos0 + c
-    return common.dense(out.reshape(1, c, -1), p["wo"])
+    return common.dense(merge_heads(out), p["wo"])
 
 
 def gqa_verify_chunk(p: dict, x: torch.Tensor, cfg: AttnConfig,

@@ -95,6 +95,16 @@ def check_trainable(cfg: ModelConfig) -> None:
     cfg.check_supported()
 
 
+def _shard_residual(h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The residual stream entering a layer (``common.residual``); under
+    ``cfg.sp_residual`` laid out over its sequence too (``act_res_seq``:
+    the model axis), the per-layer input that remat keeps."""
+    if not cfg.sp_residual:
+        return common.residual(h)
+    from repro_torch.distributed.sharding import shard_act
+    return shard_act(h, "act_batch", "act_res_seq", None)
+
+
 def block_apply(p: dict, h: torch.Tensor, cfg: ModelConfig, *,
                 dense_ffn: bool = False) -> tuple[torch.Tensor, dict]:
     """Full-sequence (training) forward of one layer, h [B, L, d] ->
@@ -103,6 +113,7 @@ def block_apply(p: dict, h: torch.Tensor, cfg: ModelConfig, *,
     layer. A DeepSeek-V2 ``dense_ffn`` layer is MLA with a dense MLP.
     The training forward never quantizes (MLA takes ``cfg.mla`` as it
     stands, not ``kv_dtype``)."""
+    h = _shard_residual(h, cfg)
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     if _recurrent(cfg):
         h = h + ssd.mamba2_forward(
@@ -128,6 +139,7 @@ def block_prefill(p: dict, h: torch.Tensor, cfg: ModelConfig,
     """One-shot prefill of one layer (h [B, L, d]): the forward, and this
     layer's fresh decode cache (block-paged K/V or latents with identity
     tables, or the Mamba2 state and conv window)."""
+    h = common.residual(h)
     if _recurrent(cfg):
         x = common.apply_norm(h, p["norm"], cfg.norm)
         y, cache = ssd.mamba2_forward(p["mixer"], x, _ssm_cfg(cfg),
@@ -167,6 +179,7 @@ def block_prefill_chunk(p: dict, h: torch.Tensor, cfg: ModelConfig,
 def block_decode(p: dict, h: torch.Tensor, cfg: ModelConfig, cache: dict,
                  *, dense_ffn: bool = False) -> torch.Tensor:
     """One-token step (h [B, 1, d]) against this layer's cache view."""
+    h = common.residual(h)
     if _recurrent(cfg):
         x = common.apply_norm(h, p["norm"], cfg.norm)
         return h + ssd.mamba2_decode(p["mixer"], x, cfg.ssm, cache)

@@ -229,6 +229,29 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     return y.to(compute_dtype)
 
 
+def residual(h: torch.Tensor) -> torch.Tensor:
+    """The residual stream [B, L, d] as a layer takes it; a DTensor's laid
+    out over its batch, the rest whole (DTensor would otherwise carry on
+    whatever layout the last op left, a d split that turns every later
+    product into partial sums of whole rows)."""
+    from repro_torch.distributed.sharding import lay_out
+    return lay_out(h, "act_batch", "act_seq", "act_embed")
+
+
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor
+                 ) -> torch.Tensor:
+    """bf16 rows of ``table`` for ``tokens``; a DTensor's laid out over
+    the batch (the tokens' layout, which DTensor's gather of a sharded
+    table does not keep)."""
+    from repro_torch.distributed.sharding import lay_out
+    idx = tokens.to(torch.int64)
+    # a DTensor table gathers through F.embedding, whose DTensor rules
+    # cover a vocabulary split and the backward (plain indexing's
+    # backward has none in every torch the port meets)
+    h = table[idx] if type(table) is torch.Tensor else F.embedding(idx, table)
+    return lay_out(h.to(torch.bfloat16), "act_batch", "act_seq", "act_embed")
+
+
 def weighted_ce(logits: torch.Tensor, batch: dict
                 ) -> tuple[torch.Tensor, dict]:
     """The reference's weighted causal-LM cross entropy in f32 over
@@ -237,8 +260,12 @@ def weighted_ce(logits: torch.Tensor, batch: dict
     labels = batch["labels"].to(torch.int64)
     weights = batch["weights"]
     lg = logits.to(torch.float32)
-    lse = torch.logsumexp(lg, dim=-1)
-    ll = torch.gather(lg, -1, labels[..., None])[..., 0]
+    if type(lg) is not torch.Tensor:       # a DTensor: vocab shards stay
+        from repro_torch.distributed.sharding import vocab_parallel_ce
+        lse, ll = vocab_parallel_ce(lg, labels)
+    else:
+        lse = torch.logsumexp(lg, dim=-1)
+        ll = torch.gather(lg, -1, labels[..., None])[..., 0]
     loss = ((lse - ll) * weights).sum() / torch.clamp_min(weights.sum(), 1.0)
     return loss, {"ce_loss": loss, "tokens": weights.sum()}
 

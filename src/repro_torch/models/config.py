@@ -1,7 +1,9 @@
 """Model configuration covering every family of the registry (twin of
-``repro.models.config``; the reference's TPU layout knobs
-``remat_policy``, ``causal_packing`` and ``sp_residual`` have no field
-here)."""
+``repro.models.config``), with the reference's layout knobs that the
+production dry run (``launch.dryrun``) sets: ``remat_policy`` and
+``sp_residual``. The reference's ``causal_packing`` has no field: the
+port's flash attention packs wherever the reference's conditions hold
+(``attention.flash_attention``), with the unpacked walk's bits."""
 
 from __future__ import annotations
 
@@ -70,9 +72,14 @@ class ModelConfig:
     kv_chunk: int = 512
     remat: bool = True             # training: recompute each layer
                                    # in backward (``lm.lm_forward``)
+    remat_policy: str = "nothing"  # nothing | dots: what a recomputed
+                                   # layer saves (``lm.REMAT_POLICIES``)
     kahan_attn: bool = False       # compensated prefill accumulator
     kahan_ssm_state: bool = False  # compensated SSD state carry
     kv_dtype: str = "bf16"         # "bf16" | "int8" | "fp8" KV pools
+    # layout knob: the residual stream sharded over its sequence
+    # (``act_res_seq``)
+    sp_residual: bool = False
     # sub-quadratic sequence mixing (gates the long_500k shape cell)
     subquadratic: bool = False
 

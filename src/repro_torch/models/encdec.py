@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import merge_heads, split_heads
 from repro_torch.models import attention as attn
 from repro_torch.models import common, mlp
 from repro_torch.models.blocks import stack_schema
@@ -70,11 +71,10 @@ def encdec_schema(cfg: ModelConfig, max_dec_positions: int) -> dict:
 def _memory_kv(p: dict, memory: torch.Tensor, cfg: ModelConfig):
     """The cross-attention's K / V [B, Lm, Hkv, D] of the encoder
     memory."""
-    b, lm, _ = memory.shape
     acfg = _acfg(cfg, causal=False)
-    shape = (b, lm, acfg.num_kv_heads, acfg.head_dim)
-    return (common.dense(memory, p["wk"]).reshape(shape),
-            common.dense(memory, p["wv"]).reshape(shape))
+    kv, dh = acfg.num_kv_heads, acfg.head_dim
+    return (split_heads(common.dense(memory, p["wk"]), kv, dh),
+            split_heads(common.dense(memory, p["wv"]), kv, dh))
 
 
 def _cross_attention(p: dict, x: torch.Tensor, memory_kv,
@@ -82,16 +82,16 @@ def _cross_attention(p: dict, x: torch.Tensor, memory_kv,
     """x [B, Lq, d] against the precomputed memory K / V."""
     b, lq, _ = x.shape
     acfg = _acfg(cfg, causal=False)
-    q = common.dense(x, p["wq"]).reshape(b, lq, acfg.num_heads,
-                                         acfg.head_dim)
+    q = split_heads(common.dense(x, p["wq"]), acfg.num_heads, acfg.head_dim)
     k, v = memory_kv
     out = attn.flash_attention(q, k, v, causal=False, q_chunk=acfg.q_chunk,
                                kv_chunk=acfg.kv_chunk)
-    return common.dense(out.reshape(b, lq, -1), p["wo"])
+    return common.dense(merge_heads(out), p["wo"])
 
 
 def _enc_layer(lp: dict, h: torch.Tensor, cfg: ModelConfig
                ) -> torch.Tensor:
+    h = common.residual(h)
     x = common.apply_norm(h, lp["ln_attn"], cfg.norm)
     h = h + attn.gqa_forward(lp["attn"], x, _acfg(cfg, causal=False))
     x = common.apply_norm(h, lp["ln_mlp"], cfg.norm)
@@ -123,6 +123,7 @@ def _dec_layer(lp: dict, h: torch.Tensor, memory: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
     """Training form of one decoder layer: causal self-attention over the
     sequence, cross-attention into the memory, the GELU MLP."""
+    h = common.residual(h)
     x = common.apply_norm(h, lp["ln_self"], cfg.norm)
     h = h + attn.gqa_forward(lp["self_attn"], x, _acfg(cfg, causal=True))
     x = common.apply_norm(h, lp["ln_cross"], cfg.norm)
@@ -139,7 +140,7 @@ def encdec_forward(params: dict, batch: dict, cfg: ModelConfig
     memory = encode(params, batch["frames"], cfg)
     tokens = batch["tokens"]
     l = tokens.shape[1]
-    h = params["embed"][tokens.to(torch.int64)].to(torch.bfloat16)
+    h = common.embed_tokens(params["embed"], tokens)
     h = h + params["pos_embed"][:l].to(h.dtype)[None]
     for lp in params["dec_layers"]:
         h = (checkpoint(_dec_layer, lp, h, memory, cfg, use_reentrant=False)
@@ -170,7 +171,7 @@ def encdec_prefill(params: dict, batch: dict, cfg: ModelConfig,
     memory = encode(params, batch["frames"], cfg)
     tokens = batch["tokens"]
     l = tokens.shape[1]
-    h = params["embed"][tokens.to(torch.int64)].to(torch.bfloat16)
+    h = common.embed_tokens(params["embed"], tokens)
     h = h + params["pos_embed"][:l].to(h.dtype)[None]
     acfg = _acfg(cfg, causal=True)
     selfs, cross_k, cross_v = [], [], []
@@ -198,7 +199,7 @@ def encdec_decode(params: dict, tokens: torch.Tensor, caches: dict,
     [B, V]; the self-attention caches update in place."""
     b = tokens.shape[0]
     pos = caches["self"]["len"][0].to(torch.int64)          # [B]
-    h = params["embed"][tokens.to(torch.int64)].to(torch.bfloat16)
+    h = common.embed_tokens(params["embed"], tokens)
     h = h + params["pos_embed"][pos].reshape(b, 1, -1).to(h.dtype)
     acfg = _acfg(cfg, causal=True)
     for i, lp in enumerate(params["dec_layers"]):
@@ -206,12 +207,12 @@ def encdec_decode(params: dict, tokens: torch.Tensor, caches: dict,
         h = h + attn.gqa_decode(lp["self_attn"], x, acfg,
                                 {k: v[i] for k, v in caches["self"].items()})
         x = common.apply_norm(h, lp["ln_cross"], cfg.norm)
-        q = common.dense(x, lp["cross_attn"]["wq"]).reshape(
-            b, 1, acfg.num_heads, acfg.head_dim)
+        q = split_heads(common.dense(x, lp["cross_attn"]["wq"]),
+                        acfg.num_heads, acfg.head_dim)
         ck, cv = caches["cross_k"][i], caches["cross_v"][i]
         ctx = attn.attend_cache(q, ck, cv, torch.full(
             (b,), ck.shape[1], dtype=torch.int32, device=ck.device))
-        h = h + common.dense(ctx.reshape(b, 1, -1), lp["cross_attn"]["wo"])
+        h = h + common.dense(merge_heads(ctx), lp["cross_attn"]["wo"])
         h = _mlp_residual(lp, h, cfg)
     return _logits(params, h, cfg)
 

@@ -117,7 +117,7 @@ def _lora_params(p: dict, seg_idx: int) -> dict:
 
 
 def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.to(torch.int64)].to(torch.bfloat16)
+    return common.embed_tokens(params["embed"], tokens)
 
 
 def _mamba_layers(params: dict, seg: int, n_seg: int):
@@ -144,6 +144,7 @@ def _shared_block(params: dict, h: torch.Tensor, cfg: ModelConfig,
     """Training form of the shared attention + MLP block after segment
     ``seg_idx``: full-sequence causal GQA with the segment's LoRA folded
     into q / k / v."""
+    h = common.residual(h)
     x = common.apply_norm(h, params["shared"]["ln_attn"], cfg.norm)
     h = h + attn.gqa_forward(_lora_params(params, seg_idx), x,
                              _shared_attn_cfg(cfg))
@@ -152,6 +153,7 @@ def _shared_block(params: dict, h: torch.Tensor, cfg: ModelConfig,
 
 def _mamba_layer(lp: dict, h: torch.Tensor, cfg: ModelConfig
                  ) -> torch.Tensor:
+    h = common.residual(h)
     x = common.apply_norm(h, lp["norm"], cfg.norm)
     return h + ssd.mamba2_forward(
         lp["mixer"], x, cfg.ssm._replace(kahan_state=cfg.kahan_ssm_state))
@@ -181,7 +183,8 @@ def hybrid_forward(params: dict, batch: dict, cfg: ModelConfig
         h = _shared_block(params, h, cfg, s)
     if tail:
         h = _mamba_stack(params["mamba_tail"], h, cfg, remat=cfg.remat)
-    h = common.apply_norm(h, params["final_norm"], cfg.norm)
+    h = common.apply_norm(common.residual(h), params["final_norm"],
+                          cfg.norm)
     return common.dense(h, params["lm_head"]), {}
 
 
@@ -213,7 +216,8 @@ def hybrid_prefill(params: dict, batch: dict, cfg: ModelConfig,
                                      layout)
             h = _shared_mlp(params, h + y, cfg)
             attn_c.append(kv)
-    h = common.apply_norm(h, params["final_norm"], cfg.norm)
+    h = common.apply_norm(common.residual(h), params["final_norm"],
+                          cfg.norm)
     logits = common.dense(h[:, -1], params["lm_head"])
     caches = {"mamba": {k: v.reshape((n_seg, seg) + v.shape[1:])
                         for k, v in _stack(mamba).items()},
@@ -240,7 +244,8 @@ def hybrid_decode(params: dict, tokens: torch.Tensor, caches: dict,
             x = common.apply_norm(h, params["shared"]["ln_attn"], cfg.norm)
             h = h + attn.gqa_decode(_lora_params(params, s), x, acfg, kv)
             h = _shared_mlp(params, h, cfg)
-    h = common.apply_norm(h, params["final_norm"], cfg.norm)
+    h = common.apply_norm(common.residual(h), params["final_norm"],
+                          cfg.norm)
     return common.dense(h[:, -1], params["lm_head"])
 
 

@@ -20,8 +20,11 @@ tensors, and the cache-tree moves of ``models.paged`` see every layer.
 
 from __future__ import annotations
 
+import functools
+
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.serving_head import serving_head
 from repro_torch.models import common
@@ -101,7 +104,7 @@ def layer_cache(caches: dict, i: int) -> dict:
 
 
 def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.to(torch.int64)].to(torch.bfloat16)
+    return common.embed_tokens(params["embed"], tokens)
 
 
 def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig
@@ -119,26 +122,57 @@ def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig
     return h
 
 
+# the products with no batch dims (``dense``: [M, K] x [K, N]; the
+# batched expert and attention products are ``bmm``s)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.mm.dtype,
+                   torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+# what a recomputed layer keeps from its forward: the reference's
+# ``jax.checkpoint_policies`` ``nothing_saveable`` and
+# ``dots_with_no_batch_dims_saveable``
+REMAT_POLICIES = {"nothing": None, "dots": _save_dots}
+
+
+def remat(fn, cfg: ModelConfig, *args, **kwargs):
+    """``fn(*args, **kwargs)``, recomputed in backward by
+    ``cfg.remat_policy``: "nothing" saves no tensor inside ``fn``, "dots"
+    the outputs of its products with no batch dims. Recompute is
+    deterministic, so both give the same bits."""
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: not one of "
+                         f"{sorted(REMAT_POLICIES)}")
+    policy = REMAT_POLICIES[cfg.remat_policy]
+    if policy is not None:
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, policy)
+    return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+
+
 def lm_forward(params: dict, batch: dict, cfg: ModelConfig
                ) -> tuple[torch.Tensor, dict]:
     """Full-sequence training forward: (logits [B, L, V] bf16, aux).
 
     Embed, cast to bf16, the layers (each recomputed in backward under
-    ``cfg.remat``: ``torch.utils.checkpoint``, which saves nothing inside
-    a layer, the reference's "nothing" policy, and changes no bit), the
-    final norm, then the bf16 head through ``dense`` (not the serving
-    f32 head)."""
+    ``cfg.remat`` by ``cfg.remat_policy``, ``remat``, which changes no
+    bit), the final norm, then the bf16 head through ``dense`` (not the
+    serving f32 head)."""
     h = _embed_inputs(params, batch, cfg)
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     aux = dict.fromkeys(AUX_KEYS, zero)
     for _, p, dense_ffn in _layers(params):
         if cfg.remat:
-            h, a = checkpoint(block_apply, p, h, cfg, dense_ffn=dense_ffn,
-                              use_reentrant=False)
+            h, a = remat(block_apply, cfg, p, h, cfg, dense_ffn=dense_ffn)
         else:
             h, a = block_apply(p, h, cfg, dense_ffn=dense_ffn)
         aux = {k: aux[k] + a[k] for k in AUX_KEYS}
-    h = common.apply_norm(h, params["final_norm"], cfg.norm)
+    h = common.apply_norm(common.residual(h), params["final_norm"],
+                          cfg.norm)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return common.dense(h, head), aux
 
@@ -179,7 +213,8 @@ def lm_prefill(params: dict, batch: dict, cfg: ModelConfig,
     for _, p, dense_ffn in _layers(params):
         h, cache = block_prefill(p, h, cfg, layout, dense_ffn=dense_ffn)
         per_layer.append(cache)
-    h = common.apply_norm(h, params["final_norm"], cfg.norm)
+    h = common.apply_norm(common.residual(h), params["final_norm"],
+                          cfg.norm)
     caches = {k: torch.stack([c[k] for c in per_layer])
               for k in per_layer[0]}
     return _serving_logits(h[:, -1], params, cfg), caches
@@ -193,7 +228,8 @@ def lm_prefill_chunk(params: dict, tokens: torch.Tensor, caches: dict,
     for i, p, dense_ffn in _layers(params):
         h = block_prefill_chunk(p, h, cfg, layer_cache(caches, i), slot,
                                 pos0, dense_ffn=dense_ffn)
-    h = common.apply_norm(h, params["final_norm"], cfg.norm)
+    h = common.apply_norm(common.residual(h), params["final_norm"],
+                          cfg.norm)
     return _serving_logits(h[:, -1], params, cfg)
 
 
@@ -205,7 +241,8 @@ def lm_decode(params: dict, tokens: torch.Tensor, caches: dict,
     for i, p, dense_ffn in _layers(params):
         h = block_decode(p, h, cfg, layer_cache(caches, i),
                          dense_ffn=dense_ffn)
-    h = common.apply_norm(h, params["final_norm"], cfg.norm)
+    h = common.apply_norm(common.residual(h), params["final_norm"],
+                          cfg.norm)
     return _serving_logits(h[:, -1], params, cfg)
 
 
@@ -220,7 +257,8 @@ def lm_verify_chunk(params: dict, tokens: torch.Tensor, caches: dict,
     for i, p, dense_ffn in _layers(params):
         h = block_verify_chunk(p, h, cfg, layer_cache(caches, i), slots,
                                pos0s, dense_ffn=dense_ffn)
-    h = common.apply_norm(h, params["final_norm"], cfg.norm)
+    h = common.apply_norm(common.residual(h), params["final_norm"],
+                          cfg.norm)
     return _serving_logits(h, params, cfg)
 
 

@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed.sharding import merge_heads
 from repro_torch.kernels import ops
 from repro_torch.models import common, paged
 from repro_torch.models.attention import flash_attention
@@ -197,7 +198,7 @@ def mla_decode(p: dict, x: torch.Tensor, cfg: MLAConfig, cache: dict
                                                             vals))
     ctx = _kernel_latent_attend(p, cfg, q_nope, q_rope, cache, table, idx + 1)
     cache["len"].copy_(idx + 1)
-    return common.dense(ctx.reshape(b, 1, -1).to(x.dtype), p["wo"])
+    return common.dense(merge_heads(ctx).to(x.dtype), p["wo"])
 
 
 def _shard(x: torch.Tensor) -> torch.Tensor:
@@ -224,7 +225,7 @@ def mla_forward(p: dict, x: torch.Tensor, cfg: MLAConfig, *,
     q, k, v = (_shard(q), _shard(k), _shard(v))
     out = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
                           kv_chunk=cfg.kv_chunk)
-    return common.dense(out.reshape(b, l, -1), p["wo"])
+    return common.dense(merge_heads(out), p["wo"])
 
 
 def mla_prefill(p: dict, x: torch.Tensor, cfg: MLAConfig,
@@ -262,7 +263,7 @@ def mla_prefill(p: dict, x: torch.Tensor, cfg: MLAConfig,
              "block_table": paged.identity_table(b, layout, x.device),
              "len": torch.full((b,), l, dtype=torch.int32, device=x.device),
              **scale_pools}
-    return common.dense(out.reshape(b, l, -1), p["wo"]), cache
+    return common.dense(merge_heads(out), p["wo"]), cache
 
 
 def mla_prefill_chunk(p: dict, x: torch.Tensor, cfg: MLAConfig, cache: dict,
@@ -284,7 +285,7 @@ def mla_prefill_chunk(p: dict, x: torch.Tensor, cfg: MLAConfig, cache: dict,
     ctx = _latent_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, valid,
                          q_pos=positions)
     cache["len"][slot] = pos0 + c
-    return common.dense(ctx.reshape(1, c, -1).to(x.dtype), p["wo"])
+    return common.dense(merge_heads(ctx).to(x.dtype), p["wo"])
 
 
 def mla_verify_chunk(p: dict, x: torch.Tensor, cfg: MLAConfig, cache: dict,

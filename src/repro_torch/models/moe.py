@@ -76,8 +76,14 @@ def _expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     products and sums, through ``invariant_gemm.product``: on the card
     the batched M-invariant kernel when autograd records nothing
     (serving), ``_Bf16BatchedProduct`` under autograd (training); on the
-    CPU the operands widened to f32, a chunk of experts at a time."""
-    return invariant_gemm.product(x, w)
+    CPU the operands widened to f32, a chunk of experts at a time. A
+    DTensor product's partial sums are reduced in f32, as ``dense``
+    does."""
+    y = invariant_gemm.product(x, w)
+    if type(y) is not torch.Tensor:
+        from repro_torch.distributed.sharding import reduce_partial
+        y = reduce_partial(y)
+    return y
 
 
 def moe_forward(p: dict, x: torch.Tensor, cfg: MoEConfig
@@ -92,7 +98,15 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: MoEConfig
 
     logits = common.dense(xf, p["router"]).to(torch.float32)     # [T, E]
     probs = torch.softmax(logits, dim=-1)
-    top_p, top_e = _top_k(probs, k)                               # [T, k]
+    # the routing (top-k, sorts, counts, slot scatters), the bucket
+    # gather and the fold back run on plain tensors: a DTensor's router
+    # outputs, tokens and expert outputs are gathered to every rank whole
+    # (a replicated dispatch; DTensor has no rule for these index ops on
+    # sharded tensors), and only the expert products run laid out, over
+    # the experts
+    from repro_torch.distributed.sharding import (gathered, replicated_on,
+                                                  shard_act)
+    top_p, top_e = _top_k(gathered(probs), k)                     # [T, k]
     top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
 
     # ---- sort assignments by expert --------------------------------------
@@ -100,7 +114,10 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: MoEConfig
     flat_gate = top_p.reshape(-1)
     order = torch.sort(flat_e, stable=True).indices
     se, st, sg = flat_e[order], order // k, flat_gate[order]
-    counts = torch.bincount(flat_e, minlength=e)                  # [E]
+    # bincount's output length depends on the data; the expert ids are
+    # below e, so the counts are these
+    counts = torch.zeros(e, dtype=torch.int64, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))                       # [E]
     offsets = torch.cumsum(counts, 0) - counts
     ranks = torch.arange(t * k, device=dev) - offsets[se]
     keep = ranks < cap
@@ -112,8 +129,10 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: MoEConfig
     slot_to_tok[slot] = st
     slot_to_tok = slot_to_tok[:e * cap]
     valid = slot_to_tok < t
-    xe = xf[torch.clamp(slot_to_tok, 0, t - 1)] * valid[:, None].to(xf.dtype)
-    xe = xe.reshape(e, cap, d)
+    xe = gathered(xf)[torch.clamp(slot_to_tok, 0, t - 1)] \
+        * valid[:, None].to(xf.dtype)
+    xe = shard_act(replicated_on(xe.reshape(e, cap, d), xf),
+                   "act_experts", None, None)
 
     # ---- batched expert FFN ----------------------------------------------
     gate, up = torch.chunk(_expert_matmul(xe, p["w_gate_up"]).to(xe.dtype),
@@ -121,7 +140,7 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: MoEConfig
     ye = _expert_matmul(common.swiglu(gate, up), p["w_down"]).to(xe.dtype)
 
     # ---- weighted fold back to tokens, in sorted order --------------------
-    yflat = ye.reshape(e * cap, d)
+    yflat = gathered(ye).reshape(e * cap, d)
     contrib = yflat[torch.clamp(slot, 0, e * cap - 1)]
     contrib = contrib * (sg * keep).to(contrib.dtype)[:, None]
     # sorted position of each (token, expert) pair, then each token's k
@@ -133,6 +152,7 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: MoEConfig
     y = torch.zeros((t, d), dtype=contrib.dtype, device=dev)
     for j in range(k):
         y = y + per_tok[:, j]
+    y = replicated_on(y, xf)
 
     if cfg.num_shared:
         y = y + mlp_forward(p["shared"], xf)

@@ -80,7 +80,17 @@ def identity_table(batch: int, layout: PagedLayout,
 
 def pool_from_rows(rows: torch.Tensor, layout: PagedLayout) -> torch.Tensor:
     """[B, S, ...] rows -> [1 + B*mb, bs, ...] pool whose identity-table
-    gather reproduces the zero-padded rows bitwise."""
+    gather reproduces the zero-padded rows bitwise. A DTensor's rows are
+    pooled on each rank, behind a null block of the rank's own: the
+    pool's blocks split as the batch does, and a slot's block ids count
+    from its shard's start (the ids ``sharding.index_put_rows`` writes
+    by)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(rows, DTensor):
+        from repro_torch.distributed.sharding import per_shard
+        dims = {0: 0, **{i: i for i in range(2, rows.ndim)}}
+        return per_shard(lambda r: pool_from_rows(r, layout), (rows,),
+                         (dims,), (dims,))
     b, s = rows.shape[:2]
     bs, mb = layout.block_size, layout.max_blocks
     if s > layout.max_context:
@@ -113,7 +123,11 @@ def scatter_token(pool: torch.Tensor, table: torch.Tensor,
     lens = lens.to(torch.int64)
     blk_idx = torch.clamp(lens // bs, 0, mb - 1)
     blk = torch.gather(table.to(torch.int64), 1, blk_idx[:, None])[:, 0]
-    pool.index_put_((blk, lens % bs), vals.to(pool.dtype))
+    if type(pool) is torch.Tensor:
+        pool.index_put_((blk, lens % bs), vals.to(pool.dtype))
+    else:
+        from repro_torch.distributed.sharding import index_put_rows
+        index_put_rows(pool, (blk, lens % bs), vals.to(pool.dtype))
     return pool
 
 

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import kahan
+from repro_torch.ecm import step_cost
 from repro_torch.models import common
 from repro_torch.models.common import ParamSpec
 
@@ -127,7 +128,7 @@ def _ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor,
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=x.device))[None, :, :, None]
     ys = []
-    for k in range(nc):
+    for k in step_cost.trips(nc):
         x_k, dt_k, a_k, b_k, c_k = xc[:, k], dtc[:, k], ac[:, k], bc[:, k], \
             cc[:, k]
         cum = torch.cumsum(a_k, dim=1)                  # [B,Q,H]
@@ -153,6 +154,7 @@ def _ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor,
         else:
             s = s * chunk_decay + s_local
         ys.append(y_inter + y_intra)
+    ys = step_cost.fill(ys, nc)
     y = torch.stack(ys, dim=1).reshape(b, nc * chunk, h, p)[:, :l_orig]
     final_state = s + carry if kahan_state else s
     return y.to(x.dtype), final_state
@@ -172,13 +174,19 @@ def _mixer_scan(p: dict, z, xbc, dt, cfg: SSMConfig,
     di, n, h = cfg.d_inner, cfg.state_dim, cfg.num_heads
     x, bmat, cmat = torch.split(xbc, [di, n, n], dim=-1)
     x = x.reshape(b, l, h, cfg.head_dim)
-    from repro_torch.distributed.sharding import shard_act
+    from repro_torch.distributed.sharding import per_shard, shard_act
     x = shard_act(x, "act_batch", "act_seq", "act_heads", None)
     dt = _softplus(dt.to(torch.float32) + p["dt_bias"])        # [B,L,H]
     a = -torch.exp(p["A_log"].to(torch.float32))               # [H]
-    y, state = _ssd_chunk_scan(x, dt, dt * a, bmat, cmat,
-                               min(cfg.chunk, l), cfg.kahan_state,
-                               initial_state=initial_state)
+    # per (sequence, head): a DTensor split over those alone scans on
+    # each rank's local tensors (B and C are shared by the heads)
+    heads, rows, state_map = {0: 0, 2: 2}, {0: 0}, {0: 0, 2: 1}
+    y, state = per_shard(
+        lambda x, dt, da, bm, cm, s0: _ssd_chunk_scan(
+            x, dt, da, bm, cm, min(cfg.chunk, l), cfg.kahan_state,
+            initial_state=s0),
+        (x, dt, dt * a, bmat, cmat, initial_state),
+        (heads, heads, heads, rows, rows, state_map), (heads, state_map))
     y = y + x.to(torch.float32).to(y.dtype) * p["D"].to(y.dtype)[:, None]
     y = y.reshape(b, l, di)
     y = common.rms_norm(y * F.silu(z.to(torch.float32)).to(y.dtype),

@@ -100,7 +100,12 @@ def update(grads: Tree, state: AdamWState, params: Tree, cfg: AdamWConfig,
                 else [None] * n)
     leaves_w = (tree_leaves(state.master) if state.master is not None
                 else [None] * n)
-    out = [upd(*args) for args in zip(
+    # the update is elementwise: a DTensor leaf's runs on each rank's
+    # shard (its state and gradient laid out as the leaf)
+    from repro_torch.distributed.sharding import (elementwise_per_shard,
+                                                  gathered)
+    bc1, bc2, neg_lr = gathered(bc1), gathered(bc2), gathered(neg_lr)
+    out = [elementwise_per_shard(upd, *args) for args in zip(
         tree_leaves(params), tree_leaves(grads), tree_leaves(state.m),
         tree_leaves(state.v), leaves_c, leaves_w)]
 

@@ -16,6 +16,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core.kahan import tree_leaves
+from repro_torch.distributed import sharding
 from repro_torch.models import api
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import accumulate, adamw
@@ -78,6 +79,7 @@ def build_prefill_step(cfg: ModelConfig, cache_size) -> Callable:
     @torch.no_grad()
     def prefill_step(params, batch):
         logits, caches = prefill(params, batch)
+        logits = sharding.unshard_dim(logits, -1)
         return torch.argmax(logits, dim=-1).to(torch.int32), caches
 
     return prefill_step
@@ -90,7 +92,7 @@ def build_serve_step(cfg: ModelConfig) -> Callable:
 
     @torch.no_grad()
     def serve_step(params, caches, tokens):
-        logits = decode(params, tokens, caches)
+        logits = sharding.unshard_dim(decode(params, tokens, caches), -1)
         return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], caches
 
     return serve_step

@@ -52,6 +52,12 @@ TIMEOUT = 300
 # attention, MLA attention with deepseek-v2's dense MLP, the Mamba2 mixer
 BLOCKS = (("qwen1.5-0.5b", False), ("deepseek-v2-236b", True),
           ("mamba2-780m", False))
+# (name, arch, ModelConfig knobs) of the layers run the same way with the
+# dry run's sites: MoE's expert site (olmoe: GQA + MoE), the
+# sequence-sharded residual
+KNOB_BLOCKS = (("olmoe-1b-7b", "olmoe-1b-7b", {}),
+               ("qwen1.5-0.5b+sp_residual", "qwen1.5-0.5b",
+                {"sp_residual": True}))
 
 REFERENCE = """
 import sys
@@ -111,7 +117,8 @@ np.savez(sys.argv[2], **out)
 
 WORKER = """
 import os, sys
-BLOCKS = %(blocks)r
+BLOCKS = [(a, a, d, {}) for a, d in %(blocks)r] + [
+    (n, a, False, k) for n, a, k in %(knob_blocks)r]
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -240,8 +247,8 @@ def counting(x, *names):
         seen.append([str(p) for p in y.placements])
     return y
 sharding.shard_act = counting
-for arch, dense in BLOCKS:
-    cfg = reduced(get_config(arch))
+for name, arch, dense, knobs in BLOCKS:
+    cfg = reduced(get_config(arch)).with_(**knobs)
     schema = (blocks.dense_block_schema(cfg, cfg.dense_d_ff) if dense
               else blocks.block_schema(cfg))
     p = common.init_params(schema, torch.Generator().manual_seed(0),
@@ -259,13 +266,13 @@ for arch, dense in BLOCKS:
         got, _ = blocks.block_apply(
             lay(p, specs), distribute_tensor(h, mesh_b, sharding.placements(
                 ("data", None, None), mesh_b)), cfg, dense_ffn=dense)
-    out[f"block_{arch}_want"] = want.float().numpy()
-    out[f"block_{arch}_got"] = got.full_tensor().float().numpy()
-    out[f"block_{arch}_seen"] = np.asarray(seen, dtype=str).reshape(-1, 2)
+    out[f"block_{name}_want"] = want.float().numpy()
+    out[f"block_{name}_got"] = got.full_tensor().float().numpy()
+    out[f"block_{name}_seen"] = np.asarray(seen, dtype=str).reshape(-1, 2)
 sharding.shard_act = lay_out
 np.savez(os.path.join(sys.argv[2], f"rank{rank}.npz"), **out)
 dist.destroy_process_group()
-""" % {"blocks": BLOCKS}
+""" % {"blocks": BLOCKS, "knob_blocks": KNOB_BLOCKS}
 
 
 def _free_port() -> int:
@@ -478,6 +485,33 @@ def test_block_forward_under_activation_sharding(runs, arch):
         seen = p[f"block_{arch}_seen"]
         assert len(seen) >= 1
         assert all("R" not in s for row in seen for s in row), seen
+        step = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want),
+                                                   2.0 ** -126))) - 7)
+        assert (np.abs(got - want) <= step).all()
+        assert (got != want).mean() <= 1e-3, (got != want).mean()
+
+
+# the layout each knob case's own site must show, (data, model)
+KNOB_SITE = {"olmoe-1b-7b": ["R", "S(0)"],
+             "qwen1.5-0.5b+sp_residual": ["S(0)", "S(1)"]}
+
+
+@pytest.mark.parametrize("name", [n for n, _, _ in KNOB_BLOCKS])
+def test_knob_block_forward_under_activation_sharding(runs, name):
+    """The same as ``test_block_forward_under_activation_sharding`` for
+    the dry run's two other sites: a reduced olmoe layer (MoE's expert
+    site lays the [E, C, d] buckets out over the model axis, experts per
+    rank, after the router's outputs are gathered and routed whole) and a
+    reduced qwen1.5 layer under ``sp_residual`` (the residual entering
+    the layer over batch and sequence). Each site is seen with its
+    layout, and the forward is the plain one's to within one bf16 step
+    of each element, at most 1 in 1000 elements apart."""
+    _, _, port = runs
+    for p in port:
+        want = p[f"block_{name}_want"]
+        got = p[f"block_{name}_got"]
+        seen = [list(row) for row in p[f"block_{name}_seen"]]
+        assert KNOB_SITE[name] in seen, seen
         step = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want),
                                                    2.0 ** -126))) - 7)
         assert (np.abs(got - want) <= step).all()

@@ -1,0 +1,248 @@
+"""The layout knobs the production dry run sets, in the port: the
+reference's ``causal_packing`` (the port's flash attention walks only
+the key blocks on or below the diagonal wherever the reference's
+conditions hold, with no field to set) and ``remat_policy`` ("dots": a
+recomputed layer keeps its products' outputs), against the port's own
+baseline and the reference's knobs on the same inputs (numpy seeds; the
+reference's parameters crossing through ``repro_torch.bridge``).
+
+Tolerances, and why:
+  * packed vs the full walk in the port (a ``q_offset`` given as a
+    tensor 0 walks every block): bitwise, on the twin route and on the
+    kernel route (its dispatch run on the CPU with the kernel's plain
+    twin in its place). A block past the diagonal is all masked and adds
+    exact zeros (p = 0, corr = exp(0) = 1).
+  * the port's packed attention vs the reference's packed
+    ``flash_attention`` (outputs of magnitude ~1): within 2^-9 of each
+    element, at most 1 in 1000 elements apart. Both round f32 sums of
+    the same products to bf16, but XLA sums them in its own order, so a
+    rounding flips now and then; measured on these seeds at most 2.4e-4
+    of the elements apart, by at most 9.8e-4 (5 bf16 steps of a small
+    element), the same against the reference's unpacked walk.
+  * losses vs the reference's jitted loss (``xla_allow_excess_precision``
+    off, as ``test_torch_train.py`` compiles it): 5e-5 relative, that
+    file's bound.
+  * "dots" vs "nothing": loss and every gradient leaf bitwise
+    (recompute is deterministic). What "dots" keeps is read from the
+    products the backward recomputes: none of the forward's [M, K] x
+    [K, N] products under "dots", every one under "nothing". (The
+    outer ``saved_tensors_hooks`` cannot show it: a non-reentrant
+    checkpoint packs only its inputs there, and the selective policy's
+    cache sits inside it.)
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from _torch_threads import one_intra_op_thread  # noqa: E402,F401
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
+
+from repro.configs import get_config, reduced  # noqa: E402
+from repro.data import synthetic  # noqa: E402
+from repro.models import api, common  # noqa: E402
+from repro.models.attention import flash_attention as ref_flash  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.configs import get_config as t_get_config  # noqa: E402
+from repro_torch.configs import reduced as t_reduced  # noqa: E402
+from repro_torch.core.kahan import tree_leaves  # noqa: E402
+from repro_torch.kernels import invariant_gemm  # noqa: E402
+from repro_torch.models import api as tapi  # noqa: E402
+from repro_torch.models.attention import flash_attention  # noqa: E402
+from repro_torch.optim import accumulate as tacc  # noqa: E402
+
+LOSS_RTOL = 5e-5
+SEQ = 64                 # two query blocks of the reduced q_chunk 32
+# (B, L, Hq, Hkv, D, q_chunk, kv_chunk)
+SHAPES = [(2, 128, 4, 4, 16, 32, 32), (2, 96, 8, 2, 32, 32, 32),
+          (1, 256, 4, 1, 64, 64, 64)]
+
+
+def _qkv(b, l, hq, hkv, d, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, l, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, l, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, l, hkv, d)).astype(np.float32)
+    return [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_packed_flash_is_bitwise_the_full_walk(shape):
+    b, l, hq, hkv, d, qc, kc = shape
+    q, k, v = _qkv(b, l, hq, hkv, d)
+    kw = dict(causal=True, q_chunk=qc, kv_chunk=kc)
+    full = flash_attention(q, k, v, q_offset=torch.tensor(0), **kw)
+    packed = flash_attention(q, k, v, **kw)
+    assert torch.equal(full, packed)
+
+
+def _kernel_route(monkeypatch) -> list:
+    """Flash attention's served route on the CPU, the product's kernel
+    replaced by its plain twin: the list the products' x shapes go to."""
+    calls = []
+
+    def twin(x, w, *, plan_batch=None, route=None):
+        calls.append(tuple(x.shape))
+        return invariant_gemm.invariant_gemm_plain(x, w)
+    monkeypatch.setattr(invariant_gemm, "use_kernel", lambda *a: True)
+    monkeypatch.setattr(invariant_gemm, "invariant_gemm_cuda", twin)
+    return calls
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_packed_flash_is_bitwise_on_the_kernel_route(shape, monkeypatch):
+    """The served route (the M-invariant product's blocks of kv_chunk
+    keys), its kernel replaced by the plain twin on the CPU."""
+    b, l, hq, hkv, d, qc, kc = shape
+    calls = _kernel_route(monkeypatch)
+    q, k, v = _qkv(b, l, hq, hkv, d, seed=1)
+    kw = dict(causal=True, q_chunk=qc, kv_chunk=kc)
+    with torch.no_grad():
+        full = flash_attention(q, k, v, q_offset=torch.tensor(0), **kw)
+        n_full = len(calls)
+        packed = flash_attention(q, k, v, **kw)
+    nq = l // qc
+    assert n_full == 2 * nq * nq
+    assert len(calls) - n_full == nq * (nq + 1)     # 2 products per pair
+    assert torch.equal(full, packed)
+
+
+def test_packing_keeps_the_references_conditions(monkeypatch):
+    """No packing where the reference takes the full walk: an offset, a
+    key length, the compensated accumulator, a walk that is not causal;
+    2 query blocks by 2 key blocks, 2 products a block (kernel route)."""
+    calls = _kernel_route(monkeypatch)
+    q, k, v = _qkv(1, 64, 2, 2, 16, seed=2)
+    base = dict(causal=True, q_chunk=32, kv_chunk=32)
+    with torch.no_grad():
+        for extra, blocks in ((dict(), 3), (dict(q_offset=torch.tensor(0)), 4),
+                              (dict(kv_len=60), 4), (dict(kahan_acc=True), 4),
+                              (dict(causal=False), 4)):
+            calls.clear()
+            flash_attention(q, k, v, **dict(base, **extra))
+            assert len(calls) == 2 * blocks, extra
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_packed_flash_against_the_reference(shape):
+    b, l, hq, hkv, d, qc, kc = shape
+    q, k, v = _qkv(b, l, hq, hkv, d, seed=3)
+    got = flash_attention(q, k, v, causal=True, q_chunk=qc,
+                          kv_chunk=kc).float().numpy()
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                  for t in (q, k, v))
+    want = np.asarray(ref_flash(jq, jk, jv, causal=True, q_chunk=qc,
+                                kv_chunk=kc, causal_packing=True),
+                      np.float32)
+    assert np.abs(got - want).max() <= 2.0 ** -9
+    assert (got != want).mean() <= 1e-3
+
+
+def _ref_loss(cfg, params, batch):
+    fn = jax.jit(api.loss_fn(cfg))
+    compiled = fn.lower(params, batch).compile(
+        compiler_options={"xla_allow_excess_precision": False})
+    return float(compiled(params, batch)[0])
+
+
+def _port(params):
+    return bridge.params_from_reference(jax.tree.map(np.asarray, params),
+                                        "cpu", hold_bf16=False)
+
+
+def _tbatch(batch):
+    return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+
+
+@pytest.fixture(scope="module")
+def qwen():
+    cfg = reduced(get_config("qwen1.5-0.5b")).with_(remat=True)
+    tcfg = t_reduced(t_get_config("qwen1.5-0.5b")).with_(remat=True)
+    params = common.init_params(api.schema(cfg), jax.random.key(0))
+    batch = synthetic.make_batch(cfg, SEQ, 4, seed=3)
+    return cfg, tcfg, params, batch
+
+
+def test_packed_training_loss_against_the_reference(qwen):
+    """The port's training loss (packed) against the reference's with
+    ``causal_packing`` on and off."""
+    cfg, tcfg, params, batch = qwen
+    got, _ = tapi.loss_fn(tcfg)(_port(params), _tbatch(batch))
+    for packing in (True, False):
+        want = _ref_loss(cfg.with_(causal_packing=packing), params, batch)
+        np.testing.assert_allclose(float(got), want, rtol=LOSS_RTOL)
+
+
+def _grads(tcfg, params, batch):
+    (loss, _), grads = tacc.value_and_grad(tapi.loss_fn(tcfg),
+                                           _port(params), _tbatch(batch))
+    return loss, tree_leaves(grads)
+
+
+def test_remat_dots_is_bitwise_nothing(qwen):
+    _, tcfg, params, batch = qwen
+    loss_n, g_n = _grads(tcfg, params, batch)
+    loss_d, g_d = _grads(tcfg.with_(remat_policy="dots"), params, batch)
+    assert torch.equal(loss_n, loss_d)
+    assert len(g_n) == len(g_d) == 25
+    assert all(torch.equal(a, b) for a, b in zip(g_n, g_d))
+
+
+def test_remat_dots_loss_against_the_reference(qwen):
+    cfg, tcfg, params, batch = qwen
+    want = _ref_loss(cfg.with_(remat_policy="dots"), params, batch)
+    got, _ = tapi.loss_fn(tcfg.with_(remat_policy="dots"))(_port(params),
+                                                           _tbatch(batch))
+    np.testing.assert_allclose(float(got), want, rtol=LOSS_RTOL)
+
+
+class _Products(TorchDispatchMode):
+    """Counts [M, K] x [K, N] products by phase."""
+
+    def __init__(self):
+        super().__init__()
+        self.phase, self.counts = "forward", {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten.mm.default, torch.ops.aten.mm.dtype):
+            self.counts[self.phase] = self.counts.get(self.phase, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def _product_counts(tcfg, params, batch) -> dict:
+    leaves = [p.detach().requires_grad_(True)
+              for p in tree_leaves(_port(params))]
+    tree = bridge.params_from_reference(
+        jax.tree.map(np.asarray, params), "cpu", hold_bf16=False)
+    from repro_torch.core.kahan import tree_unflatten
+    tree = tree_unflatten(tree, leaves)
+    with _Products() as mode:
+        loss, _ = tapi.loss_fn(tcfg)(tree, _tbatch(batch))
+        mode.phase = "backward"
+        torch.autograd.grad(loss, leaves)
+    return mode.counts
+
+
+def test_remat_dots_keeps_the_products(qwen):
+    """Under "dots" the backward recomputes none of the forward's
+    products: it runs only its own two per product (dX, dW). Under
+    "nothing" it recomputes each layer's products up to the last one
+    whose output its backward reads (torch's recompute stops there: 5
+    of a qwen1.5 layer's 6, all but the MLP's down projection)."""
+    _, tcfg, params, batch = qwen
+    nothing = _product_counts(tcfg, params, batch)
+    dots = _product_counts(tcfg.with_(remat_policy="dots"), params, batch)
+    assert nothing["forward"] == dots["forward"] == 6 * tcfg.num_layers + 1
+    assert dots["backward"] == 2 * dots["forward"]
+    assert nothing["backward"] - dots["backward"] == 5 * tcfg.num_layers
+
+
+def test_remat_policy_must_be_known(qwen):
+    _, tcfg, params, batch = qwen
+    with pytest.raises(ValueError, match="remat_policy"):
+        tapi.loss_fn(tcfg.with_(remat_policy="everything"))(
+            _port(params), _tbatch(batch))

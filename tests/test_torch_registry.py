@@ -38,9 +38,10 @@ from repro_torch import configs as P  # noqa: E402
 from repro_torch.models import api as tapi  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 
-# the reference's TPU knobs with no field in the port, per config type
-REFERENCE_ONLY = {"ModelConfig": {"remat_policy", "causal_packing",
-                                  "sp_residual"},
+# the reference's fields with no twin in the port, per config type (the
+# port packs causal attention wherever ``causal_packing`` would, with the
+# unpacked walk's bits: ``attention.flash_attention``)
+REFERENCE_ONLY = {"ModelConfig": {"causal_packing"},
                   "MLAConfig": {"causal_packing"},
                   "MoEConfig": {"act"}}
 LOGIT_ATOL = 0.05
