@@ -249,7 +249,9 @@ Phases (each prints its own lines; any failure exits non-zero):
              group): exit 0, positive flops, bytes and collective
              bytes. ``tools/dryrun_predict.py`` dry-runs qwen1.5-0.5b's
              serve step (8 slots, context 1024) and Kahan AdamW train
-             step (f32, 2 x 256 tokens) on a (1, 1) mesh; the phase
+             step (f32, 4 x 2048 tokens: four query blocks, and the
+             loss's f32 rows set the peak) on a (1, 1) mesh; the
+             phase
              runs both for real: argument bytes equal, peak temporaries
              within ``DRYRUN_PEAK_RTOL`` / ``DRYRUN_PEAK_ATOL``, step ms
              printed beside the roofline's bound. Control: the row
@@ -6340,6 +6342,11 @@ def report_c1(q_paths: dict, d_paths: dict) -> None:
 # depth, MoE's expert site, MLA decode on B3's fake, the 16 x 16 mesh
 DRYRUN_CELL = ("deepseek-v2-236b", "decode_32k")
 DRYRUN_TIMEOUT_S = 240
+# the train step held to its prediction: (seq, batch); 2048 tokens walk
+# four query blocks of qwen1.5's q_chunk 512, and the cross entropy's
+# [8192, 151936] f32 buffers set the step's peak (the attention scores
+# a layer keeps are a tenth of them, so no block is checkpointed)
+DRYRUN_TRAIN = (2048, 4)
 # predicted peak temporaries against the card's (max_memory_allocated
 # over the step, above what the arguments left allocated): slack for the
 # caching allocator's rounding (512-byte blocks) and the library
@@ -6376,7 +6383,9 @@ def dryrun_start() -> dict:
             **kw),
         predict=subprocess.Popen(
             [sys.executable, str(HERE / "tools" / "dryrun_predict.py"),
-             "--control", "--out", str(out / "predict.json")], **kw))
+             "--train-seq", str(DRYRUN_TRAIN[0]), "--train-batch",
+             str(DRYRUN_TRAIN[1]), "--control", "--out",
+             str(out / "predict.json")], **kw))
 
 
 def _storage_bytes(tree) -> int:
@@ -6420,7 +6429,8 @@ def phase_dryrun(dev, qwen, procs: dict) -> dict:
     (a 256-rank fake group, full width and depth) exits 0 with positive
     flops, bytes and collective bytes. (2) qwen1.5's serve step (8
     slots, context 1024, blocks of 16) and its Kahan AdamW train step
-    (f32, batch 2 of 256 tokens), dry-run on a (1, 1) mesh by
+    (f32, ``DRYRUN_TRAIN``: batch 4 of 2048 tokens, the loss's peak),
+    dry-run on a (1, 1) mesh by
     ``tools/dryrun_predict.py`` and run here for real: argument bytes
     equal, peak temporaries within ``DRYRUN_PEAK_RTOL`` /
     ``DRYRUN_PEAK_ATOL``, and the measured device time printed beside
@@ -6456,7 +6466,7 @@ def phase_dryrun(dev, qwen, procs: dict) -> dict:
     peak, ms = _measured_step(lambda: serve(q_params, caches, tokens), args)
     measured["serve"] = dict(arg_bytes=args, peak_bytes=peak, ms=ms)
     del caches, q_params
-    # the train step: f32 tree, Kahan AdamW, one batch of 2 x 256
+    # the train step: f32 tree, Kahan AdamW, one batch of 4 x 2048
     cfg = qwen
     params = api.init_params(cfg, device=dev, seed=SEED, hold_bf16=False)
     opt_cfg = adamw.AdamWConfig(kahan=True)
@@ -6467,7 +6477,7 @@ def phase_dryrun(dev, qwen, procs: dict) -> dict:
                  if v.dtype == torch.int32 else torch.ones(v.shape,
                                                            dtype=v.dtype))
              .to(dev) for k, v in synthetic.train_batch_struct(
-                 cfg, 256, 2).items()}
+                 cfg, *DRYRUN_TRAIN).items()}
     train = steps.build_train_step(cfg, opt_cfg)
     args = (_storage_bytes(params) + _storage_bytes(state)
             + _storage_bytes(batch))

@@ -233,18 +233,24 @@ def lay_out(x: torch.Tensor, *names: str | None) -> torch.Tensor:
     return x.redistribute(mesh, placements(spec, mesh))
 
 
-def reduce_partial(x: torch.Tensor) -> torch.Tensor:
+def reduce_partial(x: torch.Tensor, like: torch.Tensor | None = None
+                   ) -> torch.Tensor:
     """``x`` with its pending partial sums reduced: a DTensor that a
     product over a sharded dim left ``Partial`` comes back replicated on
     those mesh dims, in its own dtype (f32 after a product), so nothing
-    rounds the partials before they are summed. Anything else is
-    returned as it is."""
+    rounds the partials before they are summed; on a mesh dim where the
+    DTensor ``like`` (of x's shape) is split, split as it is (a
+    reduce-scatter: a weight's gradient never whole on a rank). Anything
+    else is returned as it is."""
     from torch.distributed.tensor import DTensor, Replicate
     if not isinstance(x, DTensor) or not any(
             p.is_partial() for p in x.placements):
         return x
+    want = (like.placements if isinstance(like, DTensor)
+            else (Replicate(),) * len(x.placements))
     return x.redistribute(x.device_mesh, [
-        Replicate() if p.is_partial() else p for p in x.placements])
+        (w if w.is_shard() else Replicate()) if p.is_partial() else p
+        for p, w in zip(x.placements, want)])
 
 
 def gathered(x: torch.Tensor) -> torch.Tensor:
@@ -393,20 +399,23 @@ def vocab_parallel_ce(lg: torch.Tensor, labels: torch.Tensor) -> tuple:
     slice) and the partials are all-reduced. The max is a constant of
     the gradient, as in ``logsumexp``. Returned as DTensors laid out as
     the logits' rows; the sums run in another order than the plain
-    ``logsumexp``."""
+    ``logsumexp``. A vocabulary split over mesh dims of one rank is no
+    split: the plain ``logsumexp`` runs, as on one card (its backward
+    holds one more [rows, V] f32 buffer than the split form's)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
     mesh, pl = lg.device_mesh, list(lg.placements)
     vdim = lg.ndim - 1
-    split = [i for i, p in enumerate(pl) if p.is_shard() and p.dim == vdim]
-    rows = [Replicate() if i in split or p.is_partial() else p
-            for i, p in enumerate(pl)]
-    if not split:
-        lg = lg.redistribute(mesh, rows)
-        return torch.logsumexp(lg, dim=-1), torch.gather(
-            lg, -1, labels[..., None])[..., 0]
+    split = [i for i, p in enumerate(pl)
+             if p.is_shard() and p.dim == vdim and mesh.size(i) > 1]
+    rows = [Replicate() if p.is_partial() or (p.is_shard() and p.dim == vdim)
+            else p for p in pl]
     if not isinstance(labels, DTensor):
         labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
                                     run_check=False)
+    if not split:
+        lg = lg.redistribute(mesh, rows)
+        return torch.logsumexp(lg, dim=-1), torch.gather(
+            lg, -1, labels.redistribute(mesh, rows)[..., None])[..., 0]
     lab = labels.redistribute(mesh, rows).to_local()
     lg = lg.redistribute(mesh, [p if i in split else rows[i]
                                 for i, p in enumerate(pl)])

@@ -30,6 +30,34 @@ a loop: under a counter built with ``extrapolate=True``, and while
 autograd records nothing, it runs the body once and counts it n times
 (``fill`` pads what the skipped iterations would have made). The layers
 are extrapolated by the dry run from traces at two or three depths.
+
+The peak is a maximum over time, not a sum, so ``combine`` does not
+extrapolate it linearly. The counter keeps it per phase of the step:
+the forward (everything before autograd's first backward op), the
+backward (ops inside autograd's graph task, a checkpoint's recompute
+included) and what follows it (the optimizer); a step without a
+backward is one forward. Of each phase's live set it keeps the part
+that stacks with depth: the storages that were made before the phase
+or outlive it (the layer inputs remat keeps to the backward, a
+prefill's caches, the gradients, the optimizer's new state), at the
+phase's peak and at its largest (the top of the stack), and the live
+set at that top. ``combine`` extrapolates each stacked set linearly and
+adds the transients on top of it, three ways:
+
+  * top: the top of the stack, with the largest transient a trace
+    shows there. That moment exists at any depth: a lower bound;
+  * any: the top with the most any trace's peak rises above its own:
+    every transient as if it sat on the whole stack. A training
+    forward's and backward's worst transients are a layer's, which the
+    deepest layers set on top of (nearly) the whole stack, so this is
+    their estimate, whichever layer kind each trace peaks in (a cut
+    ending in a Mamba2 layer, another in the shared attention block);
+  * matched: the stacked set at the peak, with the largest transient
+    there, exact where every trace peaks at the same moment. An
+    optimizer's worst leaf, or a prefill's embedding, may come before
+    the stack has grown, where the any estimate would set it on top;
+    there the matched estimate, held between the other two, is the
+    phase's peak.
 """
 
 from __future__ import annotations
@@ -82,6 +110,11 @@ _SCATTERS = {"index_put", "index_put_", "_index_put_impl_", "index_copy",
              "scatter_add_", "index_add", "index_add_", "_unsafe_index_put",
              "masked_scatter", "masked_scatter_"}
 
+# ops whose kernels make a temporary this mode cannot see (their inner
+# calls run below it), in bytes of their first input: logsumexp's
+# exp(x - max) (on the card a [tokens, vocab] f32 buffer at the loss)
+_HIDDEN_TEMPS = {"logsumexp": 1}
+
 # c10d functional op -> (kind, ring factor, volume from the output)
 _COLLECTIVES = {
     "all_reduce": ("all-reduce", 2.0, False),
@@ -112,18 +145,27 @@ class StepCost:
     kernel_calls: dict = field(default_factory=dict)
     peak_bytes: float = 0.0          # the largest live set of the step
     end_bytes: float = 0.0           # the live set the step ends with
+    # the largest live set of each phase (forward, backward, after it),
+    # and (stacked at its peak, stacked at most, live there) (docstring)
+    phase_peaks: dict = field(default_factory=dict)
+    phase_stacked: dict = field(default_factory=dict)
+    # (op, local shape, dtype, bytes) live at the peak, when recorded
+    peak_tensors: list = field(default_factory=list)
     warnings: list = field(default_factory=list)
 
     _SCALARS = ("flops", "dot_flops", "elementwise_flops", "bytes_accessed",
-                "weighted_collective_bytes", "peak_bytes", "end_bytes")
+                "weighted_collective_bytes", "end_bytes")
     _DICTS = ("collective_bytes", "collective_count", "axis_bytes",
               "kernel_calls")
 
     @staticmethod
     def combine(terms) -> "StepCost":
         """sum of coef * cost over ``terms`` ((coef, StepCost) pairs),
-        field by field: a linear extrapolation of traces."""
+        field by field: a linear extrapolation of traces; the peak by
+        ``extrapolate_peak``."""
+        terms = list(terms)
         out = StepCost()
+        out.peak_bytes, out.phase_peaks = StepCost.extrapolate_peak(terms)
         for coef, c in terms:
             for f in StepCost._SCALARS:
                 setattr(out, f, getattr(out, f) + coef * getattr(c, f))
@@ -136,6 +178,31 @@ class StepCost:
             setattr(out, f, {k: v for k, v in getattr(out, f).items()
                              if v != 0})
         return out
+
+    @staticmethod
+    def extrapolate_peak(terms) -> tuple:
+        """(peak, phase peaks) of the step the traces in ``terms`` span
+        (module docstring): a training forward's and backward's any
+        estimate; elsewhere the matched one held between top and any."""
+        costs = [c for _, c in terms]
+        trained = all("backward" in c.phase_stacked for c in costs)
+        peaks = {}
+        for p in (p for p in PHASES if all(p in c.phase_stacked
+                                           for c in costs)):
+            def lin(i):
+                return sum(coef * c.phase_stacked[p][i] for coef, c in terms)
+            at_top = lin(1) + max(c.phase_stacked[p][2]
+                                  - c.phase_stacked[p][1] for c in costs)
+            any_ = lin(1) + max(c.phase_peaks[p] - c.phase_stacked[p][1]
+                                for c in costs)
+            matched = lin(0) + max(c.phase_peaks[p] - c.phase_stacked[p][0]
+                                   for c in costs)
+            peaks[p] = any_ if trained and p != "after" else \
+                min(max(matched, at_top), any_)
+        return max(peaks.values(), default=0.0), peaks
+
+
+PHASES = ("forward", "backward", "after")
 
 
 def _tensors(tree):
@@ -182,10 +249,11 @@ class StepCounter(TorchDispatchMode):
     """Counts one step's per-device work (module docstring). ``groups``
     maps a process group's name to (mesh axis label, size): the axis a
     collective's bytes are charged to. ``extrapolate`` turns ``trips``
-    loops into one counted iteration."""
+    loops into one counted iteration. ``record`` keeps each storage's
+    op, shape and dtype, and ``finish`` lists those live at the peak."""
 
     def __init__(self, groups: dict | None = None, *,
-                 extrapolate: bool = False):
+                 extrapolate: bool = False, record: bool = False):
         super().__init__()
         self.groups = dict(groups or {})
         self.extrapolate = extrapolate
@@ -195,6 +263,14 @@ class StepCounter(TorchDispatchMode):
         self._live = 0
         self._storages: dict = {}
         self._patched: list = []
+        self._phase = "forward"
+        self._clock = 0                  # allocations and frees so far
+        self._peak_clock: dict = {}      # phase -> clock at its peak
+        self._start = {"forward": 0}     # phase -> clock it began at
+        self._last_op: dict = {}         # phase -> clock after its last op
+        self._record = record
+        # (key, born) -> [bytes, born, died, (op, shape, dtype) or None]
+        self._lifetimes: dict = {}
 
     # -- the mode -----------------------------------------------------------
     def __enter__(self):
@@ -228,12 +304,14 @@ class StepCounter(TorchDispatchMode):
             return func(*args, **kwargs)
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
+        self._enter_phase()
         out = func(*args, **kwargs)
         if not self._hidden:
             self._count(func, args, kwargs, out)
             if not any(r.alias_info is not None
                        for r in func._schema.returns):
-                self._track(out)     # views and in-place ops allocate none
+                self._track(out, func)  # views, in-place ops allocate none
+        self._last_op[self._phase] = self._clock
         return out
 
     # -- counting -----------------------------------------------------------
@@ -287,6 +365,9 @@ class StepCounter(TorchDispatchMode):
         else:
             nb = sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)
         c.bytes_accessed += nb * w
+        if base in _HIDDEN_TEMPS:
+            self._note_peak(self._live + sum(_nbytes(t) for t in outs)
+                            + _HIDDEN_TEMPS[base] * _nbytes(ins[0]))
 
     def _collective(self, base, args, kwargs, out, w) -> None:
         kind, factor, from_out = _COLLECTIVES[base]
@@ -320,14 +401,88 @@ class StepCounter(TorchDispatchMode):
         c.bytes_accessed += nbytes * w
         c.kernel_calls[name] = c.kernel_calls.get(name, 0) + w
         made = sum(_nbytes(t) for t in _tensors(out))
-        c.peak_bytes = max(c.peak_bytes, self._live + made + scratch)
+        self._note_peak(self._live + made + scratch)
 
     # -- the live set -------------------------------------------------------
     @property
     def live_bytes(self) -> float:
         return self._live
 
-    def _track(self, out) -> None:
+    def _enter_phase(self) -> None:
+        """Move to the backward phase at autograd's first backward op,
+        and to the phase after it at each op outside the backward that
+        follows one inside; ops outside it between two backward ops (a
+        collective's wait) count as the backward's."""
+        in_backward = torch._C._current_graph_task_id() != -1
+        peaks = self.cost.phase_peaks
+        if in_backward and self._phase != "backward":
+            self._start.setdefault("backward", self._clock)
+            if self._phase == "after":
+                del self._start["after"]
+                after = peaks.pop("after")
+                if after > peaks["backward"]:
+                    peaks["backward"] = after
+                    self._peak_clock["backward"] = self._peak_clock["after"]
+            self._phase = "backward"
+        elif not in_backward and self._phase == "backward":
+            self._start["after"] = self._clock
+            self._phase = "after"
+        self._note_peak(self._live)
+
+    def _note_peak(self, live: float) -> None:
+        c = self.cost
+        if live > c.peak_bytes:
+            c.peak_bytes = live
+            self._peak_clock["step"] = self._clock
+        if live > c.phase_peaks.get(self._phase, -1.0):
+            c.phase_peaks[self._phase] = live
+            self._peak_clock[self._phase] = self._clock
+
+    def _stacked(self, start: int, end: int, peak_t: int) -> tuple:
+        """Of the storages live between the clocks ``start`` and ``end``,
+        those made before ``start`` or outliving ``end``: their bytes at
+        ``peak_t``, at their largest, and every storage's bytes there."""
+        import numpy as np
+        lts = list(self._lifetimes.values())
+        never = self._clock + 2
+        n = np.array([lt[0] for lt in lts], dtype=np.float64)
+        born = np.array([lt[1] for lt in lts], dtype=np.int64)
+        died = np.array([never if lt[2] is None else lt[2] for lt in lts],
+                        dtype=np.int64)
+
+        def curve(mask):                 # bytes live at t: born < t <= died
+            d = np.zeros(never + 2)
+            np.add.at(d, born[mask] + 1, n[mask])
+            np.add.at(d, died[mask] + 1, -n[mask])
+            return np.cumsum(d)
+        live = curve(np.ones(len(lts), dtype=bool))
+        stacked = curve((born < start) | (died >= end))
+        window = np.arange(start + 1, max(end, start + 1) + 1)
+        top = window[np.lexsort((live[window], stacked[window]))[-1]]
+        return (float(stacked[peak_t]), float(stacked[top]),
+                float(live[top]))
+
+    def finish(self) -> None:
+        """Close the step: its end set, and each phase's stacked part:
+        the storages live in it that were made before it began or
+        outlive its last op (what the phase frees only as it returns,
+        the backward's gradient buffers, the optimizer's clipped
+        gradients, stacks too)."""
+        c = self.cost
+        c.end_bytes = float(self._live)
+        for p, start in self._start.items():
+            if p in c.phase_peaks:
+                c.phase_stacked[p] = self._stacked(
+                    start, self._last_op.get(p, start), self._peak_clock[p])
+        if self._record:
+            t = self._peak_clock.get("step", 0)
+            c.peak_tensors = sorted(
+                [meta + (n,) for n, born, died, meta in
+                 self._lifetimes.values()
+                 if born < t and (died is None or died >= t)],
+                key=lambda r: -r[3])
+
+    def _track(self, out, func=None) -> None:
         for t in _tensors(out):
             try:
                 st = t.untyped_storage()
@@ -336,18 +491,29 @@ class StepCounter(TorchDispatchMode):
             key = id(st)
             if key in self._storages:
                 continue
-            n = st.nbytes()
+            # a collective's output is a buffer of its own on the card;
+            # a fake one may view a larger one (shard_dim_alltoall's
+            # fake chunks the whole gathered tensor)
+            n = _nbytes(t) if _base(func) in _COLLECTIVES else st.nbytes()
             try:
                 weakref.finalize(st, self._free, key, n)
             except TypeError:
                 continue
-            self._storages[key] = n
+            self._storages[key] = (n, self._clock)
+            self._lifetimes[(key, self._clock)] = [
+                n, self._clock, None,
+                (_base(func), tuple(t.shape), str(t.dtype))
+                if self._record else None]
+            self._clock += 1
             self._live += n
-            self.cost.peak_bytes = max(self.cost.peak_bytes, self._live)
+            self._note_peak(self._live)
 
     def _free(self, key, n) -> None:
-        if self._storages.pop(key, None) is not None:
+        entry = self._storages.pop(key, None)
+        if entry is not None:
             self._live -= n
+            self._lifetimes[(key, entry[1])][2] = self._clock
+            self._clock += 1
 
     # -- trips --------------------------------------------------------------
     def _trip(self, weight: float):

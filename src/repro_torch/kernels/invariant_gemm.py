@@ -21,7 +21,8 @@ compute.
   item 2). It agrees with the twin to the f32 rounding of a K-term sum,
   not bitwise.
 * ``_Bf16Product`` / ``_Bf16BatchedProduct``: the card's training form,
-  cuBLAS tensor-core products with a backward.
+  cuBLAS tensor-core products with a backward (a DTensor's on the CPU
+  too, with the twin's arithmetic).
 
 ``product`` is the one dispatcher: the kernel for a CUDA tensor when
 autograd records nothing for the call (``use_kernel``, the row norm's
@@ -166,22 +167,44 @@ def _invariant_gemm(x, w, plan_batch, route):
     return y if batched else y[0]
 
 
+def _f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32 ``a @ b`` of bf16 operands, [M, K] x [K, N] or [B, M, K] x
+    [B, K, N]: the tensor cores' GEMM (cuBLAS) on the card or in a trace
+    of it, the twin elsewhere."""
+    if traced.on_card(a):
+        mm = torch.mm if a.dim() == 2 else torch.bmm
+        return mm(a, b, out_dtype=torch.float32)
+    return invariant_gemm_plain(a, b)
+
+
+def _rounded_grad(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A product's f32 gradient rounded to its operand's dtype. A
+    DTensor's pending partial sums are summed first, in f32, as one
+    process sums the K terms before it rounds (rounding each partial to
+    bf16 first moved 8-rank MoE gradients by up to 6e-3), into the
+    operand's own split where it has one."""
+    if type(g) is not torch.Tensor:
+        from repro_torch.distributed.sharding import reduce_partial
+        g = reduce_partial(g, like)
+    return g.to(like.dtype)
+
+
 class _Bf16Product(torch.autograd.Function):
-    """The card's bf16 product under autograd, [M, K] x [K, N] -> f32
-    [M, N] on the tensor cores (cuBLAS), with a backward
-    (``aten::mm.dtype`` has none).
+    """The bf16 product under autograd, [M, K] x [K, N] -> f32 [M, N], on
+    the card's tensor cores (``aten::mm.dtype`` has no backward), and
+    for a DTensor on the CPU with the twin's arithmetic.
 
     The gradients are those ``jax.grad`` gives through the reference's
     ``dense``: the incoming f32 gradient is the widening of the bf16
     output's gradient (exact in bf16), dX = dY W^T and dW = X^T dY are
-    bf16 tensor-core GEMMs with f32 results, each rounded to its
-    operand's dtype, bf16 (the casts in ``dense`` carry them on to the
-    caller's dtypes)."""
+    bf16 products with f32 results, each rounded to its operand's dtype,
+    bf16 (the casts in ``dense`` carry them on to the caller's dtypes),
+    a DTensor's partial sums summed before (``_rounded_grad``)."""
 
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        return torch.mm(x, w, out_dtype=torch.float32)
+        return _f32_product(x, w)
 
     @staticmethod
     def backward(ctx, dy):
@@ -192,22 +215,22 @@ class _Bf16Product(torch.autograd.Function):
             dy = product_grad_layout(dy, x, w)
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = torch.mm(dy, w.t(), out_dtype=torch.float32).to(x.dtype)
+            dx = _rounded_grad(_f32_product(dy, w.t()), x)
         if ctx.needs_input_grad[1]:
-            dw = torch.mm(x.t(), dy, out_dtype=torch.float32).to(w.dtype)
+            dw = _rounded_grad(_f32_product(x.t(), dy), w)
         return dx, dw
 
 
 class _Bf16BatchedProduct(torch.autograd.Function):
     """The batched form, [E, C, d] x [E, d, f] -> f32 [E, C, f]
     (``aten::bmm.dtype`` has no backward either): ``_Bf16Product`` per
-    batch entry, dX = dY W^T and dW = X^T dY as bf16 tensor-core
-    ``bmm``s with f32 results, each rounded to its operand's dtype."""
+    batch entry, dX = dY W^T and dW = X^T dY as bf16 products with f32
+    results, each rounded to its operand's dtype."""
 
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        return torch.bmm(x, w, out_dtype=torch.float32)
+        return _f32_product(x, w)
 
     @staticmethod
     def backward(ctx, dy):
@@ -215,11 +238,9 @@ class _Bf16BatchedProduct(torch.autograd.Function):
         dy = dy.to(torch.bfloat16)
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = torch.bmm(dy, w.transpose(1, 2),
-                           out_dtype=torch.float32).to(x.dtype)
+            dx = _rounded_grad(_f32_product(dy, w.transpose(1, 2)), x)
         if ctx.needs_input_grad[1]:
-            dw = torch.bmm(x.transpose(1, 2), dy,
-                           out_dtype=torch.float32).to(w.dtype)
+            dw = _rounded_grad(_f32_product(x.transpose(1, 2), dy), w)
         return dx, dw
 
 
@@ -230,12 +251,15 @@ def product(x: torch.Tensor, w: torch.Tensor, *,
     when autograd records nothing for the call (``plan_batch`` as in
     ``invariant_gemm_cuda``), else ``_Bf16Product`` /
     ``_Bf16BatchedProduct``, each on the leading dims flattened into one;
-    on the CPU the twin. A traced call (``kernels.traced``) reaches the
-    kernel's operator with its dims as they are, so that x's row shards
-    are not interleaved."""
+    on the CPU the twin, a DTensor's through the same autograd forms, so
+    that its partial gradients are summed before they round on either
+    device. A traced call (``kernels.traced``) reaches the kernel's
+    operator with its dims as they are, so that x's row shards are not
+    interleaved."""
     batched = w.dim() >= 3
     kernel = use_kernel(x, w)
-    if not (kernel or traced.on_card(x)):
+    if not (kernel or traced.on_card(x)) and type(x) is torch.Tensor \
+            and type(w) is torch.Tensor:
         return invariant_gemm_plain(x, w)
     xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
     if kernel and traced.active(xb, wb):

@@ -415,8 +415,10 @@ def _card_collectives():
             m.shard_dim_alltoall = orig
 
 
-def trace_step(step, make, mesh, act_rules, *, extrapolate: bool):
-    """One traced run of ``step(*make())``: its ``StepCost``."""
+def trace_step(step, make, mesh, act_rules, *, extrapolate: bool,
+               record: bool = False):
+    """One traced run of ``step(*make())``: its ``StepCost`` (with the
+    storages live at its peak under ``record``)."""
     import logging
     # DTensor warns of every two-axis gather it makes; the counts say it
     logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
@@ -436,9 +438,10 @@ def trace_step(step, make, mesh, act_rules, *, extrapolate: bool):
         args = make()
         with sharding.activation_sharding(mesh, act_rules), \
                 step_cost.StepCounter(mesh_groups(mesh),
-                                      extrapolate=extrapolate) as counter:
+                                      extrapolate=extrapolate,
+                                      record=record) as counter:
             out = step(*args)
-            counter.cost.end_bytes = counter.live_bytes
+            counter.finish()
             del out, args
     return counter.cost
 
@@ -462,14 +465,9 @@ def cell_cost(arch, shape_name, multi_pod, variant="kahan", opts=(), *,
                                               variant, opts, cfg=c, **kw)
         costs.append(trace_step(s, mk, m, r, extrapolate=True))
     coef = _solve([depth_units(c) for c in cuts], depth_units(cfg))
-    cost = StepCost.combine(zip([float(c) for c in coef], costs))
-    # the peak is a max, not a sum: where a cut's worst moment comes
-    # before its layers' state piles up (a prefill's first layer, over
-    # the embedding's temporaries), the deep step's worst moment may
-    # carry that state on top; the state grows as the step's end set
-    cost.peak_bytes = max([cost.peak_bytes] + [
-        c.peak_bytes + cost.end_bytes - c.end_bytes for c in costs])
-    return cost, full
+    # flops, bytes and collectives linearly; the peak by its phases'
+    # stacked sets and transients (``StepCost.extrapolate_peak``)
+    return StepCost.combine(zip([float(c) for c in coef], costs)), full
 
 
 def model_flops(cfg, shape) -> float:

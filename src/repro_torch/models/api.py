@@ -23,7 +23,7 @@ from typing import Callable
 import torch
 
 from repro_torch import device as _device
-from repro_torch.models import common, encdec, hybrid, lm
+from repro_torch.models import attention, common, encdec, hybrid, lm
 from repro_torch.models.blocks import check_trainable
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.paged import (DEFAULT_BLOCK_SIZE, POOL_KEYS,
@@ -71,13 +71,22 @@ def forward_fn(cfg: ModelConfig) -> Callable:
 def loss_fn(cfg: ModelConfig) -> Callable:
     """(params, batch) -> (loss, metrics): the weighted cross entropy the
     trainer differentiates, plus a MoE model's aux losses, with the
-    reference's metric keys for each family."""
+    reference's metric keys for each family. It runs beside what its
+    cross entropy holds (``attention.beside_loss``): flash attention
+    checkpoints each query block only where a layer's scores outweigh
+    that."""
     check_trainable(cfg)
-    if cfg.family == "audio":
-        return lambda p, b: encdec.encdec_loss(p, b, cfg)
-    if cfg.family == "hybrid":
-        return lambda p, b: hybrid.hybrid_loss(p, b, cfg)
-    return lambda p, b: lm.lm_loss(p, b, cfg)
+    loss = {"audio": encdec.encdec_loss,
+            "hybrid": hybrid.hybrid_loss}.get(cfg.family, lm.lm_loss)
+
+    def fn(params, batch):
+        head = params.get("lm_head")
+        nbytes = attention.loss_bytes(
+            batch["labels"], params["embed"] if head is None else head,
+            0 if head is None else -1)
+        with attention.beside_loss(nbytes):
+            return loss(params, batch, cfg)
+    return fn
 
 
 def prefill_fn(cfg: ModelConfig, cache_spec) -> Callable:

@@ -23,9 +23,11 @@ Caches are updated IN PLACE: the K/V (and scale) pools through
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import kahan
 from repro_torch.distributed.sharding import merge_heads
@@ -107,7 +109,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the diagonal are walked. A block past the diagonal is all masked and
     adds exact zeros (p = 0, corr = exp(0) = 1), so the packed walk is
     bitwise the full one. The block walks are ``step_cost.trips``: a cost
-    trace may run one block for all of them.
+    trace may run one block for all of them. Under autograd, inside a
+    training loss (``beside_loss``), a walk of more than one query block
+    checkpoints each one (the reference's per-chunk ``jax.checkpoint``)
+    where the scores its backward would keep outweigh what the loss
+    holds: recompute is deterministic, so the gradients keep their bits,
+    and a backward holds one block row's scores at a time.
 
     ``q_offset`` places the queries at absolute positions
     offset..offset+Lq-1; ``q_offset`` and ``kv_len`` take an int, a 0-d
@@ -185,7 +192,7 @@ def _flash_walk(qg, kt, vt, *, q_offset, kv_len, causal, packed, kahan_acc,
     dv = vt.shape[-1]
     dev = qg.device
 
-    def q_block(qi):
+    def q_block(qi, qg, kt, vt):
         q_blk = qg[:, :, :, qi].to(torch.float32)        # [B,Hkv,G,qc,D]
         # [qc] for a scalar offset, [B, qc] for a per-slot one
         q_pos = (q_offset[..., None] + qi * qc
@@ -237,9 +244,94 @@ def _flash_walk(qg, kt, vt, *, q_offset, kv_len, causal, packed, kahan_acc,
             acc = acc + acc_c
         return acc / torch.clamp_min(l, 1e-30)[..., None]
 
-    outs = [q_block(qi) for qi in step_cost.trips(nq)]
+    walk = q_block
+    pairs = nq * (nq + 1) // 2 if packed else nq * nk
+    kept = (_local_numel(qg) // (nq * d) * kc * pairs * SCORE_BYTES)
+    if nq > 1 and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (qg, kt, vt)) and \
+            _LOSS_BYTES[-1] is not None and kept > _LOSS_BYTES[-1]:
+        # the reference's per-query-block checkpoint: backward recomputes
+        # one block row at a time, so it holds one row's scores, not the
+        # walk's (one block alone would only be recomputed twice). The
+        # operands go in as arguments: a recomputed layer's checkpoint
+        # frees those, where a closure would keep them to the backward
+        def walk(*a):
+            return checkpoint(q_block, *a, use_reentrant=False)
+    outs = [walk(qi, qg, kt, vt) for qi in step_cost.trips(nq)]
     outs = step_cost.fill(outs, nq)
     return torch.stack(outs, dim=3).reshape(b, hkv, groups, nq * qc, dv)
+
+
+# bytes a layer's backward keeps for each score of a walked block pair
+# when its walk is not checkpointed per query block: the masked scores
+# (amax), their exp and the f32 probabilities the PV product took
+SCORE_BYTES = 12
+# bytes the loss holds for each logit at its own peak in backward: the
+# f32 logits, the label gather's scatter, the exp and their product on a
+# vocabulary split over ranks (``sharding.vocab_parallel_ce``), and the
+# plain logsumexp's x - max beside them on a whole one
+LOSS_BYTES_PER_LOGIT = {True: 16, False: 20}
+# what the step's loss holds at its peak, set by ``beside_loss``; None
+# outside a training loss
+_LOSS_BYTES: list = [None]
+
+
+def _local_numel(t: torch.Tensor) -> int:
+    from torch.distributed.tensor import DTensor
+    return t.to_local().numel() if isinstance(t, DTensor) else t.numel()
+
+
+def loss_bytes(labels: torch.Tensor, head: torch.Tensor,
+               vocab_dim: int) -> int:
+    """What a step's cross entropy holds at its peak on this rank: its
+    local label count times the head's local vocabulary, at
+    ``LOSS_BYTES_PER_LOGIT``."""
+    from torch.distributed.tensor import DTensor
+    local = head.to_local() if isinstance(head, DTensor) else head
+    vocab = local.shape[vocab_dim]
+    return (_local_numel(labels) * vocab
+            * LOSS_BYTES_PER_LOGIT[vocab < head.shape[vocab_dim]])
+
+
+@contextlib.contextmanager
+def beside_loss(nbytes: int | None):
+    """Within, a training walk of more than one query block checkpoints
+    each block where the scores a layer's backward would keep for its
+    whole walk (``SCORE_BYTES`` each) outweigh ``nbytes``, what the
+    step's loss holds at its own peak (``loss_bytes``): there the layer's
+    recompute, not the loss, would set the step's peak. Elsewhere the
+    walk is kept whole, and a backward pays no third forward."""
+    _LOSS_BYTES.append(nbytes)
+    try:
+        yield
+    finally:
+        _LOSS_BYTES.pop()
+
+
+def keeping_loss_bytes(fn):
+    """``fn``, run under the ``beside_loss`` in force now: a layer's
+    checkpoint recomputes it in backward, after the loss's context has
+    closed, and its walk must take the same form again."""
+    nbytes = _LOSS_BYTES[-1]
+
+    def run(*args, **kwargs):
+        with beside_loss(nbytes):
+            return fn(*args, **kwargs)
+    return run
+
+
+def seq_positions(length: int, device) -> torch.Tensor:
+    """Positions 0..length-1 of every sequence, [1, length]: broadcast
+    over the batch, never expanded to it (a DTensor's global batch would
+    make the RoPE tables whole on every rank)."""
+    return torch.arange(length, device=device)[None, :]
+
+
+def lengths_like(x: torch.Tensor, length: int) -> torch.Tensor:
+    """[B] int32 ``length`` per sequence of x [B, ...], laid out as x's
+    batch (a DTensor stays one)."""
+    return torch.full_like(x[(slice(None),) + (0,) * (x.ndim - 1)], length,
+                           dtype=torch.int32)
 
 
 def gqa_forward(p: dict, x: torch.Tensor, cfg: AttnConfig, *,
@@ -249,7 +341,7 @@ def gqa_forward(p: dict, x: torch.Tensor, cfg: AttnConfig, *,
     autograd (every op is out of place)."""
     b, l, _ = x.shape
     if positions is None:
-        positions = torch.arange(l, device=x.device)[None, :].expand(b, l)
+        positions = seq_positions(l, x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
     out = flash_attention(q, k, v, causal=cfg.causal, q_chunk=cfg.q_chunk,
                           kv_chunk=cfg.kv_chunk, kahan_acc=cfg.kahan_acc)
@@ -288,7 +380,7 @@ def gqa_prefill(p: dict, x: torch.Tensor, cfg: AttnConfig,
     attention runs over the dequantized values, which is what every
     later reader of the cache sees."""
     b, l, _ = x.shape
-    positions = torch.arange(l, device=x.device)[None, :].expand(b, l)
+    positions = seq_positions(l, x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
     fmt = qcore.get_format(cfg.kv_dtype)
     scale_pools = {}
@@ -305,7 +397,7 @@ def gqa_prefill(p: dict, x: torch.Tensor, cfg: AttnConfig,
     cache = {"kpool": paged.pool_from_rows(k_store, layout),
              "vpool": paged.pool_from_rows(v_store, layout),
              "block_table": paged.identity_table(b, layout, x.device),
-             "len": torch.full((b,), l, dtype=torch.int32, device=x.device),
+             "len": lengths_like(x, l),
              **scale_pools}
     return common.dense(merge_heads(out), p["wo"]), cache
 

@@ -108,7 +108,8 @@ def encode(params: dict, frames: torch.Tensor,
     h = h + common.sinusoidal_positions(h.shape[1], cfg.d_model,
                                         h.device).to(h.dtype)[None]
     for lp in params["enc_layers"]:
-        h = (checkpoint(_enc_layer, lp, h, cfg, use_reentrant=False)
+        h = (checkpoint(attn.keeping_loss_bytes(_enc_layer), lp, h, cfg,
+                        use_reentrant=False)
              if cfg.remat else _enc_layer(lp, h, cfg))
     return common.apply_norm(h, params["enc_norm"], cfg.norm)
 
@@ -143,7 +144,8 @@ def encdec_forward(params: dict, batch: dict, cfg: ModelConfig
     h = common.embed_tokens(params["embed"], tokens)
     h = h + params["pos_embed"][:l].to(h.dtype)[None]
     for lp in params["dec_layers"]:
-        h = (checkpoint(_dec_layer, lp, h, memory, cfg, use_reentrant=False)
+        h = (checkpoint(attn.keeping_loss_bytes(_dec_layer), lp, h,
+                        memory, cfg, use_reentrant=False)
              if cfg.remat else _dec_layer(lp, h, memory, cfg))
     h = common.apply_norm(h, params["dec_norm"], cfg.norm)
     return common.dense(h, params["embed"].T), {}
@@ -210,8 +212,8 @@ def encdec_decode(params: dict, tokens: torch.Tensor, caches: dict,
         q = split_heads(common.dense(x, lp["cross_attn"]["wq"]),
                         acfg.num_heads, acfg.head_dim)
         ck, cv = caches["cross_k"][i], caches["cross_v"][i]
-        ctx = attn.attend_cache(q, ck, cv, torch.full(
-            (b,), ck.shape[1], dtype=torch.int32, device=ck.device))
+        ctx = attn.attend_cache(q, ck, cv,
+                                attn.lengths_like(ck, ck.shape[1]))
         h = h + common.dense(merge_heads(ctx), lp["cross_attn"]["wo"])
         h = _mlp_residual(lp, h, cfg)
     return _logits(params, h, cfg)

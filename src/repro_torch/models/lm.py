@@ -28,6 +28,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.kernels.serving_head import serving_head
 from repro_torch.models import common
+from repro_torch.models.attention import keeping_loss_bytes
 from repro_torch.models.blocks import (AUX_KEYS, block_apply,
                                        block_cache_spec, block_decode,
                                        block_prefill, block_prefill_chunk,
@@ -143,7 +144,9 @@ def remat(fn, cfg: ModelConfig, *args, **kwargs):
     """``fn(*args, **kwargs)``, recomputed in backward by
     ``cfg.remat_policy``: "nothing" saves no tensor inside ``fn``, "dots"
     the outputs of its products with no batch dims. Recompute is
-    deterministic, so both give the same bits."""
+    deterministic, so both give the same bits; it runs under the
+    forward's ``attention.beside_loss``, so each walk takes its form
+    again."""
     if cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy {cfg.remat_policy!r}: not one of "
                          f"{sorted(REMAT_POLICIES)}")
@@ -151,7 +154,8 @@ def remat(fn, cfg: ModelConfig, *args, **kwargs):
     if policy is not None:
         kwargs["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, policy)
-    return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return checkpoint(keeping_loss_bytes(fn), *args, use_reentrant=False,
+                      **kwargs)
 
 
 def lm_forward(params: dict, batch: dict, cfg: ModelConfig

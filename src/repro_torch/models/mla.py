@@ -33,7 +33,8 @@ import torch
 from repro_torch.distributed.sharding import merge_heads
 from repro_torch.kernels import ops
 from repro_torch.models import common, paged
-from repro_torch.models.attention import flash_attention
+from repro_torch.models.attention import (flash_attention, lengths_like,
+                                          seq_positions)
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.paged import PagedLayout
 from repro_torch.quant import core as qcore
@@ -215,7 +216,7 @@ def mla_forward(p: dict, x: torch.Tensor, cfg: MLAConfig, *,
     b, l, _ = x.shape
     h = cfg.num_heads
     if positions is None:
-        positions = torch.arange(l, device=x.device)[None, :].expand(b, l)
+        positions = seq_positions(l, x.device)
     q_nope, q_rope, c_kv, k_rope = _latents(p, x, cfg, positions)
     k_nope = common.dense(c_kv, p["wk_b"]).reshape(b, l, h, cfg.nope_dim)
     v = common.dense(c_kv, p["wv_b"]).reshape(b, l, h, cfg.v_dim)
@@ -238,7 +239,7 @@ def mla_prefill(p: dict, x: torch.Tensor, cfg: MLAConfig,
     dequantized values, which is what every later reader sees."""
     b, l, _ = x.shape
     h = cfg.num_heads
-    positions = torch.arange(l, device=x.device)[None, :].expand(b, l)
+    positions = seq_positions(l, x.device)
     q_nope, q_rope, c_kv, k_rope = _latents(p, x, cfg, positions)
     fmt = qcore.get_format(cfg.kv_dtype)
     scale_pools = {}
@@ -261,7 +262,7 @@ def mla_prefill(p: dict, x: torch.Tensor, cfg: MLAConfig,
     cache = {"c_kv": paged.pool_from_rows(c_kv_store, layout),
              "k_rope": paged.pool_from_rows(k_rope_store, layout),
              "block_table": paged.identity_table(b, layout, x.device),
-             "len": torch.full((b,), l, dtype=torch.int32, device=x.device),
+             "len": lengths_like(x, l),
              **scale_pools}
     return common.dense(merge_heads(out), p["wo"]), cache
 

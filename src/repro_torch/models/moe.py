@@ -22,6 +22,22 @@ computes:
   rounding) changes from run to run; the port instead un-permutes the
   contributions into a [T, k] layout ordered by expert id and adds them
   left to right, which is that order on every device.
+
+Laid out over a mesh (DTensor activations and weights), the dispatch
+stays with the batch, as the reference's GSPMD layout keeps it: each
+batch shard routes its own tokens against the one global capacity, its
+tokens ranked after every lower shard's by an exclusive prefix of the
+per-expert counts (an all-gather of [E] ints over the batch axes), so
+earlier tokens win capacity ties across shards too and the slots and
+drops are the single process's. Each rank fills only its own experts'
+[E / model, C, d] buckets with its own tokens; every slot has one
+writer, so summing the buckets over the batch axes (an all-reduce of a
+``Partial`` DTensor) is exact. The combine picks, for each of a rank's
+(token, expert) pairs, the row its own experts hold, zeros elsewhere,
+and sums the [T / batch, k, d] rows over the expert axis (again one
+writer each), before the gates scale them and each token folds its k
+rows in expert-id order as above. No token-side tensor has the global
+token count on its token axis.
 """
 
 from __future__ import annotations
@@ -86,6 +102,188 @@ def _expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
+class _Shards:
+    """Where the MoE layer's tokens and experts live: the mesh dims that
+    split the token rows (the batch axes, ``bdims``) and those that split
+    the experts (``edims``, from the expert weights). Plain tensors have
+    none, and every method is then the identity."""
+
+    def __init__(self, x: torch.Tensor, w: torch.Tensor, e: int):
+        from torch.distributed.tensor import DTensor
+        self.mesh = x.device_mesh if isinstance(x, DTensor) else None
+        self.bdims, self.edims = [], []
+        self.s, self.e_loc, self.e0 = 0, e, 0
+        if self.mesh is None:
+            return
+        mesh = self.mesh
+        self.bdims = [i for i, p in enumerate(x.placements)
+                      if p.is_shard() and p.dim == 0]
+        if isinstance(w, DTensor):
+            self.edims = [i for i, p in enumerate(w.placements)
+                          if p.is_shard() and p.dim == 0]
+        if set(self.bdims) & set(self.edims):
+            raise ValueError("the tokens and the experts split over the "
+                             "same mesh dim")
+        coord = mesh.get_coordinate()
+        for i in self.bdims:            # the shard's index, mesh order
+            self.s = self.s * mesh.size(i) + coord[i]
+        r = 0
+        for i in self.edims:
+            r = r * mesh.size(i) + coord[i]
+        self.e_loc = e // math.prod(mesh.size(i) for i in self.edims)
+        self.e0 = r * self.e_loc
+
+    def _pl(self, b=None, e=None) -> list:
+        """Placements per mesh dim: ``b`` on the batch dims, ``e`` on the
+        expert dims, ``Replicate()`` for None and on the rest."""
+        from torch.distributed.tensor import Replicate
+        return [(b if i in self.bdims else e if i in self.edims else None)
+                or Replicate() for i in range(self.mesh.ndim)]
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """x with its rows split over the batch axes alone."""
+        if self.mesh is None:
+            return x
+        from torch.distributed.tensor import Replicate, Shard
+        return x.redistribute(self.mesh, self._pl(Shard(0), Replicate()))
+
+    def local(self, x: torch.Tensor, *, partial_experts: bool = False
+              ) -> torch.Tensor:
+        """A DTensor's local rows, laid out by ``rows``.
+        ``partial_experts``: each expert shard uses them for its own
+        experts, so their gradient is a partial sum over the expert
+        axis."""
+        if self.mesh is None:
+            return x
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        grad = self._pl(Shard(0), Partial() if partial_experts
+                        else Replicate())
+        return self.rows(x).to_local(grad_placements=grad)
+
+    def whole(self, local: torch.Tensor, shape: tuple) -> torch.Tensor:
+        """Local rows back as the rows-laid DTensor of ``shape``."""
+        if self.mesh is None:
+            return local
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        return DTensor.from_local(local, self.mesh,
+                                  self._pl(Shard(0), Replicate()),
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=_contiguous(shape))
+
+    def replicated(self, t: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return t
+        from torch.distributed.tensor import DTensor, Replicate
+        return DTensor.from_local(t, self.mesh, [Replicate()] * self.mesh.ndim,
+                                  run_check=False)
+
+    def row_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the batch axes of each shard's ``t``."""
+        if not self.bdims:
+            return t
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        return DTensor.from_local(t, self.mesh, self._pl(Partial()),
+                                  run_check=False).redistribute(
+            self.mesh, [Replicate()] * self.mesh.ndim).to_local()
+
+    def counts(self, counts: torch.Tensor):
+        """(the tokens of the lower batch shards per expert, the global
+        counts) from this shard's [E] counts."""
+        if not self.bdims:
+            return None, counts
+        from torch.distributed.tensor import DTensor, Shard
+        every = DTensor.from_local(counts[None], self.mesh,
+                                   self._pl(Shard(0)),
+                                   run_check=False).full_tensor()
+        return every[:self.s].sum(0), every.sum(0)
+
+    def buckets(self, xe: torch.Tensor, e: int) -> torch.Tensor:
+        """This rank's [E / model, C, d] buckets, written with its own
+        tokens only, summed over the batch axes: [E, C, d], experts split
+        as the expert weights are."""
+        if self.mesh is None:
+            return xe
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+        shape = (e,) + tuple(xe.shape[1:])
+        return DTensor.from_local(
+            xe, self.mesh, self._pl(Partial(), Shard(0)), run_check=False,
+            shape=torch.Size(shape), stride=_contiguous(shape)
+        ).redistribute(self.mesh, self._pl(Replicate(), Shard(0)))
+
+    def own_experts(self, ye: torch.Tensor) -> torch.Tensor:
+        """This rank's experts' outputs [E / model, C, d]; each batch
+        shard reads its own tokens' slots, so their gradient is a partial
+        sum over the batch axes."""
+        if self.mesh is None:
+            return ye
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        return ye.redistribute(self.mesh, self._pl(Replicate(), Shard(0))
+                               ).to_local(grad_placements=self._pl(
+                                   Partial(), Shard(0)))
+
+    def expert_sum(self, rows: torch.Tensor, t: int) -> torch.Tensor:
+        """[T / batch, k, d] rows, each held by one expert shard (zeros on
+        the others), summed over the expert axis."""
+        if not self.edims:
+            return rows
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+        shape = (t,) + tuple(rows.shape[1:])
+        return DTensor.from_local(
+            rows, self.mesh, self._pl(Shard(0), Partial()), run_check=False,
+            shape=torch.Size(shape), stride=_contiguous(shape)
+        ).redistribute(self.mesh, self._pl(Shard(0), Replicate())
+                       ).to_local()
+
+
+def _contiguous(shape: tuple) -> tuple:
+    return tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+
+
+class Routing(NamedTuple):
+    """One shard's routing of its T_loc tokens: ``top_e`` [T_loc, k], the
+    assignments sorted by expert (``order``, expert ``se``, local token
+    ``st``, renormalized gate ``sg``; [T_loc * k]), each one's global
+    rank in its expert's queue, ``keep`` (rank < capacity), ``slot``
+    (expert * C + rank, E * C when dropped) and the global per-expert
+    ``counts`` [E]."""
+    top_e: torch.Tensor
+    order: torch.Tensor
+    se: torch.Tensor
+    st: torch.Tensor
+    sg: torch.Tensor
+    ranks: torch.Tensor
+    keep: torch.Tensor
+    slot: torch.Tensor
+    counts: torch.Tensor
+
+
+def _route(probs: torch.Tensor, cfg: MoEConfig, cap: int,
+           sh: _Shards) -> Routing:
+    """The reference's routing of probs [T_loc, E] (this shard's tokens):
+    ranks within each expert in global token order, against the global
+    capacity ``cap``."""
+    e, k = cfg.num_experts, cfg.top_k
+    top_p, top_e = _top_k(probs, k)                               # [T, k]
+    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    flat_e = top_e.reshape(-1)                                    # [T*k]
+    flat_gate = top_p.reshape(-1)
+    order = torch.sort(flat_e, stable=True).indices
+    se, st, sg = flat_e[order], order // k, flat_gate[order]
+    # bincount's output length depends on the data; the expert ids are
+    # below e, so the counts are these
+    counts = torch.zeros(e, dtype=torch.int64, device=probs.device
+                         ).scatter_add_(0, flat_e, torch.ones_like(flat_e))
+    offsets = torch.cumsum(counts, 0) - counts
+    ranks = torch.arange(flat_e.shape[0], device=probs.device) - offsets[se]
+    before, counts = sh.counts(counts)
+    if before is not None:
+        ranks = ranks + before[se]
+    keep = ranks < cap
+    slot = torch.where(keep, se * cap + ranks,
+                       torch.full_like(se, e * cap))              # drop -> sentinel
+    return Routing(top_e, order, se, st, sg, ranks, keep, slot, counts)
+
+
 def moe_forward(p: dict, x: torch.Tensor, cfg: MoEConfig
                 ) -> tuple[torch.Tensor, dict]:
     """x [B, L, d] -> (y [B, L, d], aux losses dict)."""
@@ -94,44 +292,29 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: MoEConfig
     e, k = cfg.num_experts, cfg.top_k
     cap = capacity(t, cfg)
     dev = x.device
-    xf = x.reshape(t, d)
+    from repro_torch.distributed.sharding import shard_act
+    sh = _Shards(x, p["w_gate_up"], e)
+    xf = sh.rows(x).reshape(t, d)
 
-    logits = common.dense(xf, p["router"]).to(torch.float32)     # [T, E]
-    probs = torch.softmax(logits, dim=-1)
-    # the routing (top-k, sorts, counts, slot scatters), the bucket
-    # gather and the fold back run on plain tensors: a DTensor's router
-    # outputs, tokens and expert outputs are gathered to every rank whole
-    # (a replicated dispatch; DTensor has no rule for these index ops on
-    # sharded tensors), and only the expert products run laid out, over
-    # the experts
-    from repro_torch.distributed.sharding import (gathered, replicated_on,
-                                                  shard_act)
-    top_p, top_e = _top_k(gathered(probs), k)                     # [T, k]
-    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    logits = sh.local(common.dense(xf, p["router"])).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)                     # [T_loc, E]
+    r = _route(probs, cfg, cap, sh)
+    n = probs.shape[0]                                        # T_loc
 
-    # ---- sort assignments by expert --------------------------------------
-    flat_e = top_e.reshape(-1)                                    # [T*k]
-    flat_gate = top_p.reshape(-1)
-    order = torch.sort(flat_e, stable=True).indices
-    se, st, sg = flat_e[order], order // k, flat_gate[order]
-    # bincount's output length depends on the data; the expert ids are
-    # below e, so the counts are these
-    counts = torch.zeros(e, dtype=torch.int64, device=dev).scatter_add_(
-        0, flat_e, torch.ones_like(flat_e))                       # [E]
-    offsets = torch.cumsum(counts, 0) - counts
-    ranks = torch.arange(t * k, device=dev) - offsets[se]
-    keep = ranks < cap
-    slot = torch.where(keep, se * cap + ranks,
-                       torch.full_like(se, e * cap))              # drop -> sentinel
-
-    # ---- gather tokens into [E, C, d] buckets -----------------------------
-    slot_to_tok = torch.full((e * cap + 1,), t, dtype=torch.int64, device=dev)
-    slot_to_tok[slot] = st
-    slot_to_tok = slot_to_tok[:e * cap]
-    valid = slot_to_tok < t
-    xe = gathered(xf)[torch.clamp(slot_to_tok, 0, t - 1)] \
-        * valid[:, None].to(xf.dtype)
-    xe = shard_act(replicated_on(xe.reshape(e, cap, d), xf),
+    # ---- gather tokens into [E, C, d] buckets (this rank's experts) ------
+    e_loc, e0 = sh.e_loc, sh.e0
+    mine = r.keep if e_loc == e else \
+        r.keep & (r.se >= e0) & (r.se < e0 + e_loc)
+    slot = r.slot if e_loc == e else torch.where(
+        mine, (r.se - e0) * cap + r.ranks, torch.full_like(r.se, e_loc * cap))
+    slot_to_tok = torch.full((e_loc * cap + 1,), n, dtype=torch.int64,
+                             device=dev)
+    slot_to_tok[slot] = r.st
+    slot_to_tok = slot_to_tok[:e_loc * cap]
+    valid = slot_to_tok < n
+    xl = sh.local(xf, partial_experts=True)
+    xe = xl[torch.clamp(slot_to_tok, 0, n - 1)] * valid[:, None].to(xl.dtype)
+    xe = shard_act(sh.buckets(xe.reshape(e_loc, cap, d), e),
                    "act_experts", None, None)
 
     # ---- batched expert FFN ----------------------------------------------
@@ -140,30 +323,37 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: MoEConfig
     ye = _expert_matmul(common.swiglu(gate, up), p["w_down"]).to(xe.dtype)
 
     # ---- weighted fold back to tokens, in sorted order --------------------
-    yflat = gathered(ye).reshape(e * cap, d)
-    contrib = yflat[torch.clamp(slot, 0, e * cap - 1)]
-    contrib = contrib * (sg * keep).to(contrib.dtype)[:, None]
+    yflat = sh.own_experts(ye).reshape(e_loc * cap, d)
     # sorted position of each (token, expert) pair, then each token's k
     # pairs in expert-id order: the order the sorted scatter visits them
-    pos = torch.empty_like(order)
-    pos[order] = torch.arange(t * k, device=dev)
-    pos = torch.sort(pos.reshape(t, k), dim=1).values
-    per_tok = contrib[pos]                                        # [T, k, d]
-    y = torch.zeros((t, d), dtype=contrib.dtype, device=dev)
+    pos = torch.empty_like(r.order)
+    pos[r.order] = torch.arange(n * k, device=dev)
+    pos = torch.sort(pos.reshape(n, k), dim=1).values
+    rows = yflat[torch.clamp(slot, 0, e_loc * cap - 1)[pos]]     # [T, k, d]
+    if e_loc != e:
+        rows = sh.expert_sum(rows * mine[pos][..., None].to(rows.dtype), t)
+    per_tok = rows * (r.sg * r.keep).to(rows.dtype)[pos][..., None]
+    y = torch.zeros((n, d), dtype=per_tok.dtype, device=dev)
     for j in range(k):
         y = y + per_tok[:, j]
-    y = replicated_on(y, xf)
+    y = sh.whole(y, (t, d))
 
     if cfg.num_shared:
         y = y + mlp_forward(p["shared"], xf)
 
     # ---- aux losses --------------------------------------------------------
-    me = probs.mean(dim=0)                                        # mean prob
-    fe = counts.to(torch.float32) / (t * k)                       # routed frac
+    lse2 = torch.square(torch.logsumexp(logits, dim=-1))
+    if sh.bdims:
+        me = sh.row_sum(probs.sum(dim=0)) / t                    # mean prob
+        z_loss = sh.row_sum(lse2.sum()) / t
+    else:
+        me, z_loss = probs.mean(dim=0), torch.mean(lse2)
+    fe = r.counts.to(torch.float32) / (t * k)                     # routed frac
     load_balance = e * torch.sum(me * fe)
-    z_loss = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
-    dropped = 1.0 - keep.to(torch.float32).mean()
+    kept = torch.clamp_max(r.counts, cap).sum()
+    dropped = 1.0 - kept.to(torch.float32) / (t * k)
     aux = {"moe_load_balance": cfg.load_balance_coef * load_balance,
            "moe_z_loss": cfg.router_z_coef * z_loss,
            "moe_drop_fraction": dropped}
+    aux = {key: sh.replicated(v) for key, v in aux.items()}
     return y.reshape(b, l, d), aux

@@ -89,7 +89,9 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         xp = F.pad(x, (0, 0, width - 1, 0))
     else:
         xp = torch.cat([history.to(x.dtype), x], dim=1)
-    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    # laid out as x: a DTensor's global shape would make a plain,
+    # replicated buffer on every rank
+    out = torch.zeros_like(x, dtype=torch.float32)
     for i in range(width):          # width is 4: unrolled taps
         out = out + xp[:, i: i + length].to(torch.float32) \
             * w[i].to(torch.float32)

@@ -17,7 +17,12 @@ sync per leaf).
 
 ``value_and_grad`` stands in for ``jax.value_and_grad``: each leaf is
 detached into a fresh autograd leaf, the loss runs on that tree, and
-``torch.autograd.grad`` returns the gradient tree.
+``torch.autograd.grad`` returns the gradient tree. A DTensor leaf's
+gradient is laid out as the leaf by a hook on it, which runs as soon as
+the gradient is whole (a layer's weights once its backward is done), so
+no rank holds a gathered weight's partial gradient to the end of the
+backward. (A node between the leaf and its uses would run only at the
+backward's end: the engine runs the ready node made last first.)
 """
 
 from __future__ import annotations
@@ -38,12 +43,26 @@ def value_and_grad(loss_fn: Callable, params: Tree, batch: dict
                    ) -> tuple[tuple[torch.Tensor, dict], Tree]:
     """((loss, metrics), grads) of ``loss_fn(params, batch)``, which
     returns (loss, metrics); every leaf of ``params`` is differentiated."""
+    from torch.distributed.tensor import DTensor
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    for p in leaves:
+        if isinstance(p, DTensor):
+            p.register_hook(_laid_as(p))
     with torch.enable_grad():
         loss, metrics = loss_fn(tree_unflatten(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves)
     return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
             tree_unflatten(params, grads))
+
+
+def _laid_as(p):
+    """A hook laying a gradient out as the DTensor ``p``."""
+    mesh, placements = p.device_mesh, p.placements
+
+    def hook(g):
+        return g if g.placements == placements else \
+            g.redistribute(mesh, placements)
+    return hook
 
 
 def accumulate_gradients(loss_fn: Callable, params: Tree, batches: dict,

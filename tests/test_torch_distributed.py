@@ -58,6 +58,15 @@ BLOCKS = (("qwen1.5-0.5b", False), ("deepseek-v2-236b", True),
 KNOB_BLOCKS = (("olmoe-1b-7b", "olmoe-1b-7b", {}),
                ("qwen1.5-0.5b+sp_residual", "qwen1.5-0.5b",
                 {"sp_residual": True}))
+# (name, capacity_factor) of the MoE layers run forward and backward on
+# 8 ranks: reduced olmoe's own (1.25), and 0.25, at which the 128
+# tokens x 2 of 8 experts overflow every expert's capacity of 8 and
+# tokens of different batch shards compete for it
+MOE_CASES = (("olmoe", None), ("contested", 0.25))
+# the MoE layer's gradients against the single process's: relative
+# norm, as the card's product backward is held (chip_smoke's
+# DENSE_BWD_RTOL); y and the aux losses too
+MOE_RTOL = 1e-3
 
 REFERENCE = """
 import sys
@@ -119,6 +128,7 @@ WORKER = """
 import os, sys
 BLOCKS = [(a, a, d, {}) for a, d in %(blocks)r] + [
     (n, a, False, k) for n, a, k in %(knob_blocks)r]
+MOE_CASES = %(moe_cases)r
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -131,6 +141,7 @@ from torch.distributed.tensor import Replicate, distribute_tensor
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.distributed import collectives, compression, sharding
 from repro_torch.distributed.pipeline import make_pipeline_fn
+from repro_torch.kernels import invariant_gemm
 from repro_torch.launch import mesh as lmesh
 
 inp = dict(np.load(sys.argv[1]))
@@ -239,6 +250,43 @@ from torch.distributed.tensor import DTensor
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import blocks, common
 
+from repro_torch.models import moe
+ROUTES = []                    # every routing moe_forward makes
+route = moe._route
+def recording(*a, **k):
+    r = route(*a, **k)
+    ROUTES.append(r)
+    return r
+moe._route = recording
+
+def unsorted(r):
+    # (slot, keep) of each (token, k) pair in token order
+    slot, keep = torch.empty_like(r.slot), torch.empty_like(r.keep)
+    slot[r.order], keep[r.order] = r.slot, r.keep
+    return slot, keep
+
+def same_routing(whole, part, shard):
+    # the routing of batch shard `shard` (its T_loc tokens) against the
+    # single process's routing of every token: top-k experts, slots,
+    # keeps and the global counts, bitwise
+    n, k = part.top_e.shape
+    rows, pairs = slice(shard * n, (shard + 1) * n), \
+        slice(shard * n * k, (shard + 1) * n * k)
+    (s0, k0), (s1, k1) = unsorted(whole), unsorted(part)
+    return [torch.equal(whole.top_e[rows], part.top_e),
+            torch.equal(s0[pairs], s1), torch.equal(k0[pairs], k1),
+            torch.equal(whole.counts, part.counts)]
+
+def near_tie(r, probs):
+    # the smallest gap of the router's top-k against the next expert and
+    # between its own ranks, exact ties (equal bf16 logits, which both
+    # sides break to the lower expert) aside: routing pinned away from
+    # near-ties
+    top = torch.sort(probs, dim=-1, descending=True).values
+    k = r.top_e.shape[1]
+    gaps = top[:, :k] - top[:, 1:k + 1]
+    return float(gaps[gaps > 0].min())
+
 seen = []
 lay_out = sharding.shard_act
 def counting(x, *names):
@@ -260,19 +308,85 @@ for name, arch, dense, knobs in BLOCKS:
         return distribute_tensor(t, mesh_b, sharding.placements(s, mesh_b))
     h = torch.randn(4, 32, cfg.d_model, generator=torch.Generator(
         ).manual_seed(1)).to(torch.bfloat16)
+    ROUTES.clear()
     want, _ = blocks.block_apply(p, h, cfg, dense_ffn=dense)
     seen.clear()
     with sharding.activation_sharding(mesh_b):
         got, _ = blocks.block_apply(
             lay(p, specs), distribute_tensor(h, mesh_b, sharding.placements(
                 ("data", None, None), mesh_b)), cfg, dense_ffn=dense)
+    if ROUTES:
+        whole, part = ROUTES
+        out[f"block_{name}_routing"] = np.asarray(same_routing(
+            whole, part, mesh_b.get_local_rank("data")))
+        out[f"block_{name}_route_rows"] = np.asarray(
+            [part.top_e.shape[0], part.st.shape[0]])
     out[f"block_{name}_want"] = want.float().numpy()
     out[f"block_{name}_got"] = got.full_tensor().float().numpy()
     out[f"block_{name}_seen"] = np.asarray(seen, dtype=str).reshape(-1, 2)
 sharding.shard_act = lay_out
+
+# the MoE layer alone, forward and backward, on the (4, 2) mesh: the
+# reduced olmoe layer, and the same with capacity_factor 0.25, where
+# tokens of different batch shards compete for an expert's capacity
+def rel(a, b):
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).norm() / b.norm())
+for name, cf in MOE_CASES:
+    mcfg = reduced(get_config("olmoe-1b-7b")).moe
+    mcfg = mcfg._replace(capacity_factor=cf or mcfg.capacity_factor)
+    d = reduced(get_config("olmoe-1b-7b")).d_model
+    schema = moe.moe_schema(d, mcfg)
+    p = common.init_params(schema, torch.Generator().manual_seed(0),
+                           torch.device("cpu"), hold_bf16=False)
+    x = torch.randn(8, 16, d, generator=torch.Generator().manual_seed(1)
+                    ).to(torch.bfloat16)
+    dy = torch.randn(8, 16, d, generator=torch.Generator().manual_seed(2))
+    def run(params, xx, dyy):
+        leaves = {key: v.detach().requires_grad_(True)
+                  for key, v in params.items()}
+        xx = xx.detach().requires_grad_(True)
+        y, aux = moe.moe_forward(leaves, xx, mcfg)
+        loss = (y.float() * dyy).sum() + sum(aux.values())
+        return y, aux, torch.autograd.grad(loss, list(leaves.values())
+                                           + [xx])
+    ROUTES.clear()
+    y0, a0, g0 = run(p, x, dy)
+    summed = []
+    rounded = invariant_gemm._rounded_grad
+    def counted(g, like):
+        summed.append(type(g) is not torch.Tensor)
+        return rounded(g, like)
+    invariant_gemm._rounded_grad = counted
+    specs = sharding.param_specs(schema, mesh_b)
+    rows = sharding.placements(("data", None, None), mesh_b)
+    with sharding.activation_sharding(mesh_b):
+        y1, a1, g1 = run({key: distribute_tensor(v, mesh_b,
+                                                 sharding.placements(
+                                                     specs[key], mesh_b))
+                          for key, v in p.items()},
+                         distribute_tensor(x, mesh_b, rows),
+                         distribute_tensor(dy, mesh_b, rows))
+    invariant_gemm._rounded_grad = rounded
+    out[f"moe_{name}_summed"] = np.asarray(sum(summed))
+    whole, part = ROUTES
+    probs = torch.softmax(common.dense(x.reshape(-1, d), p["router"]
+                                       ).float(), dim=-1)
+    out[f"moe_{name}_gap"] = np.asarray(near_tie(whole, probs))
+    out[f"moe_{name}_routing"] = np.asarray(same_routing(
+        whole, part, mesh_b.get_local_rank("data")))
+    out[f"moe_{name}_rows"] = np.asarray([t.shape[0] for t in part])
+    out[f"moe_{name}_drop"] = np.asarray(
+        [float(a0["moe_drop_fraction"]),
+         float(a1["moe_drop_fraction"].full_tensor())])
+    out[f"moe_{name}_y"] = np.asarray(rel(y1.full_tensor(), y0))
+    out[f"moe_{name}_aux"] = np.asarray(
+        [rel(a1[key].full_tensor(), a0[key]) for key in a0])
+    out[f"moe_{name}_grads"] = np.asarray(
+        [rel(b.full_tensor(), a) for a, b in zip(g0, g1)])
 np.savez(os.path.join(sys.argv[2], f"rank{rank}.npz"), **out)
 dist.destroy_process_group()
-""" % {"blocks": BLOCKS, "knob_blocks": KNOB_BLOCKS}
+""" % {"blocks": BLOCKS, "knob_blocks": KNOB_BLOCKS, "moe_cases": MOE_CASES}
 
 
 def _free_port() -> int:
@@ -516,3 +630,42 @@ def test_knob_block_forward_under_activation_sharding(runs, name):
                                                    2.0 ** -126))) - 7)
         assert (np.abs(got - want) <= step).all()
         assert (got != want).mean() <= 1e-3, (got != want).mean()
+        if f"block_{name}_routing" in p:
+            # MoE: each batch shard (4 of [4, 32] tokens) routes its own
+            # 32 tokens (64 assignments), bitwise the single process's
+            # routing of them
+            assert p[f"block_{name}_routing"].all()
+            assert p[f"block_{name}_route_rows"].tolist() == [32, 64]
+    if name.startswith("olmoe"):
+        assert all(f"block_{name}_routing" in p for p in port)
+
+
+@pytest.mark.parametrize("name", [n for n, _ in MOE_CASES])
+def test_moe_dispatch_kept_over_the_batch(runs, name):
+    """The MoE layer on 8 ranks, (data 4, model 2), tokens [8, 16]
+    split over data and the 8 experts over model, forward and backward,
+    against the single process on the same tensors. On inputs pinned
+    away from router near-ties (the top-k gap checked), each batch
+    shard's routing of its own 32 tokens (top-k experts, slots, keeps,
+    global counts) is bitwise the single process's, and so is the drop
+    fraction; every routing tensor carries 32 tokens (T / 4) or their
+    64 pairs, never the 128; y, the aux losses and every gradient
+    (router, experts, x) within ``MOE_RTOL`` relative norm. Bitwise
+    here but the aux losses' means (summed per shard, then over them)
+    and x's gradient (router and dispatch summed in another order)."""
+    _, _, port = runs
+    for p in port:
+        assert float(p[f"moe_{name}_gap"]) > 1e-4
+        assert p[f"moe_{name}_routing"].all()
+        assert set(p[f"moe_{name}_rows"].tolist()) <= {32, 64, 8}
+        drop = p[f"moe_{name}_drop"]
+        assert drop[0] == drop[1]
+        assert float(p[f"moe_{name}_y"]) <= MOE_RTOL
+        assert (p[f"moe_{name}_aux"] <= MOE_RTOL).all()
+        assert (p[f"moe_{name}_grads"] <= MOE_RTOL).all(), \
+            p[f"moe_{name}_grads"]
+        # the mesh run's product gradients came through the card's
+        # autograd forms, each DTensor's partials summed before rounding
+        assert int(p[f"moe_{name}_summed"]) > 0
+    if name == "contested":
+        assert port[0][f"moe_{name}_drop"][0] > 0.5

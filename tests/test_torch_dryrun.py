@@ -200,6 +200,145 @@ def test_mini_dryrun_on_test_mesh(fake_group):
     assert kernels["kahan_acc"] > 0
 
 
+# the extrapolated peak against full-depth traces: a 4-layer form of each
+# depth_units family at full width, traced as a train step of 64
+# sequences of 1024 tokens on the (4, 2) fake mesh (16 sequences a data
+# shard, a production cell's activations per device), the forms two to
+# a subprocess
+PEAK_RTOL = 0.01
+PEAK_FORMS = {"qwen1.5-0.5b": {"num_layers": 4},
+              # segments of 3: one, then a tail layer, as zamba2's 38
+              # layers end in a tail after their last shared block
+              "zamba2-1.2b": {"num_layers": 4, "hybrid": {"segment_len": 3}},
+              "whisper-tiny": {"num_layers": 2, "encdec": {"enc_layers": 2}},
+              "deepseek-v2-236b": {"num_layers": 4, "first_k_dense": 1}}
+PEAKS = """
+import json, sys, torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import ShapeCell
+from repro_torch.ecm.step_cost import StepCost
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_test_mesh
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+mesh = make_test_mesh(device="cpu")
+shape = ShapeCell("train", "train", 1024, 64)
+out = {}
+for arch, kw in json.loads(sys.argv[1]).items():
+    cfg = get_config(arch)
+    cfg = cfg.with_(**{k: getattr(cfg, k)._replace(**v) if isinstance(v, dict)
+                       else v for k, v in kw.items()})
+    cuts = dryrun.depth_cuts(cfg)
+    costs = []
+    for c in cuts:
+        step, make, *_, m, rules = dryrun._build_cell(
+            arch, "train", False, "kahan", (), cfg=c, mesh=mesh, shape=shape)
+        costs.append(dryrun.trace_step(step, make, m, rules,
+                                       extrapolate=True))
+    coef = [float(x) for x in dryrun._solve(
+        [dryrun.depth_units(c) for c in cuts], dryrun.depth_units(cfg))]
+    full, _ = dryrun.cell_cost(arch, "train", False, cfg=cfg, mesh=mesh,
+                               shape=shape, extrapolate=False)
+    out[arch] = [StepCost.combine(zip(coef, costs)).peak_bytes,
+                 sum(k * c.peak_bytes for k, c in zip(coef, costs)),
+                 full.peak_bytes]
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def peaks():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
+    names = list(PEAK_FORMS)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", textwrap.dedent(PEAKS),
+         json.dumps({a: PEAK_FORMS[a] for a in part})],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=REPO) for part in (names[:2], names[2:])]
+    out = {}
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=TIMEOUT)
+            assert p.returncode == 0, f"STDOUT:\n{stdout}\nSTDERR:\n{stderr}"
+            out.update(_last_json(stdout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    return out
+
+
+@pytest.mark.parametrize("arch", list(PEAK_FORMS))
+def test_extrapolated_peak_equals_a_full_trace(peaks, arch):
+    """The peak the dry run extrapolates from its depth cuts
+    (``StepCost.combine``: each phase's stacked set linearly, the
+    transients on top) is a full-depth trace's to within ``PEAK_RTOL``
+    (exact on these forms) for each family: one stack (qwen1.5), hybrid
+    (zamba2), audio (whisper), ``first_k_dense`` (deepseek-v2)."""
+    ext, _, full = peaks[arch]
+    assert abs(ext / full - 1) <= PEAK_RTOL, (ext, full)
+
+
+def test_linear_peak_misses_the_hybrid(peaks):
+    """The control: the cuts' peaks summed with their depth coefficients
+    (-1/2, 0, 3/2 here), the rule before, miss the hybrid's full trace
+    by more than ``PEAK_RTOL``: its cuts peak in different layer kinds."""
+    _, linear, full = peaks["zamba2-1.2b"]
+    assert abs(linear / full - 1) > PEAK_RTOL, (linear, full)
+
+
+ONE_RANK_CE = """
+import json, torch, torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from repro_torch.distributed.sharding import vocab_parallel_ce
+from repro_torch.ecm import step_cost
+from repro_torch.launch.mesh import make_local_mesh
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+mesh = make_local_mesh(device="cpu")                # (data 1, model 1)
+g = torch.Generator().manual_seed(0)
+lg = torch.randn(4, 32, 512, generator=g)
+labels = torch.randint(0, 512, (4, 32), generator=g)
+
+def plain(x):
+    return (torch.logsumexp(x, dim=-1),
+            torch.gather(x, -1, labels[..., None])[..., 0])
+
+def split(x):
+    return vocab_parallel_ce(DTensor.from_local(
+        x, mesh, [Replicate(), Shard(2)], run_check=False), labels)
+
+def run(fn):
+    x = lg.clone().requires_grad_(True)
+    with step_cost.StepCounter() as c:
+        lse, ll = fn(x)
+        (lse - ll).sum().backward()
+    local = [t.to_local() if isinstance(t, DTensor) else t for t in (lse, ll)]
+    return c.cost.peak_bytes, [t.detach() for t in local], x.grad
+p_peak, p_out, p_grad = run(plain)
+s_peak, s_out, s_grad = run(split)
+print(json.dumps(dict(
+    peaks=[p_peak, s_peak],
+    bitwise=all(torch.equal(a, b) for a, b in zip(p_out + [p_grad],
+                                                  s_out + [s_grad])))))
+"""
+
+
+def test_one_rank_vocab_split_runs_the_plain_loss():
+    """A vocabulary split over mesh dims of one rank (a (1, 1) mesh, as
+    ``tools/dryrun_predict.py`` traces for one card) is no split:
+    ``vocab_parallel_ce`` gives the plain logsumexp and gather bitwise,
+    values and gradient, and its backward holds what the plain one holds
+    (the counter's peak equal), as the card's one-device step does. The
+    split form's backward holds one [rows, V] f32 buffer fewer, which
+    left the trace 4.98 GB under the card at qwen1.5's 4 x 2048."""
+    got = _last_json(run_script(ONE_RANK_CE))
+    assert got["bitwise"]
+    plain, split = got["peaks"]
+    assert split == plain > 0, got
+
+
 def test_within_host_prices_the_production_axes():
     from repro_torch.ecm import hopper_roofline as hr
     from repro_torch.ecm.machines import H100_SXM

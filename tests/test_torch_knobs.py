@@ -246,3 +246,140 @@ def test_remat_policy_must_be_known(qwen):
     with pytest.raises(ValueError, match="remat_policy"):
         tapi.loss_fn(tcfg.with_(remat_policy="everything"))(
             _port(params), _tbatch(batch))
+
+
+# ------------------------------------------------ per-query-block remat ----
+
+def _loss_weighs(monkeypatch, nbytes: int):
+    """The loss's bytes per logit for flash attention's rule (``attention
+    .beside_loss``): 0 checkpoints every walk of more than one query
+    block, a huge one none."""
+    from repro_torch.models import attention
+    monkeypatch.setattr(attention, "LOSS_BYTES_PER_LOGIT",
+                        {True: nbytes, False: nbytes})
+
+
+ALWAYS, NEVER = 0, 1 << 40
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
+def test_query_block_checkpoint_keeps_the_gradients(qwen, policy,
+                                                    monkeypatch):
+    """SEQ 64 over q_chunk 32: two query blocks, each checkpointed inside
+    the layer's own recompute. Loss and every gradient leaf bitwise the
+    walk without the per-block checkpoint, under either policy."""
+    _, tcfg, params, batch = qwen
+    tcfg = tcfg.with_(remat_policy=policy)
+    assert SEQ // tcfg.q_chunk == 2
+    _loss_weighs(monkeypatch, ALWAYS)
+    loss_c, g_c = _grads(tcfg, params, batch)
+    _loss_weighs(monkeypatch, NEVER)
+    loss_p, g_p = _grads(tcfg, params, batch)
+    assert torch.equal(loss_c, loss_p)
+    assert len(g_c) == len(g_p) == 25
+    assert all(torch.equal(a, b) for a, b in zip(g_c, g_p))
+
+
+def _peak_of_step(tcfg, params, batch) -> float:
+    """``StepCounter``'s peak live set over the loss and its gradients."""
+    from repro_torch.ecm import step_cost
+    with step_cost.StepCounter() as counter:
+        _grads(tcfg, params, batch)
+    return counter.cost.peak_bytes
+
+
+@pytest.fixture(scope="module")
+def qwen_long():
+    """A reduced qwen1.5 training step at 8 query blocks (seq 256,
+    q_chunk 32, batch 4): a layer's scores, 4 heads x 4.5 key blocks of
+    32 x 12 bytes = 6912 bytes a token for the whole walk, outweigh the
+    loss's 256 logits x 20 bytes = 5120."""
+    cfg = reduced(get_config("qwen1.5-0.5b"))
+    tcfg = t_reduced(t_get_config("qwen1.5-0.5b")).with_(remat=True)
+    params = common.init_params(api.schema(cfg), jax.random.key(0))
+    return tcfg, params, synthetic.make_batch(cfg, 256, 4, seed=3)
+
+
+def test_query_block_checkpoint_lowers_the_peak(qwen_long, monkeypatch):
+    """Where the scores outweigh the loss, the rule checkpoints each
+    query block (``test_query_block_checkpoint_only_where_scores_
+    outweigh_the_loss``), and the peak of the step's live set is
+    strictly lower than without: the layer's recompute no longer keeps
+    every block's scores for its backward."""
+    tcfg, params, batch = qwen_long
+    by_rule = _peak_of_step(tcfg, params, batch)
+    _loss_weighs(monkeypatch, NEVER)
+    without = _peak_of_step(tcfg, params, batch)
+    assert by_rule < without, (by_rule, without)
+
+
+class _Bmms(TorchDispatchMode):
+    """Counts batched products (the attention walk's scores and PV)."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func._overloadpacket in (torch.ops.aten.bmm,
+                                    torch.ops.aten.baddbmm):
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _bmm_count(tcfg, params, batch) -> int:
+    with _Bmms() as mode:
+        _grads(tcfg, params, batch)
+    return mode.n
+
+
+def test_one_query_block_runs_the_same_ops(qwen, monkeypatch):
+    """At one query block (q_chunk 64 over SEQ 64) the walk is as
+    before: the same count of block products, forward and backward, with
+    the per-block checkpoint as without; at two it recomputes each
+    block's in backward, so it runs more."""
+    _, tcfg, params, batch = qwen
+    one = tcfg.with_(q_chunk=SEQ, kv_chunk=SEQ)
+    _loss_weighs(monkeypatch, ALWAYS)
+    n_one, n_two = _bmm_count(one, params, batch), _bmm_count(tcfg, params,
+                                                              batch)
+    _loss_weighs(monkeypatch, NEVER)
+    assert _bmm_count(one, params, batch) == n_one
+    assert _bmm_count(tcfg, params, batch) < n_two
+
+
+def test_query_block_checkpoint_only_where_scores_outweigh_the_loss(
+        qwen, qwen_long, monkeypatch):
+    """The rule as ``api.loss_fn`` sets it: at SEQ 64 (two query blocks,
+    4 x 1.5 x 32 x 12 = 2304 bytes of scores a token against the loss's
+    5120) the walk stays whole, the products those of the walk without
+    the checkpoint; at seq 256 (6912 bytes) each block is checkpointed,
+    the products those of the walk with it."""
+    _, tcfg, params, batch = qwen
+    long_cfg, long_params, long_batch = qwen_long
+    by_rule = [_bmm_count(tcfg, params, batch),
+               _bmm_count(long_cfg, long_params, long_batch)]
+    _loss_weighs(monkeypatch, NEVER)
+    never = [_bmm_count(tcfg, params, batch),
+             _bmm_count(long_cfg, long_params, long_batch)]
+    _loss_weighs(monkeypatch, ALWAYS)
+    always = [_bmm_count(tcfg, params, batch),
+              _bmm_count(long_cfg, long_params, long_batch)]
+    assert by_rule == [never[0], always[1]], (by_rule, never, always)
+    assert never[1] < always[1]
+
+
+def test_query_block_checkpoint_waits_for_a_loss(qwen):
+    """Outside a training loss (``attention.beside_loss`` never entered)
+    a walk under autograd stays whole: the products of the walk without
+    the checkpoint."""
+    from repro_torch.models import attention
+    _, tcfg, params, batch = qwen
+    q, k, v = (t.requires_grad_(True) for t in _qkv(2, SEQ, 4, 4, 16))
+    kw = dict(causal=True, q_chunk=32, kv_chunk=32)
+
+    def count(nbytes):
+        with _Bmms() as mode, attention.beside_loss(nbytes):
+            flash_attention(q, k, v, **kw).float().sum().backward()
+        return mode.n
+    assert count(None) == count(1 << 40) < count(0)

@@ -93,6 +93,67 @@ def test_causal_conv1d(history):
     assert _rel(_np(got), np.asarray(want, np.float32)) <= 2 ** -8
 
 
+CONV_LAYOUT = """
+import json, os, sys, numpy as np, torch, torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor, Shard
+from repro_torch.distributed import sharding
+from repro_torch.ecm import step_cost
+from repro_torch.models import ssd
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+mesh = init_device_mesh("cpu", (4,), mesh_dim_names=("data",))
+inp = np.load(sys.argv[1])
+x = torch.from_numpy(inp["x"]).to(torch.bfloat16)
+w, b = torch.from_numpy(inp["w"]), torch.from_numpy(inp["b"])
+want = ssd.causal_conv1d(x, w, b)
+n = x.shape[0] // 4                      # rank 0's rows of the batch
+xd = DTensor.from_local(x[:n], mesh, [Shard(0)], run_check=False,
+                        shape=x.shape, stride=x.stride())
+with sharding.activation_sharding(mesh), \\
+        step_cost.StepCounter(record=True) as counter:
+    got = ssd.causal_conv1d(xd, w, b)
+counter.finish()
+print(json.dumps({
+    "batch_split": [p.is_shard() and p.dim == 0 for p in got.placements],
+    "shape": list(got.shape),
+    "bitwise": bool(torch.equal(got.to_local(), want[:n])),
+    "local_rows": sorted({t[1][0] for t in counter.cost.peak_tensors
+                          if len(t[1]) == 3})}))
+"""
+
+
+def test_causal_conv1d_keeps_a_batch_layout(tmp_path):
+    """``causal_conv1d`` on a DTensor split over the batch (a fake group
+    of 4 ranks, in a subprocess of its own): the output is laid out the
+    same way, rank 0's rows are bitwise the plain call's, and no buffer
+    the call makes carries the global batch (8): each holds rank 0's 2
+    rows. Its accumulator once came from the DTensor's global shape, a
+    plain [8, L, C] f32 tensor on every rank."""
+    import json
+    import os
+    import subprocess
+    import sys
+    rng = np.random.default_rng(4)
+    c = CFG.conv_dim
+    np.savez(tmp_path / "in.npz",
+             x=rng.standard_normal((8, 37, c)).astype(np.float32),
+             w=(rng.standard_normal((4, c)) * 0.5).astype(np.float32),
+             b=(rng.standard_normal(c) * 0.1).astype(np.float32))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, "-c", CONV_LAYOUT, str(tmp_path / "in.npz")],
+        capture_output=True, text=True, timeout=120, cwd=repo,
+        env=dict(os.environ, PYTHONPATH=os.path.join(repo, "src"),
+                 OMP_NUM_THREADS="1"))
+    assert r.returncode == 0, r.stderr
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    assert got["batch_split"] == [True]
+    assert got["shape"] == [8, 37, c]
+    assert got["bitwise"]
+    assert got["local_rows"] == [2]
+
+
 def _scan_inputs(seed=0, b=2, l=70, h=4, p=32, n=16, a_scale=1.0):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((b, l, h, p)).astype(np.float32)

@@ -1,14 +1,15 @@
 """The dry run's predictions for a step a single card also runs.
 
     PYTHONPATH=src python3 tools/dryrun_predict.py [--arch qwen1.5-0.5b]
-        [--slots 8] [--context 1024] [--train-seq 256] [--train-batch 2]
-        [--control] [--out PATH]
+        [--layers N] [--slots 8] [--context 1024] [--train-seq 2048]
+        [--train-batch 4] [--control] [--out PATH]
 
 Traces, on a one-rank ``"fake"`` group and a (1, 1) mesh, on the CPU,
 the serve step of ``--slots`` slots over a ``--context``-token paged
 cache (blocks of 16) and the Kahan AdamW train step of ``--train-batch``
 sequences of ``--train-seq`` tokens, each as ``launch.dryrun`` traces a
-cell (depth extrapolated): argument bytes, peak temporaries, flops,
+cell (depth extrapolated; ``--layers`` cuts the model to N layers
+first): argument bytes, peak temporaries, flops,
 bytes and the three roofline terms on an H100 SXM. ``chip_smoke.py``'s
 ``[dryrun]`` phase runs the same steps on the card and holds the
 argument bytes and peaks to these.
@@ -42,13 +43,16 @@ def one_device_mesh():
     return make_local_mesh(device="cpu")
 
 
-def predict(arch: str, kind: str, seq_len: int, batch: int, mesh) -> dict:
+def predict(arch: str, kind: str, seq_len: int, batch: int, mesh,
+            layers: int | None = None) -> dict:
     from repro_torch.configs.shapes import ShapeCell
     from repro_torch.ecm import hopper_roofline
     from repro_torch.launch import dryrun
     shape = ShapeCell(f"chip_{kind}", kind, seq_len, batch)
+    cfg = (None if layers is None else
+           dryrun.config_for(arch).with_(num_layers=layers))
     cost, full = dryrun.cell_cost(arch, shape.name, False, mesh=mesh,
-                                  shape=shape)
+                                  shape=shape, cfg=cfg)
     _, _, meta, cfg, _, arg_bytes, _, _ = full
     report = hopper_roofline.roofline_from_cost(
         arch=arch, shape=shape.name, mesh=meta["mesh"], chips=1, cost=cost,
@@ -89,19 +93,20 @@ def control(arch: str, seq_len: int, batch: int, mesh) -> str | None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--context", type=int, default=1024)
-    ap.add_argument("--train-seq", type=int, default=256)
-    ap.add_argument("--train-batch", type=int, default=2)
+    ap.add_argument("--train-seq", type=int, default=2048)
+    ap.add_argument("--train-batch", type=int, default=4)
     ap.add_argument("--control", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     mesh = one_device_mesh()
     out = {"arch": args.arch,
            "serve": predict(args.arch, "decode", args.context, args.slots,
-                            mesh),
+                            mesh, args.layers),
            "train": predict(args.arch, "train", args.train_seq,
-                            args.train_batch, mesh)}
+                            args.train_batch, mesh, args.layers)}
     if args.control:
         out["control_error"] = control(args.arch, args.context, args.slots,
                                        mesh)
