@@ -375,6 +375,48 @@ def per_shard(fn, tensors: tuple, maps: tuple, out_maps: tuple,
     return wrapped if isinstance(out, tuple) else wrapped[0]
 
 
+def column_dims(w: torch.Tensor) -> list:
+    """The mesh dims that split a DTensor's last dim (none for a plain
+    tensor)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(w, DTensor):
+        return []
+    return [i for i, p in enumerate(w.placements)
+            if p.is_shard() and p.dim == w.ndim - 1]
+
+
+def gate_up_per_shard(w: torch.Tensor) -> torch.Tensor:
+    """A fused gate/up DTensor weight [..., 2 F] whose last dim one mesh
+    dim of n splits, relaid so that rank r holds [gate_r | up_r], the
+    r-th of n slices of each half: the weight's own values, in an order
+    where a product's output splits into gate and up on each rank alone.
+    Rank r's local columns are the slices 2r and 2r + 1 of the 2n; an
+    all-to-all over that mesh dim sends each to the rank whose half it
+    belongs to (slice c to rank c mod n), so each rank moves its own
+    shard once and no rank holds the whole weight; the gradient comes
+    back the same way. The DTensor returned keeps the weight's
+    placements and stands for that column order."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor
+    (i,) = column_dims(w)
+    mesh = w.device_mesh
+    n, r = mesh.size(i), mesh.get_coordinate()[i]
+    f = w.shape[-1] // 2 // n
+    local = w.to_local().movedim(-1, 0)
+    dest = [2 * r % n, (2 * r + 1) % n]
+    if dest[1] < dest[0]:               # an odd n wraps the second slice
+        local = torch.cat([local[f:], local[:f]])
+    sent, got = [0] * n, [0] * n
+    for d in dest:
+        sent[d] += f
+    got[r // 2] += f                    # gate_r, then up_r
+    got[(n + r) // 2] += f
+    mine = funcol.all_to_all_single_autograd(
+        local.contiguous(), got, sent, mesh.get_group(i)).movedim(0, -1)
+    return DTensor.from_local(mine, mesh, w.placements, run_check=False,
+                              shape=w.shape, stride=w.stride())
+
+
 def split_heads(x: torch.Tensor, heads: int, dim: int) -> torch.Tensor:
     """x [..., heads * dim] -> [..., heads, dim]. A DTensor whose last
     dim splits over more ranks than divide the heads (8 kv heads on a
@@ -472,6 +514,39 @@ def unshard_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
           for p in x.placements]
     return x.redistribute(x.device_mesh, pl) if pl != list(
         x.placements) else x
+
+
+def pool_dims(shape: tuple, sizes: dict, first: int) -> list:
+    """Spec entries of a paged pool leaf [.., NB, bs, *feat] (NB at
+    ``first``) or of the [B, S, *feat] cache rows that fill it (B at
+    ``first``): ``first`` over (pod, data) where it divides, the next dim
+    (a block's positions, a row's sequence) whole, and "model" on the
+    first feature dim it divides (head_dim where the kv heads do not)."""
+    dims: list = [None] * len(shape)
+    ba = tuple(a for a in ("pod", "data") if a in sizes)
+    if ba and shape[first] % _axis_size(sizes, ba) == 0:
+        dims[first] = _entry(ba)
+    model = sizes.get("model", 1)
+    for i in range(first + 2, len(shape)):
+        if model > 1 and shape[i] % model == 0:
+            dims[i] = "model"
+            break
+    return dims
+
+
+def pool_rows(rows: torch.Tensor) -> torch.Tensor:
+    """A DTensor's [B, S, *feat] cache rows laid out as
+    ``serve_cache_shardings`` lays out the pool [NB, bs, *feat] they fill
+    (``pool_dims``: the pool's blocks split as the batch). Anything else
+    is returned as it is."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(rows, DTensor):
+        return rows
+    mesh = rows.device_mesh
+    pl = list(placements(tuple(pool_dims(rows.shape, axis_sizes(mesh), 0)),
+                         mesh))
+    return rows if pl == list(rows.placements) else rows.redistribute(
+        mesh, pl)
 
 
 def index_put_rows(pool: torch.Tensor, idx: tuple,
@@ -609,9 +684,9 @@ def serve_cache_shardings(cfg, cache_struct, mesh, global_batch: int):
     The hybrid's mamba states carry two stack dims (n_seg, seg). The
     paged pools [stack, NB, bs, *feat] (``paged.POOL_KEYS``, the
     quantized pools' scales too) never split the within-block position
-    axis: their block axis goes over (pod, data) when it divides, and
-    "model" to the first feature dim it divides. Block tables shard over
-    batch alone."""
+    axis (``pool_dims``): their block axis goes over (pod, data) when it
+    divides, and "model" to the first feature dim it divides. Block
+    tables shard over batch alone."""
     from repro_torch.models.paged import POOL_KEYS
     sizes = axis_sizes(mesh)
 
@@ -620,16 +695,7 @@ def serve_cache_shardings(cfg, cache_struct, mesh, global_batch: int):
         lead = 2 if cfg.family == "hybrid" and "mamba" in path else 1
         name = path[-1]
         if name in POOL_KEYS:
-            dims: list = [None] * len(shape)
-            ba = tuple(a for a in ("pod", "data") if a in sizes)
-            if ba and shape[lead] % _axis_size(sizes, ba) == 0:
-                dims[lead] = _entry(ba)
-            model = sizes.get("model", 1)
-            for i in range(lead + 2, len(shape)):
-                if model > 1 and shape[i] % model == 0:
-                    dims[i] = "model"
-                    break
-            return NamedSharding(mesh, tuple(dims))
+            return NamedSharding(mesh, tuple(pool_dims(shape, sizes, lead)))
         if name == "block_table":
             dims = [None] * len(shape)
             ba = batch_axes(mesh, global_batch)

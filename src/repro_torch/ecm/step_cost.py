@@ -151,6 +151,8 @@ class StepCost:
     phase_stacked: dict = field(default_factory=dict)
     # (op, local shape, dtype, bytes) live at the peak, when recorded
     peak_tensors: list = field(default_factory=list)
+    # the same of every storage the step made, when recorded
+    made_tensors: list = field(default_factory=list)
     warnings: list = field(default_factory=list)
 
     _SCALARS = ("flops", "dot_flops", "elementwise_flops", "bytes_accessed",
@@ -250,7 +252,8 @@ class StepCounter(TorchDispatchMode):
     maps a process group's name to (mesh axis label, size): the axis a
     collective's bytes are charged to. ``extrapolate`` turns ``trips``
     loops into one counted iteration. ``record`` keeps each storage's
-    op, shape and dtype, and ``finish`` lists those live at the peak."""
+    op, shape and dtype, and ``finish`` lists those live at the peak and
+    all of them."""
 
     def __init__(self, groups: dict | None = None, *,
                  extrapolate: bool = False, record: bool = False):
@@ -481,6 +484,8 @@ class StepCounter(TorchDispatchMode):
                  self._lifetimes.values()
                  if born < t and (died is None or died >= t)],
                 key=lambda r: -r[3])
+            c.made_tensors = [meta + (n,) for n, _, _, meta in
+                              self._lifetimes.values()]
 
     def _track(self, out, func=None) -> None:
         for t in _tensors(out):

@@ -72,9 +72,10 @@ def loss_fn(cfg: ModelConfig) -> Callable:
     """(params, batch) -> (loss, metrics): the weighted cross entropy the
     trainer differentiates, plus a MoE model's aux losses, with the
     reference's metric keys for each family. It runs beside what its
-    cross entropy holds (``attention.beside_loss``): flash attention
-    checkpoints each query block only where a layer's scores outweigh
-    that."""
+    cross entropy holds, or (an lm family) what its end holds beyond its
+    first layer's backward where that is more (``attention.beside_loss``):
+    flash attention checkpoints each query block only where a layer's
+    scores and transient outweigh it."""
     check_trainable(cfg)
     loss = {"audio": encdec.encdec_loss,
             "hybrid": hybrid.hybrid_loss}.get(cfg.family, lm.lm_loss)
@@ -84,6 +85,10 @@ def loss_fn(cfg: ModelConfig) -> Callable:
         nbytes = attention.loss_bytes(
             batch["labels"], params["embed"] if head is None else head,
             0 if head is None else -1)
+        if loss is lm.lm_loss:
+            nbytes = max(nbytes, attention.grads_after_first_layer(
+                lm.first_layer_leaves(params, cfg), batch["labels"],
+                cfg.d_model))
         with attention.beside_loss(nbytes):
             return loss(params, batch, cfg)
     return fn

@@ -147,12 +147,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     pad_q = (-lq_orig) % qc
     pad_k = (-lk_orig) % kc
     if pad_k:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
+        k, v = _pad_seq(k, pad_k), _pad_seq(v, pad_k)
         if kv_len is None:
             kv_len = lk_orig
     if pad_q:
-        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
+        q = _pad_seq(q, pad_q)
     lq, lk = lq_orig + pad_q, lk_orig + pad_k
     nq, nk = lq // qc, lk // kc
     packed = (causal and lq == lk and nq == nk
@@ -182,6 +181,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         whole=q_offset.dim() == 0 and (kv_len is None or kv_len.dim() == 0))
     out = out.reshape(b, hq, lq, dv).permute(0, 2, 1, 3).to(v.dtype)
     return out[:, :lq_orig] if pad_q else out
+
+
+def _pad_seq(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x [B, L, H, D] with n zero positions after its L. A DTensor whose
+    sequence is whole pads each rank's local tensor (some DTensor
+    versions lay out a pad's output with one placement on a mesh of
+    two dims, which the next view refuses)."""
+    from repro_torch.distributed.sharding import per_shard
+    dims = {0: 0, 2: 2, 3: 3}
+    return per_shard(
+        lambda t: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, n)), (x,),
+        (dims,), (dims,))
 
 
 def _flash_walk(qg, kt, vt, *, q_offset, kv_len, causal, packed, kahan_acc,
@@ -293,14 +304,67 @@ def loss_bytes(labels: torch.Tensor, head: torch.Tensor,
             * LOSS_BYTES_PER_LOGIT[vocab < head.shape[vocab_dim]])
 
 
+# bytes a layer's backward holds beside the scores its walk keeps
+# (``layer_bytes``), read off the backward's peak of a qwen1.5-110b
+# train_4k layer on 16 x 16 (``tools/dryrun_peak.py``; with them the rule
+# reads the always-checkpointed walk's peak there and on olmoe's MoE
+# layers, which PERF.md section 6 records): for each element
+# of its [T, d] stream on this rank, the norms' f32 inputs and scaled
+# rows, the products' f32 results and the bf16 rows the residual adds;
+# for each element of its FFN's hidden rows on this rank, the bf16
+# gate/up pair, the f32 SiLU input, its bf16 output and their product
+LAYER_BYTES_PER_EMBED = 36
+LAYER_BYTES_PER_HIDDEN = 12
+
+
+def layer_bytes(h: torch.Tensor, hidden: tuple) -> int:
+    """What a layer's backward holds beside its kept scores, on this
+    rank: h's local [T, d] elements and, for each (rows, columns) of
+    ``hidden``, the FFN's hidden elements."""
+    return (_local_numel(h) * LAYER_BYTES_PER_EMBED
+            + sum(r * c for r, c in hidden) * LAYER_BYTES_PER_HIDDEN)
+
+
+def grads_after_first_layer(leaves: list, labels: torch.Tensor,
+                            d_model: int) -> int:
+    """What a step's end holds that its first layer's backward does not,
+    on this rank: the gradients (each leaf's local bytes) of ``leaves``,
+    the first layer's parameters and those the forward meets before it,
+    less the layer input that remat keeps for its recompute (a bf16
+    [tokens, d] block, ``labels``' local count of tokens). Where that
+    outweighs a walk's scores with its layer's transient, the step peaks
+    at its end (the optimizer's update, every gradient live), not at a
+    layer's backward, and checkpointing the walk saves nothing."""
+    return (sum(_local_numel(t) * t.element_size() for t in leaves)
+            - _local_numel(labels) * d_model * 2)
+
+
+@contextlib.contextmanager
+def beside_layer(nbytes: int):
+    """Within, a walk's scores are weighed against what ``beside_loss``
+    set less ``nbytes``, the layer's own backward transient
+    (``layer_bytes``): the layer's backward peaks at its kept scores
+    plus that, so the walk is checkpointed where the two together
+    outweigh it. Outside a training loss it changes nothing."""
+    cur = _LOSS_BYTES[-1]
+    _LOSS_BYTES.append(None if cur is None else cur - nbytes)
+    try:
+        yield
+    finally:
+        _LOSS_BYTES.pop()
+
+
 @contextlib.contextmanager
 def beside_loss(nbytes: int | None):
     """Within, a training walk of more than one query block checkpoints
     each block where the scores a layer's backward would keep for its
-    whole walk (``SCORE_BYTES`` each) outweigh ``nbytes``, what the
-    step's loss holds at its own peak (``loss_bytes``): there the layer's
-    recompute, not the loss, would set the step's peak. Elsewhere the
-    walk is kept whole, and a backward pays no third forward."""
+    whole walk (``SCORE_BYTES`` each), with the layer's own backward
+    transient (``beside_layer``), outweigh ``nbytes``: what the step
+    holds at its other peaks, the loss's (``loss_bytes``) or, where
+    more, what its end holds beyond the first layer's backward
+    (``grads_after_first_layer``). There the layer's recompute would
+    set the step's peak. Elsewhere the walk is kept whole, and a
+    backward pays no third forward."""
     _LOSS_BYTES.append(nbytes)
     try:
         yield

@@ -105,6 +105,62 @@ def _shard_residual(h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return shard_act(h, "act_batch", "act_res_seq", None)
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's part of a tensor (a DTensor's local tensor)."""
+    return t if type(t) is torch.Tensor else t.to_local()
+
+
+def _ffn_hidden(p: dict, h: torch.Tensor, act: str, moe_cfg=None) -> tuple:
+    """The (rows, columns) of an FFN's hidden activations on this rank
+    for the layer input h [B, L, d] (``attention.layer_bytes``): h's
+    local tokens by the MLP's local hidden width, or a MoE layer's
+    expert rows (its local experts' buckets) by the expert width, and
+    its shared experts' like an MLP's."""
+    tokens = _local(h).numel() // h.shape[-1]
+    if moe_cfg is not None:
+        rows = (_local(p["w_gate_up"]).shape[0]
+                * moe.capacity(h.shape[0] * h.shape[1], moe_cfg))
+        out = ((rows, moe_cfg.d_ff),)
+        if moe_cfg.num_shared:
+            out += ((tokens,
+                     _local(p["shared"]["w_gate_up"]).shape[-1] // 2),)
+        return out
+    if act == "swiglu":
+        return ((tokens, _local(p["w_gate_up"]).shape[-1] // 2),)
+    return ((tokens, _local(p["w_up"]).shape[-1]),)
+
+
+def _residual_add(h: torch.Tensor, y: torch.Tensor, cfg: ModelConfig
+                  ) -> torch.Tensor:
+    """h + y, a sublayer's output y added to the residual h. Under
+    ``cfg.sp_residual`` y is laid out as h is first (over batch and
+    sequence: each rank keeps its sequence shard of y), so that the sum
+    stays split and y's gradient comes back in y's own layout: left to
+    DTensor, it would come back split over the sequence too, and the
+    sublayer's backward would flatten it into rows split over two mesh
+    dims (a strided shard)."""
+    if cfg.sp_residual:
+        from repro_torch.distributed.sharding import lay_out
+        y = lay_out(y, "act_batch", "act_res_seq", None)
+    return h + y
+
+
+def _normed(h: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+    """The norm of h as a layer's products take it. Under
+    ``cfg.sp_residual`` the norm runs on h's sequence shards and its
+    output is gathered over the sequence (laid out over the batch alone),
+    as sequence parallelism gathers before its column-parallel products:
+    a product of [B, L, d] rows split over batch and sequence would
+    flatten them into rows split over two mesh dims at once, a strided
+    shard that the products' weights (N over the model axis) cannot
+    meet without gathering it anyway."""
+    x = common.apply_norm(h, p, cfg.norm)
+    if not cfg.sp_residual:
+        return x
+    from repro_torch.distributed.sharding import lay_out
+    return lay_out(x, "act_batch", "act_seq", "act_embed")
+
+
 def block_apply(p: dict, h: torch.Tensor, cfg: ModelConfig, *,
                 dense_ffn: bool = False) -> tuple[torch.Tensor, dict]:
     """Full-sequence (training) forward of one layer, h [B, L, d] ->
@@ -116,21 +172,24 @@ def block_apply(p: dict, h: torch.Tensor, cfg: ModelConfig, *,
     h = _shard_residual(h, cfg)
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     if _recurrent(cfg):
-        h = h + ssd.mamba2_forward(
-            p["mixer"], common.apply_norm(h, p["norm"], cfg.norm),
-            _ssm_cfg(cfg))
-        return h, dict.fromkeys(AUX_KEYS, zero)
-    x = common.apply_norm(h, p["ln_attn"], cfg.norm)
-    if cfg.mla is not None:
-        h = h + mla.mla_forward(p["attn"], x, cfg.mla)
-    else:
-        h = h + attn.gqa_forward(p["attn"], x, cfg.attn())
-    x = common.apply_norm(h, p["ln_mlp"], cfg.norm)
-    if cfg.moe is not None and not dense_ffn:
+        y = ssd.mamba2_forward(p["mixer"], _normed(h, p["norm"], cfg),
+                               _ssm_cfg(cfg))
+        return _residual_add(h, y, cfg), dict.fromkeys(AUX_KEYS, zero)
+    x = _normed(h, p["ln_attn"], cfg)
+    moe_ffn = cfg.moe is not None and not dense_ffn
+    with attn.beside_layer(attn.layer_bytes(h, _ffn_hidden(
+            p["ffn"], h, cfg.act, cfg.moe if moe_ffn else None))):
+        if cfg.mla is not None:
+            y = mla.mla_forward(p["attn"], x, cfg.mla)
+        else:
+            y = attn.gqa_forward(p["attn"], x, cfg.attn())
+    h = _residual_add(h, y, cfg)
+    x = _normed(h, p["ln_mlp"], cfg)
+    if moe_ffn:
         y, aux = moe.moe_forward(p["ffn"], x, cfg.moe)
-        return h + y, aux
-    h = h + mlp.mlp_forward(p["ffn"], x, act=cfg.act)
-    return h, dict.fromkeys(AUX_KEYS, zero)
+        return _residual_add(h, y, cfg), aux
+    y = mlp.mlp_forward(p["ffn"], x, act=cfg.act)
+    return _residual_add(h, y, cfg), dict.fromkeys(AUX_KEYS, zero)
 
 
 def block_prefill(p: dict, h: torch.Tensor, cfg: ModelConfig,

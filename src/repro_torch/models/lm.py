@@ -26,6 +26,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.core import kahan
 from repro_torch.kernels.serving_head import serving_head
 from repro_torch.models import common
 from repro_torch.models.attention import keeping_loss_bytes
@@ -97,6 +98,18 @@ def _layers(params: dict):
         yield i, p, True
     for i, p in enumerate(params["layers"]):
         yield len(dense) + i, p, False
+
+
+def first_layer_leaves(params: dict, cfg: ModelConfig) -> list:
+    """The parameters whose gradients a training step makes after its
+    first layer's walk (``attention.grads_after_first_layer``): the first
+    layer's, a vlm's projector's and the embedding's, unless the head
+    shares it (its gradient then starts at the head, first)."""
+    leaves = kahan.tree_leaves(next(_layers(params))[1])
+    leaves += kahan.tree_leaves(params.get("vision_proj", {}))
+    if not cfg.tie_embeddings:
+        leaves.append(params["embed"])
+    return leaves
 
 
 def layer_cache(caches: dict, i: int) -> dict:

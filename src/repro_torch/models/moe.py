@@ -32,12 +32,21 @@ earlier tokens win capacity ties across shards too and the slots and
 drops are the single process's. Each rank fills only its own experts'
 [E / model, C, d] buckets with its own tokens; every slot has one
 writer, so summing the buckets over the batch axes (an all-reduce of a
-``Partial`` DTensor) is exact. The combine picks, for each of a rank's
-(token, expert) pairs, the row its own experts hold, zeros elsewhere,
-and sums the [T / batch, k, d] rows over the expert axis (again one
-writer each), before the gates scale them and each token folds its k
-rows in expert-id order as above. No token-side tensor has the global
-token count on its token axis.
+``Partial`` DTensor) is exact. The combine goes one pair position j at a
+time, in expert-id order (``_fold_split``): each rank picks the j-th
+pair's row where its own experts hold it (zeros elsewhere) and sends it
+to its token's shard, summed over the expert axis (one writer each:
+exact) into that expert shard's part of the tokens, which scales the
+rows by their gates and folds them on; the folded parts are gathered
+over the expert axis. Where the down projection leaves d split over
+batch axes (``w_down``'s FSDP split), a rank holds a slice of d of the
+rows of every batch shard along those axes: it picks that slice for all
+of their tokens (a plane of n d elements, n this shard's tokens) and an
+all-to-all brings each token's slices together. No tensor holds a
+token's k rows side by side, and no activation has more than this
+shard's tokens on its token axis; the pair indices and ownership flags
+([P n, k], P the batch shards along d's axes: the global token count on
+the 16 x 16 mesh) are the only token-side tensors gathered.
 """
 
 from __future__ import annotations
@@ -221,18 +230,138 @@ class _Shards:
                                ).to_local(grad_placements=self._pl(
                                    Partial(), Shard(0)))
 
-    def expert_sum(self, rows: torch.Tensor, t: int) -> torch.Tensor:
-        """[T / batch, k, d] rows, each held by one expert shard (zeros on
-        the others), summed over the expert axis."""
-        if not self.edims:
-            return rows
-        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-        shape = (t,) + tuple(rows.shape[1:])
+    def expert_rows(self, ye: torch.Tensor) -> tuple:
+        """(this rank's experts' outputs as [E / model * C, d / p], the
+        mesh dims that split d into those p slices, the batch dims whose
+        shards' tokens this rank picks rows for): d stays split over the
+        batch axes where the expert product left it so (``w_down``'s
+        FSDP split), whole elsewhere, and the rank picks rows for every
+        shard along the batch dims from the first of those on (all of
+        them after it in mesh order, so that the shards it serves are
+        contiguous), for its own shard's alone along the others. There
+        the rows' gradient is a partial sum over those others."""
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        last = ye.ndim - 1
+        ddims = [i for i in self.bdims if ye.placements[i] == Shard(last)]
+        gdims = [i for i in self.bdims if ddims and i >= ddims[0]]
+        pl = [Shard(last) if i in ddims else Shard(0) if i in self.edims
+              else Replicate() for i in range(self.mesh.ndim)]
+        local = ye.redistribute(self.mesh, pl).to_local(grad_placements=[
+            Partial() if i in self.bdims and i not in gdims else p
+            for i, p in enumerate(pl)])
+        return local.reshape(-1, local.shape[-1]), ddims, gdims
+
+    def batch_gather(self, x: torch.Tensor, dims: list) -> torch.Tensor:
+        """The x [n, ...] (no gradient) of every batch shard that differs
+        from this one on the mesh dims ``dims`` alone, stacked in shard
+        order: [P_dims * n, ...]."""
+        if not dims:
+            return x
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        p = math.prod(self.mesh.size(i) for i in dims)
+        shape = (p,) + tuple(x.shape)
         return DTensor.from_local(
-            rows, self.mesh, self._pl(Shard(0), Partial()), run_check=False,
+            x[None], self.mesh, [Shard(0) if i in dims else Replicate()
+                                 for i in range(self.mesh.ndim)],
+            run_check=False, shape=torch.Size(shape),
+            stride=_contiguous(shape)
+        ).redistribute(self.mesh, [Replicate()] * self.mesh.ndim
+                       ).to_local().reshape((-1,) + tuple(x.shape[1:]))
+
+    def chunk(self, n: int) -> tuple[int, int]:
+        """The rows [lo, hi) of this shard's n tokens that this expert
+        shard folds: its part of n split over the expert axis (all n
+        where it does not divide)."""
+        m = math.prod(self.mesh.size(i) for i in self.edims)
+        if n % m:
+            return 0, n
+        coord = self.mesh.get_coordinate()
+        r = 0
+        for i in self.edims:
+            r = r * self.mesh.size(i) + coord[i]
+        return r * (n // m), (r + 1) * (n // m)
+
+    def to_owner(self, plane: torch.Tensor, gdims: list, ddims: list,
+                 n: int, d: int, lo: int, hi: int) -> torch.Tensor:
+        """A plane of rows [P_g * n, d / p] for the tokens of the batch
+        shards of ``batch_gather(.., gdims)``, each row held by one expert
+        shard (zeros on the others): summed over the expert axis (one
+        writer a row: exact) into this expert shard's rows [lo, hi) of
+        its own batch shard's tokens, with the d slices of ``ddims``
+        brought together (an all-to-all over those axes, the rows going
+        to their tokens' shard; a slice of the rest of ``gdims``).
+        [hi - lo, d]."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+        p = math.prod(self.mesh.size(i) for i in self.bdims)
+        shape = (p, n, d)
+        src = [Shard(2) if i in ddims else Replicate() if i in gdims
+               else Shard(0) if i in self.bdims
+               else Partial() if i in self.edims else Replicate()
+               for i in range(self.mesh.ndim)]
+        return DTensor.from_local(
+            plane.reshape(plane.shape[0] // n, n, -1), self.mesh, src,
+            run_check=False, shape=torch.Size(shape),
+            stride=_contiguous(shape)
+        ).redistribute(self.mesh, self._pl(
+            Shard(0), Replicate() if hi - lo == n else Shard(1))
+        ).to_local().reshape(hi - lo, d)
+
+    def rows_of(self, x: torch.Tensor, t: int, lo: int, hi: int
+                ) -> torch.Tensor:
+        """x [n, ...], the same on every expert shard, cut to this expert
+        shard's rows [lo, hi); its gradient, which each expert shard has
+        for its own rows alone, is gathered over the expert axis."""
+        if hi - lo == x.shape[0]:
+            return x
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        shape = (t,) + tuple(x.shape[1:])
+        return DTensor.from_local(
+            x, self.mesh, self._pl(Shard(0), Replicate()), run_check=False,
             shape=torch.Size(shape), stride=_contiguous(shape)
+        ).redistribute(self.mesh, self._pl(Shard(0), Shard(0))).to_local()
+
+    def expert_gather(self, y: torch.Tensor, n: int, t: int) -> torch.Tensor:
+        """Each expert shard's folded rows (``chunk``) gathered over the
+        expert axis: this batch shard's [n, d]."""
+        if y.shape[0] == n:
+            return y
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        return DTensor.from_local(
+            y, self.mesh, self._pl(Shard(0), Shard(0)), run_check=False,
+            shape=torch.Size((t, y.shape[1])), stride=(y.shape[1], 1)
         ).redistribute(self.mesh, self._pl(Shard(0), Replicate())
                        ).to_local()
+
+
+def _fold_split(ye: torch.Tensor, src: torch.Tensor, own: torch.Tensor,
+                gates: torch.Tensor, sh: _Shards, t: int) -> torch.Tensor:
+    """The combine where the experts split over the mesh (ye the experts'
+    [E, C, d] DTensor output; src, own, gates [n, k] this batch shard's
+    pairs in expert-id order: slot, held by this expert shard, gate).
+    Where d splits over batch axes (``expert_rows``: the ddims), each
+    rank holds a slice of d of its experts' rows for the tokens of every
+    batch shard along those axes, so it gathers their pairs' slots and
+    flags (``batch_gather`` over the batch dims from the first ddim on,
+    the gdims); elsewhere it reads its own tokens' rows whole. For each
+    pair j it picks the rows its experts hold (zeros where another expert
+    shard holds the row), a plane of n d elements where d splits over
+    every gdim, and sends them to their tokens' shard, summed over the
+    expert axis into this expert shard's chunk of the tokens, which
+    scales them by their gates and folds them on, left to right; the
+    folded chunks are gathered over the expert axis. The bits of the
+    whole-rows fold; no [T / batch, k, d] tensor is made."""
+    n, k = src.shape
+    d = ye.shape[-1]
+    lo, hi = sh.chunk(n)
+    local, ddims, gdims = sh.expert_rows(ye)
+    src_g, own_g = sh.batch_gather(src, gdims), sh.batch_gather(own, gdims)
+    gates = sh.rows_of(gates, t, lo, hi)
+    y = torch.zeros((hi - lo, d), dtype=ye.dtype, device=ye.device)
+    for j in range(k):
+        plane = local[src_g[:, j]] * own_g[:, j, None]
+        row = sh.to_owner(plane, gdims, ddims, n, d, lo, hi)
+        y = y + row * gates[:, j, None]
+    return sh.expert_gather(y, n, t)
 
 
 def _contiguous(shape: tuple) -> tuple:
@@ -323,19 +452,22 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: MoEConfig
     ye = _expert_matmul(common.swiglu(gate, up), p["w_down"]).to(xe.dtype)
 
     # ---- weighted fold back to tokens, in sorted order --------------------
-    yflat = sh.own_experts(ye).reshape(e_loc * cap, d)
     # sorted position of each (token, expert) pair, then each token's k
     # pairs in expert-id order: the order the sorted scatter visits them
     pos = torch.empty_like(r.order)
     pos[r.order] = torch.arange(n * k, device=dev)
     pos = torch.sort(pos.reshape(n, k), dim=1).values
-    rows = yflat[torch.clamp(slot, 0, e_loc * cap - 1)[pos]]     # [T, k, d]
+    src = torch.clamp(slot, 0, e_loc * cap - 1)[pos]             # [T, k]
     if e_loc != e:
-        rows = sh.expert_sum(rows * mine[pos][..., None].to(rows.dtype), t)
-    per_tok = rows * (r.sg * r.keep).to(rows.dtype)[pos][..., None]
-    y = torch.zeros((n, d), dtype=per_tok.dtype, device=dev)
-    for j in range(k):
-        y = y + per_tok[:, j]
+        y = _fold_split(ye, src, mine[pos].to(ye.dtype),
+                        (r.sg * r.keep).to(ye.dtype)[pos], sh, t)
+    else:
+        yflat = sh.own_experts(ye).reshape(e_loc * cap, d)
+        rows = yflat[src]                                         # [T, k, d]
+        per_tok = rows * (r.sg * r.keep).to(rows.dtype)[pos][..., None]
+        y = torch.zeros((n, d), dtype=per_tok.dtype, device=dev)
+        for j in range(k):
+            y = y + per_tok[:, j]
     y = sh.whole(y, (t, d))
 
     if cfg.num_shared:

@@ -84,10 +84,12 @@ def pool_from_rows(rows: torch.Tensor, layout: PagedLayout) -> torch.Tensor:
     pooled on each rank, behind a null block of the rank's own: the
     pool's blocks split as the batch does, and a slot's block ids count
     from its shard's start (the ids ``sharding.index_put_rows`` writes
-    by)."""
+    by); its features split over the model axis as the decode step's
+    pools are (``sharding.pool_rows``)."""
     from torch.distributed.tensor import DTensor
     if isinstance(rows, DTensor):
-        from repro_torch.distributed.sharding import per_shard
+        from repro_torch.distributed.sharding import per_shard, pool_rows
+        rows = pool_rows(rows)
         dims = {0: 0, **{i: i for i in range(2, rows.ndim)}}
         return per_shard(lambda r: pool_from_rows(r, layout), (rows,),
                          (dims,), (dims,))

@@ -58,11 +58,20 @@ BLOCKS = (("qwen1.5-0.5b", False), ("deepseek-v2-236b", True),
 KNOB_BLOCKS = (("olmoe-1b-7b", "olmoe-1b-7b", {}),
                ("qwen1.5-0.5b+sp_residual", "qwen1.5-0.5b",
                 {"sp_residual": True}))
-# (name, capacity_factor) of the MoE layers run forward and backward on
-# 8 ranks: reduced olmoe's own (1.25), and 0.25, at which the 128
-# tokens x 2 of 8 experts overflow every expert's capacity of 8 and
-# tokens of different batch shards compete for it
-MOE_CASES = (("olmoe", None), ("contested", 0.25))
+# (name, ModelConfig knobs) of the reduced qwen1.5 layers run forward and
+# backward on 8 ranks: the SwiGLU MLP's gate/up kept split over the model
+# axis (each rank its own gate and up columns), and the same under the
+# sequence-sharded residual
+GRAD_BLOCKS = (("qwen1.5-0.5b", {}),
+               ("qwen1.5-0.5b+sp_residual", {"sp_residual": True}))
+# (name, capacity_factor, mesh) of the MoE layers run forward and
+# backward on 8 ranks: reduced olmoe's own (1.25), and 0.25, at which the
+# 128 tokens x 2 of 8 experts overflow every expert's capacity of 8 and
+# tokens of different batch shards compete for it, on (data 4, model 2);
+# and reduced olmoe's own on (pod 2, data 2, model 2), the batch over pod
+# and data and the experts' d over data alone (2x16x16's placements)
+MOE_CASES = (("olmoe", None, "data"), ("contested", 0.25, "data"),
+             ("pod", None, "pod"))
 # the MoE layer's gradients against the single process's: relative
 # norm, as the card's product backward is held (chip_smoke's
 # DENSE_BWD_RTOL); y and the aux losses too
@@ -129,6 +138,7 @@ import os, sys
 BLOCKS = [(a, a, d, {}) for a, d in %(blocks)r] + [
     (n, a, False, k) for n, a, k in %(knob_blocks)r]
 MOE_CASES = %(moe_cases)r
+GRAD_BLOCKS = %(grad_blocks)r
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -326,13 +336,83 @@ for name, arch, dense, knobs in BLOCKS:
     out[f"block_{name}_seen"] = np.asarray(seen, dtype=str).reshape(-1, 2)
 sharding.shard_act = lay_out
 
+# reduced qwen1.5 layers forward and backward: every gradient leaf and h's
+# against the plain layer's on the same tensors
+def leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves(tree[k], path + "/" + k)
+    else:
+        yield path, tree
+
+for name, knobs in GRAD_BLOCKS:
+    cfg = reduced(get_config("qwen1.5-0.5b")).with_(**knobs)
+    schema = blocks.block_schema(cfg)
+    p = common.init_params(schema, torch.Generator().manual_seed(0),
+                           torch.device("cpu"), hold_bf16=False)
+    specs = dict(leaves(sharding.param_specs(schema, mesh_b)))
+    h = torch.randn(4, 32, cfg.d_model, generator=torch.Generator(
+        ).manual_seed(1)).to(torch.bfloat16)
+    dy = torch.randn(4, 32, cfg.d_model, generator=torch.Generator(
+        ).manual_seed(2))
+    def grads(tree, hh, dyy):
+        flat = dict(leaves(tree))
+        req = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
+        nested = {}
+        for k, v in req.items():
+            node = nested
+            *head, last = k.strip("/").split("/")
+            for part in head:
+                node = node.setdefault(part, {})
+            node[last] = v
+        hh = hh.detach().requires_grad_(True)
+        y, _ = blocks.block_apply(nested, hh, cfg)
+        return y, torch.autograd.grad((y.float() * dyy).sum(),
+                                      list(req.values()) + [hh])
+    y0, g0 = grads(p, h, dy)
+    rows = sharding.placements(("data", None, None), mesh_b)
+    laid = {k: distribute_tensor(v, mesh_b, sharding.placements(specs[k],
+                                                                mesh_b))
+            for k, v in leaves(p)}
+    # what each SwiGLU call holds of the hidden dim on this rank, and the
+    # layout of the rows each product takes
+    widths, taken = [], []
+    swiglu, product = common.swiglu, invariant_gemm.product
+    def held(gate, up):
+        widths.append((gate.to_local() if isinstance(gate, DTensor)
+                       else gate).shape[-1])
+        return swiglu(gate, up)
+    def spied(x, w, **kw):
+        if isinstance(x, DTensor):
+            taken.append([str(q) for q in x.placements])
+        return product(x, w, **kw)
+    common.swiglu, invariant_gemm.product = held, spied
+    with sharding.activation_sharding(mesh_b):
+        y1, g1 = grads(laid, distribute_tensor(h, mesh_b, rows),
+                       distribute_tensor(dy, mesh_b, rows))
+    common.swiglu, invariant_gemm.product = swiglu, product
+    out[f"grad_{name}_widths"] = np.asarray(widths + [cfg.d_ff])
+    out[f"grad_{name}_taken"] = np.asarray(taken, dtype=str)
+    out[f"grad_{name}_y"] = np.stack([
+        y0.detach().float().numpy(),
+        y1.full_tensor().detach().float().numpy()])
+    names = [k for k, _ in leaves(p)] + ["h"]
+    out[f"grad_{name}_names"] = np.asarray(names)
+    for key, a, b in zip(names, g0, g1):
+        out[f"grad_{name}_{key}"] = np.stack(
+            [a.float().numpy(), b.full_tensor().float().numpy()])
+
 # the MoE layer alone, forward and backward, on the (4, 2) mesh: the
 # reduced olmoe layer, and the same with capacity_factor 0.25, where
 # tokens of different batch shards compete for an expert's capacity
 def rel(a, b):
     a, b = a.detach().double(), b.detach().double()
     return float((a - b).norm() / b.norm())
-for name, cf in MOE_CASES:
+for name, cf, where in MOE_CASES:
+    mesh_m = mesh_a if where == "pod" else mesh_b
+    batch_axes = ("pod", "data") if where == "pod" else "data"
+    shard = (mesh_m.get_local_rank("pod") * 2 if where == "pod" else 0) \
+        + mesh_m.get_local_rank("data")
     mcfg = reduced(get_config("olmoe-1b-7b")).moe
     mcfg = mcfg._replace(capacity_factor=cf or mcfg.capacity_factor)
     d = reduced(get_config("olmoe-1b-7b")).d_model
@@ -358,15 +438,15 @@ for name, cf in MOE_CASES:
         summed.append(type(g) is not torch.Tensor)
         return rounded(g, like)
     invariant_gemm._rounded_grad = counted
-    specs = sharding.param_specs(schema, mesh_b)
-    rows = sharding.placements(("data", None, None), mesh_b)
-    with sharding.activation_sharding(mesh_b):
-        y1, a1, g1 = run({key: distribute_tensor(v, mesh_b,
+    specs = sharding.param_specs(schema, mesh_m)
+    rows = sharding.placements((batch_axes, None, None), mesh_m)
+    with sharding.activation_sharding(mesh_m):
+        y1, a1, g1 = run({key: distribute_tensor(v, mesh_m,
                                                  sharding.placements(
-                                                     specs[key], mesh_b))
+                                                     specs[key], mesh_m))
                           for key, v in p.items()},
-                         distribute_tensor(x, mesh_b, rows),
-                         distribute_tensor(dy, mesh_b, rows))
+                         distribute_tensor(x, mesh_m, rows),
+                         distribute_tensor(dy, mesh_m, rows))
     invariant_gemm._rounded_grad = rounded
     out[f"moe_{name}_summed"] = np.asarray(sum(summed))
     whole, part = ROUTES
@@ -374,7 +454,7 @@ for name, cf in MOE_CASES:
                                        ).float(), dim=-1)
     out[f"moe_{name}_gap"] = np.asarray(near_tie(whole, probs))
     out[f"moe_{name}_routing"] = np.asarray(same_routing(
-        whole, part, mesh_b.get_local_rank("data")))
+        whole, part, shard))
     out[f"moe_{name}_rows"] = np.asarray([t.shape[0] for t in part])
     out[f"moe_{name}_drop"] = np.asarray(
         [float(a0["moe_drop_fraction"]),
@@ -386,7 +466,8 @@ for name, cf in MOE_CASES:
         [rel(b.full_tensor(), a) for a, b in zip(g0, g1)])
 np.savez(os.path.join(sys.argv[2], f"rank{rank}.npz"), **out)
 dist.destroy_process_group()
-""" % {"blocks": BLOCKS, "knob_blocks": KNOB_BLOCKS, "moe_cases": MOE_CASES}
+""" % {"blocks": BLOCKS, "knob_blocks": KNOB_BLOCKS, "moe_cases": MOE_CASES,
+       "grad_blocks": GRAD_BLOCKS}
 
 
 def _free_port() -> int:
@@ -640,10 +721,12 @@ def test_knob_block_forward_under_activation_sharding(runs, name):
         assert all(f"block_{name}_routing" in p for p in port)
 
 
-@pytest.mark.parametrize("name", [n for n, _ in MOE_CASES])
+@pytest.mark.parametrize("name", [n for n, *_ in MOE_CASES])
 def test_moe_dispatch_kept_over_the_batch(runs, name):
     """The MoE layer on 8 ranks, (data 4, model 2), tokens [8, 16]
-    split over data and the 8 experts over model, forward and backward,
+    split over data and the 8 experts over model (and on (pod 2, data 2,
+    model 2) with the tokens over pod and data, the experts' d over
+    data: ``MOE_CASES``), forward and backward,
     against the single process on the same tensors. On inputs pinned
     away from router near-ties (the top-k gap checked), each batch
     shard's routing of its own 32 tokens (top-k experts, slots, keeps,
@@ -669,3 +752,48 @@ def test_moe_dispatch_kept_over_the_batch(runs, name):
         assert int(p[f"moe_{name}_summed"]) > 0
     if name == "contested":
         assert port[0][f"moe_{name}_drop"][0] > 0.5
+
+
+def _bf16_steps(got, want):
+    """|got - want| in bf16 steps of each element of want."""
+    step = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126)))
+                   - 7)
+    return np.abs(got - want) / step
+
+
+@pytest.mark.parametrize("name", [n for n, _ in GRAD_BLOCKS])
+def test_block_gradients_under_activation_sharding(runs, name):
+    """A reduced qwen1.5 layer forward and backward on 8 ranks, (data 4,
+    model 2), its parameters laid out by ``param_specs`` and h over the
+    batch, against the plain layer on the same tensors: the SwiGLU MLP
+    with its gate/up kept split over the model axis (the fused weight's
+    columns relaid per shard: every SwiGLU call holds d_ff / 2 of the
+    hidden dim), and the same under ``sp_residual`` (the residual split
+    over batch and sequence, the norms' outputs gathered over the
+    sequence before the products: no product takes rows split over the
+    sequence). The output and every gradient leaf (norms, attention, the
+    MLP, h) within one bf16 step of each element of the plain one's, the
+    output with at most 1 in 1000 elements apart: the sharded products
+    sum their f32 partials in another order before they round, and the
+    f32 gradients of the norms' scales sum their rows over the batch
+    shards in another order (f32 ulps apart in about half of them)."""
+    _, _, port = runs
+    for p in port:
+        # each rank holds its own half of the hidden dim (d_ff over the
+        # 2-way model axis), never the whole gate/up pair
+        *widths, d_ff = p[f"grad_{name}_widths"].tolist()
+        assert widths and set(widths) == {d_ff // 2}, (widths, d_ff)
+        # no product takes rows split over the sequence (with the batch
+        # over data, a [B * L] row dim split over two mesh dims)
+        taken = p[f"grad_{name}_taken"].tolist()
+        assert taken and all("S(1)" not in q for q in taken), taken
+        y = p[f"grad_{name}_y"]
+        assert (_bf16_steps(y[1], y[0]) <= 1).all()
+        assert (y[1] != y[0]).mean() <= 1e-3
+        names = p[f"grad_{name}_names"].tolist()
+        assert "/ffn/w_gate_up" in names and "h" in names
+        for key in names:
+            want, got = p[f"grad_{name}_{key}"]
+            assert np.abs(want).max() > 0, key
+            assert (_bf16_steps(got, want) <= 1).all(), (
+                key, float(_bf16_steps(got, want).max()))

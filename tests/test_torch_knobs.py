@@ -252,11 +252,14 @@ def test_remat_policy_must_be_known(qwen):
 
 def _loss_weighs(monkeypatch, nbytes: int):
     """The loss's bytes per logit for flash attention's rule (``attention
-    .beside_loss``): 0 checkpoints every walk of more than one query
-    block, a huge one none."""
+    .beside_loss``), the loss alone weighed (the gradients past the
+    first layer taken as nothing): 0 checkpoints every walk of more than
+    one query block, a huge one none."""
     from repro_torch.models import attention
     monkeypatch.setattr(attention, "LOSS_BYTES_PER_LOGIT",
                         {True: nbytes, False: nbytes})
+    monkeypatch.setattr(attention, "grads_after_first_layer",
+                        lambda *a: 0)
 
 
 ALWAYS, NEVER = 0, 1 << 40
@@ -298,6 +301,20 @@ def qwen_long():
     tcfg = t_reduced(t_get_config("qwen1.5-0.5b")).with_(remat=True)
     params = common.init_params(api.schema(cfg), jax.random.key(0))
     return tcfg, params, synthetic.make_batch(cfg, 256, 4, seed=3)
+
+
+@pytest.fixture(scope="module")
+def qwen_wide_vocab():
+    """The ``qwen`` step (SEQ 64, two query blocks) with a vocabulary of
+    512: its loss's 512 logits x 20 bytes = 10240 bytes a token outweigh
+    a layer's scores and its own backward transient together (2304 +
+    3840 bytes a token)."""
+    cfg = reduced(get_config("qwen1.5-0.5b")).with_(remat=True,
+                                                    vocab_size=512)
+    tcfg = t_reduced(t_get_config("qwen1.5-0.5b")).with_(remat=True,
+                                                        vocab_size=512)
+    params = common.init_params(api.schema(cfg), jax.random.key(0))
+    return tcfg, params, synthetic.make_batch(cfg, SEQ, 4, seed=3)
 
 
 def test_query_block_checkpoint_lowers_the_peak(qwen_long, monkeypatch):
@@ -349,24 +366,72 @@ def test_one_query_block_runs_the_same_ops(qwen, monkeypatch):
 
 
 def test_query_block_checkpoint_only_where_scores_outweigh_the_loss(
-        qwen, qwen_long, monkeypatch):
-    """The rule as ``api.loss_fn`` sets it: at SEQ 64 (two query blocks,
-    4 x 1.5 x 32 x 12 = 2304 bytes of scores a token against the loss's
-    5120) the walk stays whole, the products those of the walk without
-    the checkpoint; at seq 256 (6912 bytes) each block is checkpointed,
-    the products those of the walk with it."""
+        qwen, qwen_wide_vocab, qwen_long, monkeypatch):
+    """The rule as ``api.loss_fn`` sets it, the scores weighed with the
+    layer's own backward transient (``attention.beside_layer``: 36
+    bytes a d element, 12 a hidden one, 36 x 64 + 12 x 128 = 3840 bytes
+    a token here): at SEQ 64 (two query blocks, 4 x 1.5 x 32 x 12 = 2304
+    bytes of scores a token) each block is checkpointed against the
+    loss's 5120 (where the whole walk sets a higher peak of the step's
+    live set than the checkpointed one) and the walk stays whole against
+    a 512-token vocabulary's 10240, the products those of the walk
+    without the checkpoint; at seq 256 (6912 bytes) each block is
+    checkpointed, the products those of the walk with it."""
     _, tcfg, params, batch = qwen
-    long_cfg, long_params, long_batch = qwen_long
-    by_rule = [_bmm_count(tcfg, params, batch),
-               _bmm_count(long_cfg, long_params, long_batch)]
+    steps = [(tcfg, params, batch), qwen_wide_vocab, qwen_long]
+    by_rule = [_bmm_count(*s) for s in steps]
     _loss_weighs(monkeypatch, NEVER)
-    never = [_bmm_count(tcfg, params, batch),
-             _bmm_count(long_cfg, long_params, long_batch)]
+    never = [_bmm_count(*s) for s in steps]
+    whole_peak = _peak_of_step(*steps[0])
     _loss_weighs(monkeypatch, ALWAYS)
-    always = [_bmm_count(tcfg, params, batch),
-              _bmm_count(long_cfg, long_params, long_batch)]
-    assert by_rule == [never[0], always[1]], (by_rule, never, always)
-    assert never[1] < always[1]
+    always = [_bmm_count(*s) for s in steps]
+    assert _peak_of_step(*steps[0]) < whole_peak
+    assert by_rule == [always[0], never[1], always[2]], (by_rule, never,
+                                                         always)
+    assert all(n < a for n, a in zip(never, always))
+
+
+def _trainer_step(tcfg) -> tuple:
+    """(``StepCounter``'s peak live set, batched products) of one
+    ``Trainer`` step of ``tcfg`` (SEQ 64, batch 2, AdamW with its Kahan
+    carry) after a first step: the loss, its gradients and the
+    optimizer's update."""
+    from repro_torch.ecm import step_cost
+    from repro_torch.train.loop import Trainer
+    trainer = Trainer(tcfg, seq_len=SEQ, global_batch=2, device="cpu",
+                      seed=0)
+    trainer.init_state()
+    trainer.run(1, log_every=0)
+    with step_cost.StepCounter() as counter, _Bmms() as mode:
+        trainer.run(1, log_every=0)
+    return counter.cost.peak_bytes, mode.n
+
+
+def test_query_block_walk_whole_where_the_gradients_set_the_peak(
+        monkeypatch):
+    """A reduced qwen1.5 trainer step at SEQ 64 (two query blocks) of
+    batch 2 with d 256 and d_ff 2048: a layer's scores and transient,
+    2304 + 36 x 256 + 12 x 2048 = 36 192 bytes a token (4.6 MB), outweigh
+    the loss's 5120 (0.66 MB), but the gradients the step makes after its
+    first layer's walk (that layer's and the embedding's, 6.6 MB f32:
+    ``attention.grads_after_first_layer``) outweigh them both. The rule
+    keeps the walk whole, and checkpointing each query block would lower
+    no peak of the step's live set: the step peaks in the optimizer's
+    update, every gradient live. Weighed against the loss alone, the
+    rule would checkpoint it."""
+    from repro_torch.models import attention
+    tcfg = t_reduced(t_get_config("qwen1.5-0.5b")).with_(
+        remat=True, d_model=256, d_ff=2048)
+    peak, by_rule = _trainer_step(tcfg)
+    monkeypatch.setattr(attention, "grads_after_first_layer", lambda *a: 0)
+    _, loss_alone = _trainer_step(tcfg)
+    _loss_weighs(monkeypatch, NEVER)
+    _, never = _trainer_step(tcfg)
+    _loss_weighs(monkeypatch, ALWAYS)
+    always_peak, always = _trainer_step(tcfg)
+    assert by_rule == never < always == loss_alone, (by_rule, never,
+                                                     always, loss_alone)
+    assert always_peak == peak, (always_peak, peak)
 
 
 def test_query_block_checkpoint_waits_for_a_loss(qwen):

@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python3 tools/dryrun_peak.py --arch olmoe-1b-7b
         --shape train_4k [--mesh single|multi] [--opts a,b]
-        [--cut N | --full] [--top 12]
+        [--cut N | --full] [--top 12] [--walk rule|always]
 
 Traces one cell as ``launch.dryrun`` does (a ``"fake"`` group of 256 or
 512 ranks, fake tensors laid out as DTensors, the card's path), at each
@@ -12,8 +12,12 @@ phases' peaks and their stacked parts (``ecm.step_cost``) and the ``--top``
 largest storages live at the peak: the op that made each, its local
 shape, dtype and GB. Over all the cuts it then prints the extrapolated
 peak the dry run reports. A storage that stacks with depth shows once
-per layer. Run it as a process of its own (it starts a fake group).
-Needs no GPU.
+per layer. ``--walk always`` checkpoints every flash-attention walk of
+more than one query block (the loss and the gradients past the first
+layer taken to hold nothing), against
+which the rule's choice (``attention.beside_loss``, the default) can be
+read. Run it as a process of its own (it starts a fake group). Needs no
+GPU.
 """
 
 from __future__ import annotations
@@ -51,9 +55,14 @@ def main() -> int:
     ap.add_argument("--cut", type=int, default=None)
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--walk", choices=["rule", "always"], default="rule")
     args = ap.parse_args()
     from repro_torch.ecm.step_cost import StepCost
     from repro_torch.launch import dryrun
+    from repro_torch.models import attention
+    if args.walk == "always":
+        attention.LOSS_BYTES_PER_LOGIT = {True: 0, False: 0}
+        attention.grads_after_first_layer = lambda *a: 0
     opts = tuple(o for o in args.opts.split(",") if o)
     multi = args.mesh == "multi"
     cfg = dryrun.config_for(args.arch, args.variant, opts)
